@@ -1,0 +1,23 @@
+"""ddnerf_tpu_torch — the PyTorch/CUDA port of :mod:`ddnerf_tpu` for NVIDIA
+Hopper GPUs.
+
+The package mirrors the JAX package's layout so each module's counterpart
+is easy to find:
+
+* :mod:`ddnerf_tpu_torch.core` — frustum Gaussians, IPE, samplers, volume
+  rendering (plain torch on tensors);
+* :mod:`ddnerf_tpu_torch.models` — the MLPs as ``nn.Module`` s and the
+  coarse→fine render pipeline;
+* :mod:`ddnerf_tpu_torch.kernels` — hand-written ``sm_90a`` CUDA kernels,
+  each beside its plain PyTorch version;
+* :mod:`ddnerf_tpu_torch.render` / :mod:`ddnerf_tpu_torch.eval` /
+  :mod:`ddnerf_tpu_torch.cli` — chunked whole-image rendering, the eval
+  entry point and its command line.
+
+Modules of the JAX package that hold no JAX code (the config, the data
+loaders, host ray bundles, the PSNR/SSIM metrics, the results writer) are
+imported from :mod:`ddnerf_tpu`, not copied.  Nothing here imports JAX,
+Flax, Optax or Orbax.
+"""
+
+__version__ = "0.1.0"
