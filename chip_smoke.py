@@ -6,13 +6,27 @@ Run from the repository root.  Phases, each of which fails the run:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from ``ddnerf_tpu_torch/kernels/csrc``;
-3. kernel vs plain: the fused MLP kernel against its plain PyTorch version
-   for DepthMipMLP and MipMLP at width 256 on one production chunk (16384
-   rays x 32 samples) and on ragged shapes, with CUDA-event timings;
-4. main path: ``python -m ddnerf_tpu_torch.cli.eval`` on a logdir holding
-   ``configs/synthetic_smoke.yml`` and a seeded checkpoint; results.txt
-   must hold finite PSNR / SSIM and the render must launch the kernel;
-5. full-size frame: one 800x800 render through the kernel and through the
+3. forward kernel vs plain: the fused MLP forward (render mode) against
+   its plain PyTorch version for DepthMipMLP and MipMLP at width 256 on one
+   production chunk (16384 rays x 32 samples) and on ragged shapes, with
+   CUDA-event timings;
+4. training kernels vs plain: the stash forward (outputs bit-identical to
+   render mode, activation slabs within the forward tolerances) and the
+   fused backward (every gradient within its norm-relative tolerance,
+   bitwise repeatable) against their plain versions at the training shape
+   (2048 rays x 32 samples) and a ragged one, with CUDA-event timings;
+5. training main path: ``python -m ddnerf_tpu_torch.cli.train`` on
+   ``configs/synthetic_smoke.yml`` for 200 iterations: finite losses, a
+   lower mean loss over the last 20 iterations than over the first 20, a
+   validation line, ``config.yml`` and ``checkpoint.ckpt``, and two
+   launches of each training kernel per step;
+6. serving main path: ``python -m ddnerf_tpu_torch.cli.eval`` on the
+   trained logdir; results.txt must hold finite PSNR / SSIM and the render
+   must launch the forward kernel;
+7. kernel vs plain training: two pipelines from one seed, ``pallas_mlp:
+   auto`` and ``off``, on the same 20 batches with identically seeded
+   generators; loss trajectories within a stated gap, and both step times;
+8. full-size frame: one 800x800 render through the kernel and through the
    plain version, compared by PSNR, with both wall times.
 
 The second-to-last line is the kernel table as JSON; the last line is
@@ -46,6 +60,36 @@ FRAME_PSNR_MIN = 40.0  # dB between the kernel's and the plain 800x800 rgb
 CHUNK_RAYS, SAMPLES = 16384, 32
 FRAME = 800  # the blender lego resolution
 TIMING_REPS = 10
+# The training shape: 2048 rays x 32 samples per network per step.
+TRAIN_RAYS = 2048
+# Fused backward vs its plain version, per gradient: ||kernel - plain|| /
+# ||plain|| (Frobenius).  Both take bf16 operands and accumulate in f32;
+# they differ in summation order (split-K partials, tile order), and an
+# order change can flip the bf16 rounding of a cotangent element, which
+# then propagates down the dgrad chain, so the difference grows from the
+# heads towards layer 0.  Readings at both shapes, both networks (NVIDIA
+# H100 80GB HBM3, 700 W): trunk leaves <= 7.1e-4 (layers_xyz.0), the
+# leaves after the trunk <= 4.1e-5.  The faults each limit must fail:
+# weight gradients rounded to bf16, or biases summed after the cotangent's
+# rounding, read >= 1.47e-3 on every trunk leaf and >= 4.8e-4 after it.
+GRAD_NORM_REL_TOL_TRUNK = 1e-3  # layers_xyz.*
+GRAD_NORM_REL_TOL_HEADS = 1.5e-4  # fc_feat, fc_alpha, layers_dir, fc_rgb, ...
+# B2 accumulates the weight gradients in f32: of their nonzero elements,
+# at most this share may be exactly representable in bf16 (read <= 0.4%;
+# weight gradients rounded to bf16 read 100%).
+WEIGHT_GRAD_BF16_SHARE_MAX = 0.05
+TRAIN_ITERS = 200
+LOSS_WINDOW = 20  # iterations averaged at each end of the training run
+PARITY_STEPS = 20
+# Kernel vs plain training, per step: |loss_kernel - loss_plain| /
+# loss_plain.  The two differ in summation order and in the weight
+# gradients (f32 in the kernel, rounded to bf16 by the plain path's cast).
+# Read 1.26e-6.  Faults injected into B2's gradients read: the dir layer's
+# zeroed 3.0e-3, every bias zeroed 1.0e-3, trunk layers 0-3 zeroed 2.4e-5,
+# every gradient x0.1 2.2e-5.  Layer 0 alone zeroed (1.5e-6) and
+# bf16-rounded weight gradients (5.3e-7) are invisible in 20 early steps:
+# the per-gradient gates above catch those.
+PARITY_GAP_TOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -140,55 +184,249 @@ def phase_kernel(torch):
     return worst, timing
 
 
-def write_logdir(logdir):
-    """``logdir/config.yml`` (configs/synthetic_smoke.yml) and a
-    ``checkpoint.ckpt`` of the port's seeded initialization."""
-    from ddnerf_tpu_torch.config import load_config
-    from ddnerf_tpu_torch.models.nerf import NerfPipeline
-    from ddnerf_tpu_torch.utils.weights import save_checkpoint
-
-    cfg = load_config(CONFIG)
-    with open(os.path.join(logdir, "config.yml"), "w") as f:
-        f.write(cfg.dump())
-    pipe = NerfPipeline(cfg, "cpu", seed=0)
-    save_checkpoint(os.path.join(logdir, "checkpoint.ckpt"), pipe.coarse,
-                    pipe.fine, step=0)
+def _rel(a, b):
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
 
 
-def phase_main_path():
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logdir:
-        write_logdir(logdir)
-        env = dict(os.environ)
-        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-        cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.eval",
-               "--logdir", logdir, "--max-images", "2"]
-        t0 = time.perf_counter()
-        # A fresh process: its kernel launch counts start at 0.
-        proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                              text=True, timeout=900)
-        wall = time.perf_counter() - t0
-        for line in proc.stdout.splitlines():
-            print(f"[eval] {line}")
-        if proc.returncode != 0:
-            print(proc.stderr[-4000:], file=sys.stderr)
-            fail(f"eval CLI exited {proc.returncode}")
-        results = os.path.join(logdir, "validation", "results.txt")
-        if not os.path.isfile(results):
-            fail("eval wrote no validation/results.txt")
-        with open(results) as f:
-            metrics = re.findall(
-                r"^(?:image \d+ , )?((?:psnr|ssim)\w*):\s*(\S+)$", f.read(),
-                re.M)
-        if len(metrics) < 12 or not all(math.isfinite(float(v))
-                                        for _, v in metrics):
-            fail(f"results.txt metrics not all finite: {metrics}")
-        m = re.search(r"^kernel launches: (\{.*\})$", proc.stdout, re.M)
-        launches = json.loads(m.group(1)) if m else {}
+def phase_train_kernels(torch):
+    """The stash forward (B1s) and the fused backward (B2) against their
+    plain versions, on the same inputs."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
+
+    dev = torch.device("cuda")
+    worst = {"fused_mlp_fwd_stash": 0.0, "fused_mlp_bwd": 0.0}
+    timing = {}
+    for cls in (DepthMipMLP, MipMLP):
+        gen = torch.Generator().manual_seed(1)
+        net = cls(hidden_size=256, compute_dtype=torch.bfloat16,
+                  generator=gen).to(dev)
+        for rays, k in ((TRAIN_RAYS, SAMPLES), (333, 33)):
+            n = rays * k
+            tag = f"{cls.__name__} N={n} K={k}"
+            ipe = (torch.rand(n, 96, generator=gen) * 2 - 1).to(dev)
+            dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
+            g = torch.randn(n, net.out_dim, generator=gen).to(dev)
+            out_r = fk.fused_mlp_forward(net, ipe, dirs, k)
+            out_s, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+            torch.cuda.synchronize()
+            if not torch.equal(out_r, out_s):
+                fail(f"stash-mode outputs differ from render mode ({tag})")
+            ref_out, ref_stash = ref.fused_mlp_stash_reference(net, ipe, dirs,
+                                                               k)
+            slabs = list(stash.trunk) + [stash.h]
+            ref_slabs = list(ref_stash.trunk) + [ref_stash.h]
+            errs = [(a.float() - b.float()).abs() for a, b in
+                    zip([out_s] + slabs, [ref_out] + ref_slabs)]
+            max_err = max(e.max().item() for e in errs)
+            mean_err = max(e.mean().item() for e in errs)
+            ok = max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
+            print(f"[train-kernel] B1s {tag}: outputs bit-identical to render "
+                  f"mode; outputs + 10 stash slabs vs plain: max_abs "
+                  f"{max_err:.3e} (tol {MAX_ABS_TOL:g}), worst slab mean_abs "
+                  f"{mean_err:.3e} (tol {MEAN_ABS_TOL:g}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"fused_mlp_fwd_stash disagrees with the plain version "
+                     f"({tag})")
+            worst["fused_mlp_fwd_stash"] = max(worst["fused_mlp_fwd_stash"],
+                                               max_err)
+
+            grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
+            again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
+            torch.cuda.synchronize()
+            if not all(torch.equal(grads[name], again[name]) for name in grads):
+                fail(f"fused_mlp_bwd is not bitwise repeatable ({tag})")
+            plain = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k,
+                                                     stash)
+            bad = []
+            for name in plain:
+                rel = _rel(grads[name], plain[name])
+                abs_err = (grads[name] - plain[name]).abs().max().item()
+                worst["fused_mlp_bwd"] = max(worst["fused_mlp_bwd"], abs_err)
+                tol = (GRAD_NORM_REL_TOL_TRUNK
+                       if name.startswith("layers_xyz.")
+                       else GRAD_NORM_REL_TOL_HEADS)
+                ok, share = rel <= tol, ""
+                if name.endswith("weight"):
+                    nz = grads[name][grads[name] != 0]
+                    frac = (nz == nz.bfloat16().float()).float().mean().item()
+                    share = (f", bf16-exact share {frac:.4f} (max "
+                             f"{WEIGHT_GRAD_BF16_SHARE_MAX:g})")
+                    ok = ok and frac <= WEIGHT_GRAD_BF16_SHARE_MAX
+                if not ok:
+                    bad.append(name)
+                print(f"[train-kernel] B2 {tag} d{name}: norm_rel {rel:.3e} "
+                      f"(tol {tol:g}), max_abs {abs_err:.3e}{share}")
+            print(f"[train-kernel] B2 {tag}: {len(plain)} gradients, bitwise "
+                  f"repeatable, {'all within tolerance' if not bad else bad}",
+                  flush=True)
+            if bad:
+                fail(f"fused_mlp_bwd disagrees with the plain version "
+                     f"({tag}: {bad})")
+            if rays != TRAIN_RAYS:
+                continue
+            t = {
+                "fwd_stash": _event_ms(torch, lambda: fk.fused_mlp_forward(
+                    net, ipe, dirs, k, stash=True)),
+                "bwd": _event_ms(torch, lambda: fk.fused_mlp_backward(
+                    net, ipe, dirs, g, k, stash)),
+                "plain_fwd": _event_ms(torch, lambda: ref.
+                                       fused_mlp_stash_reference(net, ipe,
+                                                                 dirs, k)),
+                "plain_bwd": _event_ms(torch, lambda: ref.
+                                       fused_mlp_backward_reference(
+                                           net, ipe, dirs, g, k, stash)),
+            }
+            weights = sum(p.numel() for n_, p in net.named_parameters()
+                          if n_.endswith("weight"))
+            flop = 6 * n * weights  # forward + dgrad + wgrad
+            kern = t["fwd_stash"] + t["bwd"]
+            print(f"[train-kernel] {tag}: B1s {t['fwd_stash']:.3f} ms + B2 "
+                  f"{t['bwd']:.3f} ms = {kern:.3f} ms "
+                  f"({flop / kern / 1e9:.1f} TFLOP/s); plain forward "
+                  f"{t['plain_fwd']:.3f} ms + plain backward "
+                  f"{t['plain_bwd']:.3f} ms = "
+                  f"{t['plain_fwd'] + t['plain_bwd']:.3f} ms (CUDA-event "
+                  f"medians of {TIMING_REPS})", flush=True)
+            timing[cls.__name__] = t
+    return worst, timing
+
+
+def _subprocess(cmd, tag, timeout=900):
+    """Run ``cmd`` from the repository root in a fresh process (its kernel
+    launch counts start at 0), echo its stdout, fail on a non-zero exit."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        print(f"[{tag}] {line}")
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        fail(f"{' '.join(cmd[2:4])} exited {proc.returncode}")
+    m = re.search(r"^kernel launches: (\{.*\})$", proc.stdout, re.M)
+    return proc.stdout, (json.loads(m.group(1)) if m else {}), wall
+
+
+def phase_train_main_path(logroot):
+    """The training CLI at full width; returns (logdir, launch counts)."""
+    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
+           CONFIG, "--max-iters", str(TRAIN_ITERS),
+           "experiment.logdir", logroot]
+    out, launches, wall = _subprocess(cmd, "train")
+    logdir = os.path.join(logroot, "synthetic_smoke")
+    train_lines = re.findall(r"^\[TRAIN\] iter (\d+) loss (\S+) psnr (\S+)",
+                             out, re.M)
+    val_lines = re.findall(r"^\[VAL\] iter \d+ loss (\S+) psnr (\S+)", out,
+                           re.M)
+    if not train_lines or not all(math.isfinite(float(a)) and
+                                  math.isfinite(float(b))
+                                  for _, a, b in train_lines):
+        fail(f"[TRAIN] lines missing or not finite: {train_lines}")
+    if not val_lines or not all(math.isfinite(float(a)) and
+                                math.isfinite(float(b)) for a, b in val_lines):
+        fail(f"[VAL] lines missing or not finite: {val_lines}")
+    for name in ("config.yml", "checkpoint.ckpt", "metrics.jsonl"):
+        if not os.path.isfile(os.path.join(logdir, name)):
+            fail(f"training wrote no {name} in {logdir}")
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    losses = [r["loss"] for r in records if r["kind"] == "train"]
+    if len(losses) != TRAIN_ITERS or not all(map(math.isfinite, losses)):
+        fail(f"metrics.jsonl holds {len(losses)} finite train losses, "
+             f"expected {TRAIN_ITERS}")
+    first = statistics.mean(losses[:LOSS_WINDOW])
+    last = statistics.mean(losses[-LOSS_WINDOW:])
+    print(f"[train] mean loss of iterations 0-{LOSS_WINDOW - 1}: {first:.5f}, "
+          f"of the last {LOSS_WINDOW}: {last:.5f}; wall {wall:.1f} s, "
+          f"launches {launches}", flush=True)
+    if not last < first:
+        fail("training did not lower the mean loss")
+    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+        if launches.get(name) != 2 * TRAIN_ITERS:
+            fail(f"training launched {name} {launches.get(name)} times, "
+                 f"expected {2 * TRAIN_ITERS} (two networks per step)")
+    return logdir, launches
+
+
+def phase_main_path(logdir):
+    """The eval CLI on the trained logdir; returns its launch counts."""
+    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.eval",
+           "--logdir", logdir, "--max-images", "2"]
+    _, launches, wall = _subprocess(cmd, "eval")
+    results = os.path.join(logdir, "validation", "results.txt")
+    if not os.path.isfile(results):
+        fail("eval wrote no validation/results.txt")
+    with open(results) as f:
+        metrics = re.findall(
+            r"^(?:image \d+ , )?((?:psnr|ssim)\w*):\s*(\S+)$", f.read(),
+            re.M)
+    if len(metrics) < 12 or not all(math.isfinite(float(v))
+                                    for _, v in metrics):
+        fail(f"results.txt metrics not all finite: {metrics}")
     print(f"[eval] {len(metrics)} finite PSNR/SSIM values, wall {wall:.1f} s, "
           f"launches {launches}", flush=True)
     if launches.get("fused_mlp_fwd", 0) <= 0:
         fail("the eval render did not launch fused_mlp_fwd")
     return launches
+
+
+def phase_train_parity(torch):
+    """Kernel vs plain training from one seed on the same batches."""
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.datasets import (
+        load_train_store,
+        sample_rays_on_device,
+    )
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.train.state import TrainState
+    from ddnerf_tpu_torch.train.step import train_step
+
+    dev = torch.device("cuda")
+    store, _, cfg = load_train_store(load_config(CONFIG), dev)
+    draw = torch.Generator(device=dev).manual_seed(7)
+    batches = []
+    for _ in range(PARITY_STEPS):
+        ro, rd, radii, rgb = sample_rays_on_device(
+            store, draw, cfg.nerf.train.num_random_rays,
+            cfg.dataset.single_image_mode)
+        batches.append({"origins": ro, "directions": rd, "radii": radii,
+                        "rgb": rgb})
+    losses, step_ms = {}, {}
+    for name, policy in (("kernel", "auto"), ("plain", "off")):
+        c = cfg.replace_at("parallel.pallas_mlp", policy)
+        pipe = NerfPipeline(c, dev, seed=0)
+        state = TrainState(c, pipe)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        traj, marks = [], {}
+        for i, batch in enumerate(batches):
+            if i == 5:  # steady state: after the first steps' set-up
+                torch.cuda.synchronize()
+                marks["t0"] = time.perf_counter()
+            traj.append(train_step(c, pipe, state, batch, gen)["loss"])
+        torch.cuda.synchronize()
+        step_ms[name] = (time.perf_counter() - marks["t0"]) * 1e3 / (
+            PARITY_STEPS - 5)
+        losses[name] = [float(v) for v in traj]
+    gap = max(abs(a - b) / abs(b)
+              for a, b in zip(losses["kernel"], losses["plain"]))
+    rays = cfg.nerf.train.num_random_rays
+    for name in losses:
+        print(f"[parity] {name} losses: "
+              + " ".join(f"{v:.5f}" for v in losses[name]))
+        print(f"[parity] {name}: {step_ms[name]:.2f} ms/step steady state "
+              f"(steps 5-{PARITY_STEPS - 1}), "
+              f"{rays / step_ms[name] * 1e3:,.0f} rays/s", flush=True)
+    print(f"[parity] largest relative loss gap kernel vs plain {gap:.3e} "
+          f"(gate {PARITY_GAP_TOL:g})", flush=True)
+    if not gap <= PARITY_GAP_TOL or not all(
+            math.isfinite(v) for v in losses["kernel"] + losses["plain"]):
+        fail("kernel and plain training trajectories disagree")
+    return step_ms
 
 
 def _pose(theta_deg=30.0, phi_deg=-30.0, radius=4.0):
@@ -268,14 +506,22 @@ def main():
     phase_device(torch)
     phase_build()
     max_err, timing = phase_kernel(torch)
-    launches = phase_main_path()
+    train_err, train_timing = phase_train_kernels(torch)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logroot:
+        logdir, train_launches = phase_train_main_path(logroot)
+        launches = phase_main_path(logdir)
+    step_ms = phase_train_parity(torch)
     frame_kernel_s, frame_plain_s = phase_frame(torch)
     print(f"[frame] best of two: kernel {frame_kernel_s:.3f} s, plain "
-          f"{frame_plain_s:.3f} s; whole run {time.perf_counter() - t_start:.1f} s")
-    if "jax" in sys.modules:
-        fail("JAX was imported")
+          f"{frame_plain_s:.3f} s; train step kernel {step_ms['kernel']:.2f} "
+          f"ms, plain {step_ms['plain']:.2f} ms; whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    leaked = [m for m in ("jax", "flax", "optax", "orbax") if m in sys.modules]
+    if leaked:
+        fail(f"imported {leaked}")
 
     ms, plain_ms = timing["DepthMipMLP"]
+    coarse = train_timing["DepthMipMLP"]
     print(json.dumps({"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -285,6 +531,24 @@ def main():
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_mlp_fwd_stash",
+        "route": "cuda",
+        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
+        "replaces": "ddnerf_tpu/kernels/fused_mlp.py:464",
+        "launches": train_launches["fused_mlp_fwd_stash"],
+        "max_abs_err": train_err["fused_mlp_fwd_stash"],
+        "ms": coarse["fwd_stash"],
+        "plain_ms": coarse["plain_fwd"],
+    }, {
+        "name": "fused_mlp_bwd",
+        "route": "cuda",
+        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
+        "replaces": "ddnerf_tpu/kernels/fused_mlp_bwd.py:299",
+        "launches": train_launches["fused_mlp_bwd"],
+        "max_abs_err": train_err["fused_mlp_bwd"],
+        "ms": coarse["bwd"],
+        "plain_ms": coarse["plain_bwd"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -182,3 +182,18 @@ def truncated_gaussian_tails(mus, sigmas):
     left_tail = normal_cdf((0.0 - mus) / sigmas)
     part_inside_bins = normal_cdf((1.0 - mus) / sigmas) - left_tail
     return left_tail, part_inside_bins
+
+
+# --------------------------------------------------------------------------
+# Losses and metrics (reference nerf_helpers.py)
+# --------------------------------------------------------------------------
+
+
+def img2mse(img_src, img_tgt):
+    return torch.mean((img_src - img_tgt) ** 2)
+
+
+def mse2psnr(mse):
+    """PSNR of an MSE, floored at 1e-5 (50 dB) as the JAX package."""
+    mse = torch.clamp(torch.as_tensor(mse), min=1e-5)
+    return -10.0 * torch.log10(mse)

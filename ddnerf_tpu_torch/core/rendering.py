@@ -1,8 +1,9 @@
-"""Volume rendering (alpha compositing), forward only.
+"""Differentiable volume rendering (alpha compositing).
 
 Counterpart of ``ddnerf_tpu/core/rendering.py::volume_render``
-(reference volume_rendering_utils.py:6-85).  The analytic-adjoint backward
-of the compositing weights comes with the training slice.
+(reference volume_rendering_utils.py:6-85), with the analytic adjoint of
+the compositing weights (``_weights_from_alpha_analytic``, rendering.py
+37-82) as a ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -19,8 +20,45 @@ def cumprod_exclusive(x: torch.Tensor) -> torch.Tensor:
         dim=-1)
 
 
-def weights_from_alpha(alpha: torch.Tensor) -> torch.Tensor:
-    """``w_i = a_i * prod_{j<i} (1 - a_j + 1e-10)``."""
+class _WeightsFromAlpha(torch.autograd.Function):
+    """``w = a * T`` with the hand-derived adjoint
+
+        dL/da_k = gw_k T_k - (sum_{i>k} gw_i w_i) / (1 - a_k + 1e-10)
+
+    (dT_i/da_k = -T_i / (1 - a_k + e) for k < i), one reverse cumsum instead
+    of autograd through the cumprod chain.  Two details are the JAX
+    package's and matter: the suffix sum is STRICT, taken as
+    shift-then-reverse-cumsum (an inclusive cumsum minus the own term
+    cancels catastrophically when alpha saturates), and the divisor is
+    clamped at 1e-10, so a saturated alpha == 1.0 never divides by 0
+    (ROADMAP C2)."""
+
+    @staticmethod
+    def forward(ctx, alpha):
+        trans = cumprod_exclusive(1.0 - alpha + 1e-10)
+        w = alpha * trans
+        ctx.save_for_backward(alpha, trans, w)
+        return w
+
+    @staticmethod
+    def backward(ctx, gw):
+        alpha, trans, w = ctx.saved_tensors
+        gww = gw * w
+        shifted = torch.cat([gww[..., 1:], torch.zeros_like(gww[..., :1])],
+                            dim=-1)
+        suffix = torch.flip(torch.cumsum(torch.flip(shifted, (-1,)), dim=-1),
+                            (-1,))
+        denom = torch.clamp(1.0 - alpha + 1e-10, min=1e-10)
+        return gw * trans - suffix / denom
+
+
+def weights_from_alpha(alpha: torch.Tensor,
+                       analytic_vjp: bool = False) -> torch.Tensor:
+    """``w_i = a_i * prod_{j<i} (1 - a_j + 1e-10)``.  ``analytic_vjp``
+    (config ``parallel.composite_custom_vjp``) selects the analytic adjoint;
+    otherwise autograd differentiates the cumprod."""
+    if analytic_vjp:
+        return _WeightsFromAlpha.apply(alpha)
     return alpha * cumprod_exclusive(1.0 - alpha + 1e-10)
 
 
@@ -45,6 +83,7 @@ def volume_render(
     white_background=False,
     mus=None,
     eps_mask_pdf=False,
+    analytic_weights_vjp=False,
 ) -> RenderOutput:
     """Composite per-sample radiance into per-ray maps.
 
@@ -56,6 +95,8 @@ def volume_render(
     adds 1e-10 to the last section's weight before normalizing the depth
     pdf (blender scenes); ``mus`` switches the depth to the per-section
     expected depth ``t0 + μ (t1 - t0)`` (the DDNeRF μ-corrected depth).
+    Differentiable into ``raw_rgb``, ``raw_density`` and ``mus``;
+    ``analytic_weights_vjp`` picks the weights' adjoint.
     """
     mids = (t_vals[..., 1:] + t_vals[..., :-1]) / 2.0
     dists = t_vals[..., 1:] - t_vals[..., :-1]
@@ -71,7 +112,7 @@ def volume_render(
 
     sigma_a = F.softplus(density - 1.0)
     alpha = 1.0 - torch.exp(-sigma_a * delta)
-    weights = weights_from_alpha(alpha)
+    weights = weights_from_alpha(alpha, analytic_weights_vjp)
 
     rgb_map = torch.sum(weights[..., None] * rgb, dim=-2)
 

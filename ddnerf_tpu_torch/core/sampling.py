@@ -101,13 +101,17 @@ def _build_cdf(weights):
         dim=-1)
 
 
-def interval_index(u, cdf):
-    """Index of the CDF interval holding each ``u`` (``>=`` convention,
-    clipped to [0, S-1]): the count of interior fenceposts ``<= u``."""
-    inner = cdf[..., 1:-1].contiguous()
-    return torch.searchsorted(inner, u.contiguous(), right=True)
+def interval_index(x, fences, strict: bool = False):
+    """Index of the interval of the sorted ``fences [..., S+1]`` that holds
+    each ``x [..., M]``, clipped to [0, S-1]: the count of interior
+    fenceposts ``<= x`` (the CDF-inverse convention, samplers.py:106-119),
+    or ``< x`` with ``strict`` (the dp-loss convention of
+    ``interval_one_hot(strict=True)``, dd_utils.py:43)."""
+    inner = fences[..., 1:-1].contiguous()
+    return torch.searchsorted(inner, x.contiguous(), right=not strict)
 
 
+@torch.no_grad()
 def sample_pdf_with_mu_sigma(
     bins,
     weights,
@@ -138,6 +142,12 @@ def sample_pdf_with_mu_sigma(
     ``det`` places ``u`` on ``linspace(0, 0.9999)``; otherwise on a
     stratified grid jittered by ``jitter`` (uniform [0, 1) draws of shape
     ``[..., num_samples]``, drawn from ``generator`` if not given).
+
+    Runs under ``no_grad``: the fine fenceposts are detached from the
+    coarse graph, as ``t1 = stop_gradient(t1)`` in the JAX pipeline
+    (models/nerf.py:879) and the reference's ``nn.Parameter`` wrap
+    (samplers.py:215).  The endpoint pins below write in place on that
+    detached result, never on a graph tensor.
     """
     weights = _blur_and_pad_weights(weights, pdf_padding)
     cdf = _build_cdf(weights)

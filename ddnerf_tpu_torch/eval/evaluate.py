@@ -24,11 +24,13 @@ from ddnerf_tpu.eval.metrics import calc_ssim, psnr
 from ddnerf_tpu.viz.visualization import write_dicts_to_a_file
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, ScheduleValues
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
-from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+from ddnerf_tpu_torch.train.checkpoint import (
+    CHECKPOINT_NAME,
+    load_config_snapshot,
+)
 from ddnerf_tpu_torch.utils.weights import load_checkpoint
 
 MAX_VALIDATION_IMAGES = 10  # eval_nerf.py:18
-CHECKPOINT_NAME = "checkpoint.ckpt"
 
 
 def resolve_device(name: str) -> torch.device:

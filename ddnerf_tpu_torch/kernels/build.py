@@ -96,13 +96,23 @@ def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with C signatures."""
     lib = ctypes.CDLL(str(build().path))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    offs = [ctypes.POINTER(i64), ctypes.POINTER(i64)]  # w_off, b_off (host)
     lib.ddnerf_fused_mlp_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, w, b, dproj, out
+        ptr, ptr,  # stash, stash_h (null in render mode)
         i64, i32, i32, i32,  # n, samples, hidden, depth_head
-        ctypes.POINTER(i64), ctypes.POINTER(i64),  # w_off, b_off (host)
-        ptr,  # stream
+        *offs, ptr,  # w_off, b_off, stream
     ]
     lib.ddnerf_fused_mlp_fwd.restype = i32
+    lib.ddnerf_fused_mlp_bwd_workspace.argtypes = [i64, i32, i32]
+    lib.ddnerf_fused_mlp_bwd_workspace.restype = i64
+    lib.ddnerf_fused_mlp_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, g, stash, stash_h, w
+        ptr, ptr, ptr, i64,  # gw, gb, workspace, workspace bytes
+        i64, i32, i32, i32,  # n, samples, hidden, depth_head
+        *offs, ptr,  # w_off, b_off, stream
+    ]
+    lib.ddnerf_fused_mlp_bwd.restype = i32
     lib.ddnerf_cuda_error_string.argtypes = [i32]
     lib.ddnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

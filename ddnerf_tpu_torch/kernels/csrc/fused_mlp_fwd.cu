@@ -3,8 +3,8 @@
 // kept in shared memory.
 //
 // Replaces the TPU kernel ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward
-// (body _kernel -> _net_body) in render mode: no activation stash, view
-// directions given once per ray.
+// (body _kernel -> _net_body) in render mode (no stash) and in stash mode
+// (stash=True, the training forward), view directions given once per ray.
 //
 // What it computes, per row (rows are ray-major: row r belongs to ray r / K):
 //   x0 = relu(ipe @ W0 + b0)                     trunk, width H, bf16 out
@@ -18,9 +18,19 @@
 // exactly where the TPU kernel rounds.  The output is f32 [N, 4|6] =
 // (rgb, alpha[, raw_mu, raw_sigma]).
 //
+// Stash mode (the activations the backward kernel fused_mlp_bwd.cu reads):
+// after each layer's write-back to shared memory the tile is also copied to
+// device memory, bf16, in the split layout of the TPU kernel's
+// split_h_stash: trunk slabs x0..x6 as [7, N, H] and h as [N, 128].  This
+// port also stashes x7 and feat, as slabs 7 and 8 of the same [9, N, H]
+// buffer, so the backward reads them instead of recomputing them from x6
+// (the values are the same either way).  The stash changes no arithmetic:
+// the outputs are bit-identical to a render-mode launch.
+//
 // What bounds it on an H100: tensor-core throughput.  A row costs ~0.6
 // MFLOP x 2 against ~200 bytes of input and 16-24 bytes of output, and the
 // ~1.2 MB of bf16 weights per network are re-read by every tile from L2.
+// Stash mode adds 2 * (9 H + 128) bytes of writes per row.
 //
 // Design (first, simple version; wgmma/TMA are later work):
 // * A CTA of 8 warps owns BM = 128 rows.  Its activations live in one
@@ -40,37 +50,19 @@
 //   scratch buffer, so K is a runtime value and any N is accepted (rows
 //   past N are masked).
 //
-// Weight/bias packing (built by kernels/fused_mlp.py::pack_weights, torch
-// [out, in] layout, offsets in elements passed in w_off / b_off):
-//   w_off[0..7]  trunk W0 [H, 96], W1..W7 [H, H] except W5 [H, 96 + H]
-//   w_off[8]     fc_feat [H, H]
-//   w_off[9]     dir layer [144, H]: rows 0..127 Wd_feat, row 128 fc_alpha
-//   w_off[10]    heads [16, 128]: rows 0..2 fc_rgb, rows 3..4 fc_mu_sigma
-//   w_off[11]    Wd_dirs [128, 32] (27 used)
-//   b_off[0..3]  trunk biases [8, H], fc_feat [H], dir [144] (128 = alpha),
-//                heads [16]
+// Weight/bias packing: see mma_common.cuh (built by
+// kernels/fused_mlp.py::pack_weights).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_common.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
+using namespace ddnerf;
 
 constexpr int BM = 128;          // rows per CTA
 constexpr int NTHREADS = 256;    // 8 warps
 constexpr int KS = 32;           // k-slice of streamed weights
-constexpr int IPE = 96;          // IPE features
-constexpr int DIRS = 27;         // view-direction PE features
-constexpr int DIRS_LD = 32;      // row stride of packed Wd_dirs
-constexpr int DH = 128;          // dir-branch width
-constexpr int DHP = 144;         // dir layer outputs: h | alpha | zero pad
-constexpr int NHEAD = 16;        // head outputs: rgb | mu, sigma | zero pad
-constexpr int NTRUNK = 8;
-constexpr int SKIP = 5;
-constexpr int L_FEAT = 8, L_DIR = 9, L_HEAD = 10, NLAYER = 11;
-constexpr int PAD = 8;           // bf16 row padding: conflict-free ldmatrix
+constexpr int L_FEAT = W_FEAT, L_DIR = W_DIR, L_HEAD = W_HEAD, NLAYER = 11;
 constexpr int IPE_LD = IPE + PAD;
 constexpr int WS_LD = KS + PAD;
 
@@ -80,6 +72,8 @@ struct Params {
   const float* b;      // packed biases
   const float* dproj;  // [n / samples, 128]
   float* out;          // [n, out_dim]
+  bf16* stash;         // [9, n, H] x0..x7, feat; null in render mode
+  bf16* stash_h;       // [n, 128] h; null in render mode
   long long n;
   int samples;
   int out_dim;
@@ -104,40 +98,6 @@ struct Shape {
     return l == 0 ? IPE : (l == SKIP ? IPE + H : (l == L_HEAD ? DH : H));
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)) : "memory");
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Slice s of layer l's weights, W[:, s*KS : s*KS+KS] -> dst [n_out][WS_LD].
 template <int H>
@@ -260,6 +220,21 @@ __device__ __forceinline__ void store_act(bf16* act, const float* bias,
   }
 }
 
+// Stash mode: copy the tile's rows of act ([BM][ld], `width` columns) to
+// dst [n, width] in 16-byte chunks (rows past n are skipped).  Call after a
+// barrier that follows the write-back.
+__device__ __forceinline__ void stash_tile(const bf16* act, int ld, int width,
+                                           bf16* dst, long long r0,
+                                           long long n) {
+  const int cpr = width / 8;
+  for (int c = threadIdx.x; c < BM * cpr; c += NTHREADS) {
+    const int r = c / cpr, q = c % cpr;
+    if (r0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (r0 + r) * width + q * 8) =
+          *reinterpret_cast<const uint4*>(act + r * ld + q * 8);
+  }
+}
+
 template <int H>
 __global__ void __launch_bounds__(NTHREADS, 1)
     fused_mlp_fwd_kernel(const Params p) {
@@ -287,9 +262,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     for (int l = 0; l < NTRUNK; ++l) {
       gemm_layer<H, 4, NT>(p, l, stage, act, ipe_s, wst, row0, n0, acc);
       store_act<H, 4, NT, true>(act, p.b + p.b_off[0] + l * H, row0, n0, acc);
+      if (p.stash) {
+        __syncthreads();
+        stash_tile(act, S::ACT_LD, H, p.stash + l * p.n * H, r0, p.n);
+      }
     }
     gemm_layer<H, 4, NT>(p, L_FEAT, stage, act, ipe_s, wst, row0, n0, acc);
     store_act<H, 4, NT, false>(act, p.b + p.b_off[1], row0, n0, acc);
+    if (p.stash) {
+      __syncthreads();
+      stash_tile(act, S::ACT_LD, H, p.stash + NTRUNK * p.n * H, r0, p.n);
+    }
   }
 
   // Dir layer (+ alpha in column DH): each warp owns 16 rows.
@@ -323,6 +306,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
         }
       }
     }
+  }
+  if (p.stash_h) {
+    __syncthreads();
+    stash_tile(act, S::ACT_LD, DH, p.stash_h, r0, p.n);
   }
 
   // Heads: rgb -> out[:, 0:3], (mu, sigma) -> out[:, 4:6].
@@ -383,11 +370,14 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // Launches the dir projection and the fused network on `stream`.  Device
 // pointers: ipe [n, 96] bf16, dirs [n / samples, 27] bf16, packed weights
-// and biases, dproj [n / samples, 128] f32 scratch, out [n, 4|6] f32.
-// w_off (12 entries) and b_off (4) are host arrays.  Returns a cudaError_t.
+// and biases, dproj [n / samples, 128] f32 scratch, out [n, 4|6] f32, and
+// in stash mode stash [9, n, hidden] and stash_h [n, 128] bf16 (both null
+// in render mode).  w_off (12 entries) and b_off (4) are host arrays.
+// Returns a cudaError_t.
 extern "C" int ddnerf_fused_mlp_fwd(const void* ipe, const void* dirs,
                                     const void* w, const void* b, void* dproj,
-                                    void* out, long long n, int samples,
+                                    void* out, void* stash, void* stash_h,
+                                    long long n, int samples,
                                     int hidden, int depth_head,
                                     const long long* w_off,
                                     const long long* b_off, void* stream) {
@@ -399,6 +389,9 @@ extern "C" int ddnerf_fused_mlp_fwd(const void* ipe, const void* dirs,
   p.b = static_cast<const float*>(b);
   p.dproj = static_cast<const float*>(dproj);
   p.out = static_cast<float*>(out);
+  p.stash = static_cast<bf16*>(stash);
+  p.stash_h = static_cast<bf16*>(stash_h);
+  if ((stash == nullptr) != (stash_h == nullptr)) return cudaErrorInvalidValue;
   p.n = n;
   p.samples = samples;
   p.out_dim = depth_head ? 6 : 4;

@@ -1,31 +1,41 @@
-"""Fused NeRF MLP forward: the hand-written Hopper kernel
-(``csrc/fused_mlp_fwd.cu``) and its wrapper.
+"""Fused NeRF MLP kernels and their wrappers: the forward
+(``csrc/fused_mlp_fwd.cu``) in render and stash mode, the backward
+(``csrc/fused_mlp_bwd.cu``), and the ``autograd.Function`` that joins them
+for training.
 
-Replaces ``ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward`` in render
-mode (no activation stash, per-ray view directions).  The kernel computes
-the whole MipMLP / DepthMipMLP network per tile of 128 rows with every
-activation in shared memory; the CUDA source says what bounds it and how
-it is laid out.
+Replaces ``ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward`` (render
+mode, and ``stash=True``), ``ddnerf_tpu/kernels/fused_mlp_bwd.py::
+fused_mlp_backward`` and its custom VJP ``fused_mlp_train_apply``, with
+per-ray view directions.  The forward computes the whole MipMLP /
+DepthMipMLP network per tile of 128 rows with every activation in shared
+memory; the backward computes every parameter gradient from the forward's
+stash in three deterministic passes.  The CUDA sources say what bounds
+them and how they are laid out.
 
-On a CPU tensor the wrapper runs the plain PyTorch version
-(:func:`ddnerf_tpu_torch.kernels.reference.fused_mlp_reference`); on a CUDA
-tensor it launches the kernel or raises.  There is no fallback from one to
-the other.
+On a CPU tensor each wrapper runs its plain PyTorch version
+(:mod:`ddnerf_tpu_torch.kernels.reference`); on a CUDA tensor it launches
+the kernel or raises.  There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import torch
 
-from ddnerf_tpu_torch.kernels.reference import fused_mlp_reference
+from ddnerf_tpu_torch.kernels.reference import (
+    NUM_STASH,
+    Stash,
+    fused_mlp_backward_reference,
+    fused_mlp_reference,
+    fused_mlp_stash_reference,
+)
 from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
 
 # Launch count of each kernel: +1 per launch of the CUDA kernel, never for
 # the plain version, so a run can show that its main path went through it.
-LAUNCHES = {"fused_mlp_fwd": 0}
+LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0}
 
 SUPPORTED_HIDDEN = (64, 128, 256)
 DIR_HIDDEN = 128
@@ -46,9 +56,10 @@ class KernelWeights(NamedTuple):
 
 @torch.no_grad()
 def pack_weights(net) -> KernelWeights:
-    """Pack ``net``'s parameters for the kernel, on ``net``'s device.
+    """Pack ``net``'s parameters for the kernels, on ``net``'s device.
     Weights are rounded to bf16 (round-to-nearest-even, as the TPU kernel's
-    ``astype``); biases stay f32."""
+    ``astype``); biases stay f32.  The backward kernel writes its f32
+    gradients in the same layout (:func:`unpack_grads`)."""
     hid, dh = net.hidden_size, net.dir_hidden
     ref = net.fc_feat.weight
     wd = net.layers_dir[0].weight  # [dh, hid + 27]
@@ -83,11 +94,45 @@ def pack_weights(net) -> KernelWeights:
         return tuple(offs)
 
     w_off, b_off = offsets(mats), offsets(biases)
-    # 16-byte alignment of every matrix for the kernel's cp.async copies.
+    # 16-byte alignment of every matrix for the kernels' cp.async copies.
     assert all(o % 8 == 0 for o in w_off), w_off
     w = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
     b = torch.cat([t.reshape(-1) for t in biases]).float()
     return KernelWeights(w.contiguous(), b.contiguous(), w_off, b_off)
+
+
+def unpack_grads(net, kw: KernelWeights, gw: torch.Tensor,
+                 gb: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`pack_weights` for gradients: ``gw`` / ``gb``
+    laid out as ``kw.w`` / ``kw.b`` -> ``{parameter name: tensor}`` in
+    ``net.named_parameters()`` order (views where the layout allows)."""
+    hid, dh = net.hidden_size, net.dir_hidden
+
+    def mat(i, rows, cols):
+        return gw[kw.w_off[i]:kw.w_off[i] + rows * cols].view(rows, cols)
+
+    def vec(i, size):
+        return gb[kw.b_off[i]:kw.b_off[i] + size]
+
+    grads = {}
+    b_trunk = vec(0, net.num_trunk_layers * hid).view(-1, hid)
+    for i, layer in enumerate(net.layers_xyz):
+        grads[f"layers_xyz.{i}.weight"] = mat(i, hid, layer.in_features)
+        grads[f"layers_xyz.{i}.bias"] = b_trunk[i]
+    grads["fc_feat.weight"] = mat(8, hid, hid)
+    grads["fc_feat.bias"] = vec(1, hid)
+    w_dir, b_dir = mat(9, DIR_LAYER_ROWS, hid), vec(2, DIR_LAYER_ROWS)
+    grads["fc_alpha.weight"] = w_dir[dh:dh + 1]
+    grads["fc_alpha.bias"] = b_dir[dh:dh + 1]
+    grads["layers_dir.0.weight"] = torch.cat(
+        [w_dir[:dh], mat(11, dh, DIRS_LD)[:, :DIR_DIM]], 1)
+    grads["layers_dir.0.bias"] = b_dir[:dh]
+    w_head, b_head = mat(10, HEAD_ROWS, dh), vec(3, HEAD_ROWS)
+    grads["fc_rgb.weight"], grads["fc_rgb.bias"] = w_head[:3], b_head[:3]
+    if net.depth_head:
+        grads["fc_mu_sigma.weight"] = w_head[3:5]
+        grads["fc_mu_sigma.bias"] = b_head[3:5]
+    return {name: grads[name] for name, _ in net.named_parameters()}
 
 
 def _packed(net) -> KernelWeights:
@@ -120,16 +165,7 @@ def _check_net(net, device) -> None:
                          f"inputs on {device}")
 
 
-def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
-                      samples_per_ray: int) -> torch.Tensor:
-    """Evaluate ``net`` (a MipMLP / DepthMipMLP) on ray-major rows.
-
-    ``ipe [N, 96]``: row ``r`` belongs to ray ``r // K``;
-    ``dirs [N // K, 27]``: the view-direction PE of each ray;
-    ``samples_per_ray``: K.  Returns ``[N, 4|6]`` float32 =
-    (rgb, alpha[, raw_mu, raw_sigma]).
-    """
-    k = int(samples_per_ray)
+def _check_rows(ipe: torch.Tensor, dirs: torch.Tensor, k: int) -> int:
     n = ipe.shape[0]
     if ipe.dim() != 2 or ipe.shape[1] != IPE_DIM:
         raise ValueError(f"ipe must be [N, {IPE_DIM}], got {tuple(ipe.shape)}")
@@ -140,33 +176,159 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
                          f"ray), got {tuple(dirs.shape)}")
     if dirs.device != ipe.device:
         raise ValueError(f"ipe on {ipe.device}, dirs on {dirs.device}")
-    if ipe.device.type == "cpu":
-        return fused_mlp_reference(net, ipe, dirs, k)
-    if ipe.device.type != "cuda":
+    if ipe.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused MLP kernel for device {ipe.device}")
+    return n
+
+
+def _bf16_rows(ipe: torch.Tensor) -> torch.Tensor:
+    ipe_b = ipe.to(torch.bfloat16).contiguous()
+    if ipe_b.data_ptr() % 16:
+        ipe_b = ipe_b.clone()  # the kernels copy IPE rows in 16-byte chunks
+    return ipe_b
+
+
+def _offsets(kw: KernelWeights):
+    i64 = ctypes.c_longlong
+    return (i64 * len(kw.w_off))(*kw.w_off), (i64 * len(kw.b_off))(*kw.b_off)
+
+
+def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
+                      samples_per_ray: int, stash: bool = False):
+    """Evaluate ``net`` (a MipMLP / DepthMipMLP) on ray-major rows.
+
+    ``ipe [N, 96]``: row ``r`` belongs to ray ``r // K``;
+    ``dirs [N // K, 27]``: the view-direction PE of each ray;
+    ``samples_per_ray``: K.  Returns ``[N, 4|6]`` float32 =
+    (rgb, alpha[, raw_mu, raw_sigma]); with ``stash`` (the training
+    forward) ``(out, Stash)``, the activations the backward reads.
+    """
+    k = int(samples_per_ray)
+    n = _check_rows(ipe, dirs, k)
+    if ipe.device.type == "cpu":
+        if stash:
+            return fused_mlp_stash_reference(net, ipe, dirs, k)
+        return fused_mlp_reference(net, ipe, dirs, k)
 
     _check_net(net, ipe.device)
     from ddnerf_tpu_torch.kernels import build
 
+    dev, hid = ipe.device, net.hidden_size
+    out = torch.empty((n, net.out_dim), dtype=torch.float32, device=dev)
+    acts = None
+    if stash:
+        acts = Stash(
+            torch.empty((NUM_STASH, n, hid), dtype=torch.bfloat16, device=dev),
+            torch.empty((n, DIR_HIDDEN), dtype=torch.bfloat16, device=dev))
+    if n == 0:
+        return (out, acts) if stash else out
     lib = build.load_library()
     kw = _packed(net)
-    out = torch.empty((n, net.out_dim), dtype=torch.float32, device=ipe.device)
-    if n == 0:
-        return out
-    ipe_b = ipe.to(torch.bfloat16).contiguous()
+    ipe_b = _bf16_rows(ipe)
     dirs_b = dirs.to(torch.bfloat16).contiguous()
-    if ipe_b.data_ptr() % 16:
-        ipe_b = ipe_b.clone()  # the kernel copies IPE rows in 16-byte chunks
-    dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32,
-                        device=ipe.device)
-    i64 = ctypes.c_longlong
+    dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32, device=dev)
     err = lib.ddnerf_fused_mlp_fwd(
         ipe_b.data_ptr(), dirs_b.data_ptr(), kw.w.data_ptr(), kw.b.data_ptr(),
-        dproj.data_ptr(), out.data_ptr(), n, k, net.hidden_size,
-        int(net.depth_head), (i64 * len(kw.w_off))(*kw.w_off),
-        (i64 * len(kw.b_off))(*kw.b_off),
-        torch.cuda.current_stream(ipe.device).cuda_stream,
+        dproj.data_ptr(), out.data_ptr(),
+        acts.trunk.data_ptr() if stash else None,
+        acts.h.data_ptr() if stash else None,
+        n, k, hid, int(net.depth_head), *_offsets(kw),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    build.check(lib, err, "fused_mlp_fwd")
-    LAUNCHES["fused_mlp_fwd"] += 1
-    return out
+    name = "fused_mlp_fwd_stash" if stash else "fused_mlp_fwd"
+    build.check(lib, err, name)
+    LAUNCHES[name] += 1
+    return (out, acts) if stash else out
+
+
+def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
+                       g: torch.Tensor, samples_per_ray: int,
+                       stash: Stash) -> Dict[str, torch.Tensor]:
+    """Parameter gradients of :func:`fused_mlp_forward` for the cotangent
+    ``g [N, 4|6]``, from the ``stash`` of the same forward ->
+    ``{parameter name: float32 gradient}`` in ``net.named_parameters()``
+    order.  Deterministic: the same inputs give bitwise the same gradients.
+    """
+    k = int(samples_per_ray)
+    n = _check_rows(ipe, dirs, k)
+    hid = net.hidden_size
+    if tuple(g.shape) != (n, net.out_dim):
+        raise ValueError(f"g must be [{n}, {net.out_dim}], got "
+                         f"{tuple(g.shape)}")
+    if (tuple(stash.trunk.shape) != (NUM_STASH, n, hid)
+            or tuple(stash.h.shape) != (n, net.dir_hidden)):
+        raise ValueError(
+            f"stash shapes {tuple(stash.trunk.shape)} / "
+            f"{tuple(stash.h.shape)} do not match ({NUM_STASH}, {n}, {hid}) "
+            f"/ ({n}, {net.dir_hidden}): pass the stash of the same forward")
+    if ipe.device.type == "cpu":
+        return fused_mlp_backward_reference(net, ipe, dirs, g, k, stash)
+
+    _check_net(net, ipe.device)
+    for name, t in (("g", g), ("stash", stash.trunk), ("stash h", stash.h)):
+        if t.device != ipe.device:
+            raise ValueError(f"{name} on {t.device}, ipe on {ipe.device}")
+    if stash.trunk.dtype != torch.bfloat16 or stash.h.dtype != torch.bfloat16:
+        raise ValueError("the stash must be bf16 (the kernel forward's)")
+    from ddnerf_tpu_torch.kernels import build
+
+    dev = ipe.device
+    lib = build.load_library()
+    kw = _packed(net)
+    gw = torch.empty(kw.w.numel(), dtype=torch.float32, device=dev)
+    gb = torch.empty(kw.b.numel(), dtype=torch.float32, device=dev)
+    if n == 0:
+        return unpack_grads(net, kw, gw.zero_(), gb.zero_())
+    ipe_b = _bf16_rows(ipe)
+    dirs_p = torch.zeros((n // k, DIRS_LD), dtype=torch.bfloat16, device=dev)
+    dirs_p[:, :DIR_DIM] = dirs
+    g32 = g.float().contiguous()
+    trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
+    ws_bytes = lib.ddnerf_fused_mlp_bwd_workspace(n, k, hid)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+    err = lib.ddnerf_fused_mlp_bwd(
+        ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
+        trunk.data_ptr(), h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(),
+        gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
+        int(net.depth_head), *_offsets(kw),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "fused_mlp_bwd")
+    LAUNCHES["fused_mlp_bwd"] += 1
+    return unpack_grads(net, kw, gw, gb)
+
+
+class _FusedMLPTrain(torch.autograd.Function):
+    """B1 in stash mode forward, B2 backward (``fused_mlp_train_apply``'s
+    custom VJP, fused_mlp_bwd.py:539-568).  Saves the compute-dtype inputs
+    and the stash; returns the B2 gradient of every parameter and ``None``
+    for ipe and dirs, whose gradients are structurally zero: the IPE comes
+    from detached fenceposts and the view directions are data."""
+
+    @staticmethod
+    def forward(ctx, net, ipe, dirs, samples_per_ray, *params):
+        out, stash = fused_mlp_forward(net, ipe, dirs, samples_per_ray,
+                                       stash=True)
+        ctx.net, ctx.samples_per_ray = net, samples_per_ray
+        ctx.save_for_backward(ipe, dirs, stash.trunk, stash.h)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ipe, dirs, trunk, h = ctx.saved_tensors
+        grads = fused_mlp_backward(ctx.net, ipe, dirs, g, ctx.samples_per_ray,
+                                   Stash(trunk, h))
+        return (None, None, None, None, *grads.values())
+
+
+def fused_mlp_train_apply(net, ipe: torch.Tensor, dirs: torch.Tensor,
+                          samples_per_ray: int) -> torch.Tensor:
+    """The training forward of ``net`` on ray-major rows (as
+    :func:`fused_mlp_forward`) whose backward is the B2 kernel: gradients
+    flow into ``net``'s parameters only.  The inputs are detached and cast
+    to the compute dtype first, as the JAX pipeline's
+    ``stop_gradient(ipe.astype(cdt))``."""
+    cdt = net.compute_dtype
+    return _FusedMLPTrain.apply(net, ipe.detach().to(cdt),
+                                dirs.detach().to(cdt), int(samples_per_ray),
+                                *net.parameters())

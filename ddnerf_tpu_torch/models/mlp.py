@@ -97,10 +97,18 @@ class _MipMLPBase(nn.Module):
     def forward(self, ipe: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
         """``ipe [..., S, 96]`` and per-ray ``dirs [..., 27]`` ->
         ``[..., S, 4|6]`` float32 = (rgb, alpha[, raw_mu, raw_sigma])."""
+        return self.forward_acts(ipe, dirs)[0]
+
+    def forward_acts(self, ipe: torch.Tensor, dirs: torch.Tensor):
+        """:meth:`forward` plus its activations ``[x0, ..., x7, feat, h]``
+        (float32 values; each is rounded to the compute dtype where the
+        next matmul reads it)."""
+        acts = []
         x = ipe
         for i, layer in enumerate(self.layers_xyz):
             inp = torch.cat([ipe, x], dim=-1) if i == self.skip_layer else x
             x = torch.relu(self._dense(inp, layer))
+            acts.append(x)
         feat = self._q(self._dense(x, self.fc_feat))
         alpha = feat @ self._q(self.fc_alpha.weight).T + self.fc_alpha.bias
         wd = self.layers_dir[0].weight  # [dir_hidden, hidden + 27]
@@ -111,7 +119,7 @@ class _MipMLPBase(nn.Module):
         outs = [self._dense(h, self.fc_rgb), alpha]
         if self.depth_head:
             outs.append(self._dense(h, self.fc_mu_sigma))
-        return torch.cat(outs, dim=-1)
+        return torch.cat(outs, dim=-1), acts + [feat, h]
 
 
 class MipMLP(_MipMLPBase):

@@ -1,24 +1,42 @@
-"""The coarse→fine DDNeRF render pipeline on torch tensors.
+"""The coarse→fine DDNeRF pipeline on torch tensors.
 
 Counterpart of ``ddnerf_tpu/models/nerf.py`` (reference DDNerfModel,
-models.py:207-322) for ``mode="render"``: stratified sample → cast to
-frustum Gaussians → IPE → coarse DepthMipMLP → composite → truncated-
-Gaussian resample → fine MipMLP → composite.  The train and validation
-modes (dp loss, ``core/dd.py``), mip-NeRF and NDC come with later slices.
+models.py:207-322), ``_render_dd`` in its three modes: stratified sample →
+cast to frustum Gaussians → IPE → coarse DepthMipMLP → composite →
+truncated-Gaussian resample → fine MipMLP → composite, and in ``train`` /
+``validation`` the μ/σ regularizers and the depth-prediction loss
+(``core/dd.py``).  mip-NeRF and NDC come with later slices.
 
-The networks run through the fused MLP kernel when ``parallel.pallas_mlp``
-selects it for rendering (``render``, ``auto``, ``all`` — as
-``_use_pallas`` does), else through the plain modules (``off`` / ``train``:
-the user's explicit choice, as the JAX package's XLA path).  On a CPU the
-kernel wrapper itself runs the plain version.  The JAX package's
-probe-and-fallback ladder has no counterpart: a kernel that fails to build
-or launch raises.
+The networks run through the fused MLP kernels as ``parallel.pallas_mlp``
+selects, per direction:
+
+* ``mode="train"``: the stash forward + fused backward
+  (:func:`~ddnerf_tpu_torch.kernels.fused_mlp.fused_mlp_train_apply`)
+  under ``train``, ``auto`` and ``all``; the plain module with autograd
+  under ``off`` and ``render``, as the JAX package's XLA path;
+* ``mode="validation"`` / ``"render"``: the render-mode forward kernel
+  under ``render``, ``auto`` and ``all`` (as ``_use_pallas``), else the
+  plain module.
+
+On a CPU each kernel wrapper itself runs its plain version.  The JAX
+package's probe-and-fallback ladder has no counterpart: a kernel that fails
+to build or launch raises.
+
+Both kernel directions take the view directions once per ray.
+``parallel.kernel_per_ray_dirs`` is accepted and ignored, and so is
+``parallel.bwd_block_rows`` (a TPU block size).  Unlike the layout switches
+below, per-ray versus per-sample directions is not bit-neutral in the
+backward: per ray, the dirs weight gradient rounds the per-ray SUM of the
+dir-layer cotangent to bf16, where per sample it rounds each sample's
+cotangent before the sum (fused_mlp_bwd.py:238-248).  The port always
+computes the per-ray form (``kernel_per_ray_dirs: true``).
 
 Config switches that only shape TPU programs are accepted and ignored:
-``ipe_transposed``, ``raw_lane_inputs``, ``alpha_vpu``,
-``render_block_rows``, ``fetch_dtype``, ``fetch_precision``,
-``skip_resampler_sort`` (the resampler's sort is the identity and is never
-run here), and the other layout / compiler knobs of ``ParallelConfig``.
+``ipe_transposed``, ``raw_lane_inputs``, ``alpha_vpu``, ``split_h_stash``,
+``kernel_stash_acts`` (the port always stashes), ``render_block_rows``,
+``fetch_dtype``, ``fetch_precision``, ``skip_resampler_sort`` (the
+resampler's sort is the identity and is never run here), and the other
+layout / compiler knobs of ``ParallelConfig``.
 """
 
 from __future__ import annotations
@@ -30,12 +48,17 @@ import torch
 
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.core import math as mmath
-from ddnerf_tpu_torch.core import rendering, sampling
-from ddnerf_tpu_torch.kernels.fused_mlp import fused_mlp_forward
+from ddnerf_tpu_torch.core import dd, rendering, sampling
+from ddnerf_tpu_torch.kernels.fused_mlp import (
+    fused_mlp_forward,
+    fused_mlp_train_apply,
+)
 from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
 
-_KERNEL_POLICIES = ("render", "auto", "all")
-_POLICIES = ("off", "train") + _KERNEL_POLICIES
+_KERNEL_POLICIES = ("render", "auto", "all")  # forward kernel: eval paths
+_TRAIN_KERNEL_POLICIES = ("train", "auto", "all")  # stash fwd + bwd kernels
+_POLICIES = ("off", "train", "render", "auto", "all")
+_MODES = ("train", "validation", "render")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -110,11 +133,13 @@ class NerfPipeline:
         self.cfg = cfg
         self.device = torch.device(device)
         self.use_kernel = policy in _KERNEL_POLICIES
+        self.use_train_kernel = policy in _TRAIN_KERNEL_POLICIES
         cdt = _DTYPES[par.compute_dtype]
         if self.device.type == "cuda":
             # The plain float32 matmuls (models/mlp.py) must not use TF32.
             torch.backends.cuda.matmul.allow_tf32 = False
-            if self.use_kernel and cdt != torch.bfloat16:
+            if ((self.use_kernel or self.use_train_kernel)
+                    and cdt != torch.bfloat16):
                 raise ValueError(
                     f"parallel.pallas_mlp={policy!r} runs the bf16 fused MLP "
                     f"kernel on {self.device}, but parallel.compute_dtype="
@@ -130,31 +155,37 @@ class NerfPipeline:
         ds = cfg.dataset
         self._eps_mask_pdf = (ds.type.lower() == "blender"
                               or ds.basedir.endswith("segmented"))
+        self._filter_empty = ds.type.lower() == "blender"
 
     def load_state_dicts(self, coarse: Dict[str, torch.Tensor],
                          fine: Dict[str, torch.Tensor]) -> None:
         self.coarse.load_state_dict(coarse)
         self.fine.load_state_dict(fine)
 
+    def parameters(self):
+        """Both networks' parameters, coarse first."""
+        return [*self.coarse.parameters(), *self.fine.parameters()]
+
     # --------------------------------------------------------------- network
 
-    def _run_network(self, net, rays: RayBatch, t_vals) -> torch.Tensor:
+    def _run_network(self, net, rays: RayBatch, t_vals,
+                     mode: str) -> torch.Tensor:
         """cast_rays → IPE → viewdir PE → MLP: ``[N, S, 4|6]``."""
         means, covs = mmath.cast_rays(t_vals, rays.origins, rays.directions,
                                       rays.radii, self.cfg.nerf.ray_shape)
         ipe = mmath.integrated_pos_enc(
             (means, covs), double_angle=self.cfg.parallel.ipe_double_angle)
         dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
-        if not self.use_kernel:
+        kernel = self.use_train_kernel if mode == "train" else self.use_kernel
+        if not kernel:
             return net(ipe, dirs)
         n, s = means.shape[0], means.shape[1]
-        flat = fused_mlp_forward(net, ipe.reshape(n * s, -1), dirs,
-                                 samples_per_ray=s)
+        fn = fused_mlp_train_apply if mode == "train" else fused_mlp_forward
+        flat = fn(net, ipe.reshape(n * s, -1), dirs, s)
         return flat.reshape(n, s, -1)
 
     # ---------------------------------------------------------------- render
 
-    @torch.inference_mode()
     def render_rays(self, rays: RayBatch, sched: ScheduleValues,
                     mode: str = "render",
                     generator: Optional[torch.Generator] = None,
@@ -163,50 +194,94 @@ class NerfPipeline:
         (the reference's ``ret_dict``, models.py:297).  ``generator`` draws
         the stratified jitter (``perturb``) and the density noise
         (``radiance_field_noise_std``); without one there is no noise, as the
-        JAX package without an rng key, and ``perturb`` is an error."""
-        if mode != "render":
-            raise NotImplementedError(
-                f"mode={mode!r}: the port renders (mode='render'); train and "
-                "validation modes come with the training slice")
+        JAX package without an rng key, and ``perturb`` is an error.
+
+        ``mode="train"`` builds the autograd graph into both networks and
+        adds the dp loss and the μ/σ regularizers; ``"validation"`` adds
+        them too, without a graph; ``"render"`` returns the maps only."""
+        if mode not in _MODES:
+            raise ValueError(f"mode={mode!r}: expected one of "
+                             f"{' | '.join(_MODES)}")
+        if mode == "train":
+            return self._render_dd(rays, sched, mode, generator)
+        with torch.inference_mode():
+            return self._render_dd(rays, sched, mode, generator)
+
+    def _render_dd(self, rays: RayBatch, sched: ScheduleValues, mode: str,
+                   generator: Optional[torch.Generator]):
+        """DDNerfModel.predict (models.py:207-322), JAX ``_render_dd``
+        (models/nerf.py:815-952)."""
         cfg = self.cfg
-        mc = cfg.nerf.validation
+        mc = cfg.nerf.mode(mode)
+        tp = cfg.train_params
         ds = cfg.dataset
         if mc.perturb and generator is None:
-            raise ValueError("nerf.validation.perturb draws stratified "
-                             "jitter: pass a torch.Generator")
+            raise ValueError(f"nerf.{'train' if mode == 'train' else 'validation'}"
+                             ".perturb draws stratified jitter: pass a "
+                             "torch.Generator")
         composite_kw = dict(
             generator=generator, noise_std=mc.radiance_field_noise_std,
             white_background=mc.white_background,
-            eps_mask_pdf=self._eps_mask_pdf)
+            eps_mask_pdf=self._eps_mask_pdf,
+            analytic_weights_vjp=cfg.parallel.composite_custom_vjp)
 
+        # ---- cycle 0: coarse with the depth-distribution head
         t0 = sampling.sample_first_cycle(
             rays.near, rays.far, mc.num_coarse, lindisp=mc.lindisp,
             perturb=mc.perturb,
             combined=ds.combined_sampling_method, combined_near=ds.near,
             combined_split=ds.combined_split, generator=generator)
-        raw0 = self._run_network(self.coarse, rays, t0)  # [N, S, 6]
-        mus = torch.sigmoid(raw0[..., 4])
-        sigmas = torch.sigmoid(raw0[..., 5]) + 0.001
+        raw0 = self._run_network(self.coarse, rays, t0, mode)  # [N, S, 6]
+        raw_mus, raw_sigmas = raw0[..., 4], raw0[..., 5]
+        mus = torch.sigmoid(raw_mus)
+        sigmas = torch.sigmoid(raw_sigmas) + 0.001
         out0 = rendering.volume_render(raw0[..., :3], raw0[..., 3], t0,
                                        rays.directions, mus=mus,
                                        **composite_kw)
 
+        # Smooth the in-cell distribution before resampling (models.py:266-273)
         smoothed_sigmas = sigmas * sched.gaussian_smooth_factor
         s_left_tail, s_part_inside = mmath.truncated_gaussian_tails(
             mus, smoothed_sigmas)
+
+        # ---- cycle 1: fine.  The resampler runs without a graph: t1 is
+        # detached, as stop_gradient(t1) in JAX (models/nerf.py:879).
         t1 = sampling.sample_pdf_with_mu_sigma(
             t0, out0.weights, mus, smoothed_sigmas, s_part_inside,
             s_left_tail, mc.num_fine + 1, near=ds.near, far=ds.far,
             pdf_padding=sched.pdf_padding,
             det=not mc.perturb,
             generator=generator)
-        raw1 = self._run_network(self.fine, rays, t1)  # [N, M, 4]
+        raw1 = self._run_network(self.fine, rays, t1, mode)  # [N, M, 4]
         out1 = rendering.volume_render(raw1[..., :3], raw1[..., 3], t1,
                                        rays.directions, **composite_kw)
-        return {
-            0: {"rgb": out0.rgb, "disp": out0.disp, "acc": out0.acc,
+        ret0 = {"rgb": out0.rgb, "disp": out0.disp, "acc": out0.acc,
                 "weights": out0.weights, "depth": out0.depth,
-                "corrected_disp_map": out0.corrected_disp, "t_vals": t0},
-            1: {"rgb": out1.rgb, "disp": out1.disp, "acc": out1.acc,
-                "weights": out1.weights, "depth": out1.depth, "t_vals": t1},
-        }
+                "corrected_disp_map": out0.corrected_disp, "t_vals": t0}
+        ret1 = {"rgb": out1.rgb, "disp": out1.disp, "acc": out1.acc,
+                "weights": out1.weights, "depth": out1.depth, "t_vals": t1}
+        if mode == "render":
+            return {0: ret0, 1: ret1}
+
+        # L2 regularizers on the raw heads (models.py:248-252): per-ray sums
+        # averaged over rays.
+        n_rays = raw_mus.shape[0]
+        sig_loss = torch.sum(raw_sigmas ** 2) / n_rays
+        mus_loss = torch.sum(raw_mus ** 2) / n_rays
+        mus_reg = tp.dist_reg_coeficient * mus_loss
+        sig_reg = tp.dist_reg_coeficient * sig_loss
+        left_tail, part_inside = mmath.truncated_gaussian_tails(mus, sigmas)
+
+        # ---- depth-prediction loss (models.py:284-289), with the JAX
+        # pipeline's stop-gradients (models/nerf.py:910-925).
+        dp = dd.estimate_dp_loss(
+            t1, t0.detach(), out1.weights.detach(), out0.weights, mus, sigmas,
+            left_tail.detach(), part_inside.detach(),
+            filter_empty_rays=self._filter_empty,
+            variant=tp.dp_loss_variant,
+        ) * (t1.shape[-1] - 1)
+        ret0.update(mus=mus, sigmas=sigmas, smoothed_sigmas=smoothed_sigmas,
+                    mus_loss=mus_loss, sig_loss=sig_loss, mus_reg=mus_reg,
+                    sig_reg=sig_reg)
+        ret1["dp_loss"] = dp + mus_reg + sig_reg
+        return {0: ret0, 1: ret1}

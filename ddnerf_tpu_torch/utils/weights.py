@@ -15,6 +15,7 @@ set of parity tests.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -48,20 +49,32 @@ def params_to_state_dict(params: Mapping[str, Mapping[str, Any]]
     return sd
 
 
+def _host(tree):
+    """A copy of a state dict (nested dicts / lists of tensors) on the host."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host(v) for v in tree)
+    return tree
+
+
 def save_checkpoint(path: str, coarse: torch.nn.Module,
-                    fine: torch.nn.Module | None, step: int = 0) -> None:
+                    fine: torch.nn.Module | None, step: int = 0,
+                    extra: Mapping[str, Any] | None = None) -> None:
     """Write a reference-format ``checkpoint.ckpt`` (train_model.py:248-263):
     ``model_1_state_dict`` = coarse net, ``model_2_state_dict`` = fine net,
-    ``iter`` = step.  Tensors are saved from host copies."""
-
-    def host(module):
-        return {k: v.detach().to("cpu", copy=True)
-                for k, v in module.state_dict().items()}
-
-    ckpt = {"iter": int(step), "model_1_state_dict": host(coarse)}
+    ``iter`` = step, plus the entries of ``extra`` (e.g. an optimizer's
+    state dict).  Tensors are saved from host copies; the file is written
+    under a temporary name and renamed, so a reader never sees half of it."""
+    ckpt = {"iter": int(step), "model_1_state_dict": _host(coarse.state_dict())}
     if fine is not None:
-        ckpt["model_2_state_dict"] = host(fine)
-    torch.save(ckpt, path)
+        ckpt["model_2_state_dict"] = _host(fine.state_dict())
+    ckpt.update(_host(dict(extra or {})))
+    tmp = f"{path}.tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:

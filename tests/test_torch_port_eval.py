@@ -2,6 +2,7 @@
 JAX eval_model fed the same reference-format checkpoint through
 ``--torch-checkpoint``, on the procedural synthetic scene."""
 
+import json
 import os
 
 import numpy as np
@@ -62,7 +63,10 @@ def test_eval_model_matches_jax_eval_model(logdir):
 def test_cli_writes_results_and_counts_no_launch_on_cpu(logdir, capsys):
     port_cli.main(["--logdir", logdir, "--max-images", "1", "--device", "cpu"])
     out = capsys.readouterr().out
-    assert 'kernel launches: {"fused_mlp_fwd": 0}' in out
+    line = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
+    launches = json.loads(line[-1][len("kernel launches: "):])
+    assert launches == {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0,
+                        "fused_mlp_bwd": 0}
     text = open(os.path.join(logdir, "validation", "results.txt")).read()
     assert "psnr_fine" in text and "ssim_v2_coarse" in text
 

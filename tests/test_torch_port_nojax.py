@@ -1,6 +1,7 @@
-"""The port runs without JAX: every ddnerf_tpu_torch module imports, and a
-tiny image renders on the CPU, in a process where importing jax, flax,
-optax or orbax fails.  chip_smoke.py refuses to report without a GPU."""
+"""The port runs without JAX: every ddnerf_tpu_torch module imports, a
+tiny image renders and two training steps run through the train loop on
+the CPU, in a process where importing jax, flax, optax or orbax fails.
+chip_smoke.py refuses to report without a GPU."""
 
 import os
 import pkgutil
@@ -41,19 +42,35 @@ cfg = Config.from_dict({{
 out = ImageRenderer(cfg, NerfPipeline(cfg, "cpu")).render_image_from_pose(
     pose_spherical(10.0, -30.0, 4.0), 6, 7, 8.0)
 assert out[1]["rgb"].shape == (6, 7, 3) and np.isfinite(out[1]["rgb"]).all()
+
+import json, os, tempfile
+from ddnerf_tpu_torch.train.loop import train
+with tempfile.TemporaryDirectory() as tmp:
+    tcfg = cfg.merge_from_list([
+        "experiment.logdir", tmp, "experiment.validate_every", "1",
+        "nerf.train.num_coarse", "4", "nerf.train.num_fine", "4",
+        "nerf.train.num_random_rays", "16", "dataset.synthetic", "true",
+        "dataset.type", "blender"]).resolved()
+    state, logdir = train(tcfg, max_iters=2, device="cpu")
+    assert state.step == 2
+    assert os.path.isfile(os.path.join(logdir, "checkpoint.ckpt"))
+    losses = [json.loads(line)["loss"]
+              for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    assert len(losses) == 4 and all(np.isfinite(losses)), losses
 leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not leaked, leaked
-print("RENDERED", len(mods), "modules")
+print("RENDERED AND TRAINED", len(mods), "modules")
 """
 
 
 def test_port_imports_and_renders_without_jax():
+    """Every module imports; a render and two train steps run."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "RENDERED" in proc.stdout
+    assert "RENDERED AND TRAINED" in proc.stdout
 
 
 def test_no_port_source_imports_jax():

@@ -105,8 +105,8 @@ def test_pipeline_rejects_what_it_cannot_render():
     pipe = NerfPipeline(_cfg(), "cpu")
     ro, rd, radii = _rays(4)
     rays = RayBatch.create(*map(torch.tensor, (ro, rd, radii)), 2.0, 6.0)
-    with pytest.raises(NotImplementedError):
-        pipe.render_rays(rays, ScheduleValues.for_eval(pipe.cfg), "train")
+    with pytest.raises(ValueError, match="mode="):
+        pipe.render_rays(rays, ScheduleValues.for_eval(pipe.cfg), "predict")
     perturbed = NerfPipeline(_cfg().replace_at(
         "nerf.validation", _cfg().nerf.validation.__class__(perturb=True)))
     with pytest.raises(ValueError, match="Generator"):
