@@ -10,6 +10,11 @@ Run from the repository root.  Phases, each of which fails the run:
    its plain PyTorch version for DepthMipMLP and MipMLP at width 256 on one
    production chunk (16384 rays x 32 samples) and on ragged shapes, with
    CUDA-event timings;
+3b. in-kernel-IPE forward vs plain: the forward that computes the IPE
+   itself from raw means and covariances, against its plain version at the
+   same shapes and bit for bit against the forward fed the torch
+   direct-form IPE, with CUDA-event timings of it, its plain version and
+   the forward plus the torch IPE assembly;
 4. training kernels vs plain: the stash forward (outputs bit-identical to
    render mode, activation slabs within the forward tolerances) and the
    fused backward (every gradient within its norm-relative tolerance,
@@ -23,11 +28,19 @@ Run from the repository root.  Phases, each of which fails the run:
 6. serving main path: ``python -m ddnerf_tpu_torch.cli.eval`` on the
    trained logdir; results.txt must hold finite PSNR / SSIM and the render
    must launch the forward kernel;
+6b. video main path: ``python -m ddnerf_tpu_torch.cli.render_video`` for 8
+   frames with ``--save_images``, on a sibling of the trained logdir whose
+   config selects ``parallel.render_kernel_variant: ipe2`` (only the
+   in-kernel-IPE forward may launch, twice per chunk and frame) and on the
+   trained logdir itself (``mlp``: only the forward kernel); video.avi and
+   the PNGs must hold the 8 frames;
 7. kernel vs plain training: two pipelines from one seed, ``pallas_mlp:
    auto`` and ``off``, on the same 20 batches with identically seeded
    generators; loss trajectories within a stated gap, and both step times;
-8. full-size frame: one 800x800 render through the kernel and through the
-   plain version, compared by PSNR, with both wall times.
+8. full-size frame: one 800x800 render through the forward kernel, the
+   in-kernel-IPE forward and the plain version, each kernel render compared
+   with the plain one by PSNR, with the wall times; and the 800x800 video
+   frame (uint8) of the in-kernel-IPE path against the plain one.
 
 The second-to-last line is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
@@ -59,6 +72,8 @@ MEAN_ABS_TOL = 1e-3
 FRAME_PSNR_MIN = 40.0  # dB between the kernel's and the plain 800x800 rgb
 CHUNK_RAYS, SAMPLES = 16384, 32
 FRAME = 800  # the blender lego resolution
+VIDEO_FRAMES = 8
+VIDEO_HW = (64, 64)  # the procedural synthetic scene's resolution
 TIMING_REPS = 10
 # The training shape: 2048 rays x 32 samples per network per step.
 TRAIN_RAYS = 2048
@@ -181,6 +196,82 @@ def phase_kernel(torch):
                       f"{plain:.3f} ms (CUDA-event medians of "
                       f"{TIMING_REPS})", flush=True)
                 timing[cls.__name__] = (ms, plain)
+    return worst, timing
+
+
+def _gaussians(torch, gen, n, dev):
+    """Section means within +-3 (2^15 x 3 engages the 100 pi wrap of the
+    sin argument) and covariances over six decades, as cast_rays gives
+    them."""
+    means = (torch.rand(n, 3, generator=gen) * 6 - 3).to(dev)
+    covs = (10.0 ** (torch.rand(n, 3, generator=gen) * 6 - 7)).to(dev)
+    return means, covs
+
+
+def phase_enc_kernel(torch):
+    """The in-kernel-IPE forward (B3) against its plain version and against
+    B1 fed the torch direct-form IPE, on the same inputs."""
+    from ddnerf_tpu_torch.core.math import integrated_pos_enc
+    from ddnerf_tpu_torch.kernels.fused_mlp import (
+        fused_enc_mlp_forward,
+        fused_mlp_forward,
+    )
+    from ddnerf_tpu_torch.kernels.reference import fused_enc_mlp_reference
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
+
+    dev = torch.device("cuda")
+    worst, timing = 0.0, {}
+    for cls in (DepthMipMLP, MipMLP):
+        gen = torch.Generator().manual_seed(2)
+        net = cls(hidden_size=256, compute_dtype=torch.bfloat16,
+                  generator=gen).to(dev)
+        for rays, k in ((CHUNK_RAYS, SAMPLES), (333, 33)):
+            tag = f"{cls.__name__} N={rays * k} K={k}"
+            means, covs = _gaussians(torch, gen, rays * k, dev)
+            dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
+            out = fused_enc_mlp_forward(net, means, covs, dirs, k)
+            ref = fused_enc_mlp_reference(net, means, covs, dirs, k)
+            b1 = fused_mlp_forward(
+                net, integrated_pos_enc((means, covs), double_angle=False),
+                dirs, k)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            max_err, mean_err = err.max().item(), err.mean().item()
+            vs_b1 = (out - b1).abs().max().item()
+            same = torch.equal(out, b1)
+            worst = max(worst, max_err)
+            ok = (torch.isfinite(out).all().item() and max_err <= MAX_ABS_TOL
+                  and mean_err <= MEAN_ABS_TOL)
+            print(f"[enc-kernel] {tag}: max_abs {max_err:.3e} (tol "
+                  f"{MAX_ABS_TOL:g}), mean_abs {mean_err:.3e} (tol "
+                  f"{MEAN_ABS_TOL:g}) {'ok' if ok else 'FAIL'}; vs B1 fed the "
+                  f"torch IPE: max_abs {vs_b1:.3e} "
+                  f"({'bit-identical' if same else 'DIFFERS'})", flush=True)
+            if not ok:
+                fail(f"fused_enc_mlp_fwd disagrees with the plain version "
+                     f"({tag})")
+            if not same:
+                fail(f"fused_enc_mlp_fwd is not bit-identical to "
+                     f"fused_mlp_fwd fed the direct-form IPE ({tag})")
+            if rays != CHUNK_RAYS:
+                continue
+            t = {
+                "enc": _event_ms(torch, lambda: fused_enc_mlp_forward(
+                    net, means, covs, dirs, k)),
+                "plain": _event_ms(torch, lambda: fused_enc_mlp_reference(
+                    net, means, covs, dirs, k)),
+                # What the mlp variant runs: the torch IPE (the config's
+                # default double-angle form), then B1.
+                "b1_ipe": _event_ms(torch, lambda: fused_mlp_forward(
+                    net, integrated_pos_enc((means, covs)), dirs, k)),
+                "ipe": _event_ms(torch, lambda: integrated_pos_enc(
+                    (means, covs))),
+            }
+            print(f"[enc-kernel] {tag}: B3 {t['enc']:.3f} ms, plain B3 "
+                  f"{t['plain']:.3f} ms, torch IPE + B1 {t['b1_ipe']:.3f} ms "
+                  f"(the IPE alone {t['ipe']:.3f} ms) (CUDA-event medians of "
+                  f"{TIMING_REPS})", flush=True)
+            timing[cls.__name__] = t
     return worst, timing
 
 
@@ -375,6 +466,63 @@ def phase_main_path(logdir):
     return launches
 
 
+def phase_video_main_path(logdir):
+    """The video CLI on an ``ipe2`` sibling of the trained logdir and on
+    the logdir itself (``mlp``); returns the ``ipe2`` run's launch counts."""
+    from ddnerf_tpu_torch.config import Config
+    from ddnerf_tpu_torch.render.media import read_avi, read_png
+
+    cfg = Config.from_yaml(os.path.join(logdir, "config.yml"))
+    if cfg.parallel.render_kernel_variant != "mlp":
+        fail(f"the trained logdir renders with "
+             f"{cfg.parallel.render_kernel_variant!r}, expected 'mlp'")
+    sibling = logdir + "_ipe2"
+    os.makedirs(sibling)
+    with open(os.path.join(sibling, "config.yml"), "w") as f:
+        f.write(cfg.replace_at("parallel.render_kernel_variant",
+                               "ipe2").dump())
+    os.symlink(os.path.join(logdir, "checkpoint.ckpt"),
+               os.path.join(sibling, "checkpoint.ckpt"))
+    h, w = VIDEO_HW
+    chunks = -(-h * w // cfg.nerf.validation.chunksize)
+    expected = 2 * chunks * VIDEO_FRAMES  # two networks per chunk
+    runs = {}
+    for variant, path, kernel, other in (
+            ("ipe2", sibling, "fused_enc_mlp_fwd", "fused_mlp_fwd"),
+            ("mlp", logdir, "fused_mlp_fwd", "fused_enc_mlp_fwd")):
+        cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
+               "--logdir", path, "--max-frames", str(VIDEO_FRAMES),
+               "--save_images"]
+        out, launches, wall = _subprocess(cmd, f"video-{variant}")
+        avi = os.path.join(path, "video", "video.avi")
+        if not os.path.isfile(avi) or os.path.getsize(avi) == 0:
+            fail(f"video ({variant}) wrote no video.avi")
+        frames, fps = read_avi(avi)
+        if frames.shape != (VIDEO_FRAMES, h, 2 * w, 3) or fps != 24:
+            fail(f"video.avi ({variant}) holds {frames.shape} at {fps} fps, "
+                 f"expected {(VIDEO_FRAMES, h, 2 * w, 3)} at 24")
+        for i in range(VIDEO_FRAMES):
+            png = read_png(os.path.join(path, "video", f"frame_{i:04d}.png"))
+            if not np.array_equal(png, frames[i]):
+                fail(f"frame_{i:04d}.png ({variant}) differs from the video")
+        if frames.std() == 0:
+            fail(f"video ({variant}) frames are constant")
+        avg = re.search(r"^avg render time per frame: (\S+)s", out, re.M)
+        print(f"[video-{variant}] {VIDEO_FRAMES} frames of "
+              f"{frames.shape[1:]} in video.avi ({os.path.getsize(avi)} "
+              f"bytes) and as PNGs; avg frame {avg.group(1) if avg else '?'} "
+              f"s, wall {wall:.1f} s, launches {launches}", flush=True)
+        if launches.get(kernel) != expected or launches.get(other) != 0:
+            fail(f"video ({variant}) launched {kernel} "
+                 f"{launches.get(kernel)} and {other} {launches.get(other)} "
+                 f"times, expected {expected} and 0")
+        runs[variant] = (frames, launches)
+    diff = np.abs(runs["ipe2"][0].astype(int) - runs["mlp"][0].astype(int))
+    print(f"[video] ipe2 vs mlp frames: max {diff.max()} uint8 levels, "
+          f"{(diff.max(-1) > 0).mean():.2e} of the pixels differ", flush=True)
+    return runs["ipe2"][1]
+
+
 def phase_train_parity(torch):
     """Kernel vs plain training from one seed on the same batches."""
     from ddnerf_tpu_torch.config import load_config
@@ -454,9 +602,15 @@ def phase_frame(torch):
     cfg = load_config(CONFIG)
     focal = 0.5 * FRAME / math.tan(0.5 * 0.6911)  # the lego camera's FOV
     pose = _pose()
+    chunks = -(-FRAME * FRAME // cfg.nerf.validation.chunksize)
+    # name -> (pallas_mlp, render_kernel_variant, the kernel it launches)
+    paths = {"kernel": ("auto", "mlp", "fused_mlp_fwd"),
+             "ipe2": ("auto", "ipe2", "fused_enc_mlp_fwd"),
+             "plain": ("off", "mlp", None)}
     renderers = {}
-    for name, policy in (("kernel", "auto"), ("plain", "off")):
-        c = cfg.replace_at("parallel.pallas_mlp", policy)
+    for name, (policy, variant, _) in paths.items():
+        c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
+            "parallel.render_kernel_variant", variant)
         renderers[name] = ImageRenderer(c, NerfPipeline(c, "cuda", seed=0))
 
     def render(name):
@@ -467,28 +621,44 @@ def phase_frame(torch):
 
     for name in renderers:  # warm-up at a small size
         renderers[name].render_image_from_pose(pose, 32, 32, focal * 32 / FRAME)
-    walls = {"kernel": [], "plain": []}
+    walls = {name: [] for name in renderers}
     outs = {}
-    for name in ("plain", "kernel", "kernel", "plain"):
-        LAUNCHES["fused_mlp_fwd"] = 0
+    for name in ("plain", "kernel", "ipe2", "ipe2", "kernel", "plain"):
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
         outs[name], wall = render(name)
         walls[name].append(wall)
-        if name == "kernel":
-            chunks = -(-FRAME * FRAME // cfg.nerf.validation.chunksize)
-            if LAUNCHES["fused_mlp_fwd"] != 2 * chunks:
-                fail(f"800x800 kernel render launched fused_mlp_fwd "
-                     f"{LAUNCHES['fused_mlp_fwd']} times, expected {2 * chunks}")
-    rgb_k, rgb_p = outs["kernel"][1]["rgb"], outs["plain"][1]["rgb"]
-    if rgb_k.shape != (FRAME, FRAME, 3) or not np.isfinite(rgb_k).all():
-        fail(f"800x800 kernel render: shape {rgb_k.shape} or non-finite rgb")
-    mse = float(np.mean((rgb_k - rgb_p) ** 2))
-    frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
-    print(f"[frame] 800x800 wall: kernel {walls['kernel']} s, plain "
-          f"{walls['plain']} s; rgb PSNR kernel vs plain {frame_psnr:.2f} dB "
-          f"(gate {FRAME_PSNR_MIN:g})", flush=True)
-    if not frame_psnr >= FRAME_PSNR_MIN:
-        fail("800x800 kernel frame disagrees with the plain version")
-    return min(walls["kernel"]), min(walls["plain"])
+        kernel = paths[name][2]
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        want = {kernel: 2 * chunks} if kernel else {}
+        if launched != want:
+            fail(f"800x800 {name} render launched {launched}, expected "
+                 f"{want}")
+    rgb_p = outs["plain"][1]["rgb"]
+    for name in ("kernel", "ipe2"):
+        rgb = outs[name][1]["rgb"]
+        if rgb.shape != (FRAME, FRAME, 3) or not np.isfinite(rgb).all():
+            fail(f"800x800 {name} render: shape {rgb.shape} or non-finite "
+                 f"rgb")
+        mse = float(np.mean((rgb - rgb_p) ** 2))
+        frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
+        print(f"[frame] 800x800 rgb PSNR {name} vs plain {frame_psnr:.2f} dB "
+              f"(gate {FRAME_PSNR_MIN:g})", flush=True)
+        if not frame_psnr >= FRAME_PSNR_MIN:
+            fail(f"800x800 {name} frame disagrees with the plain version")
+    print("[frame] 800x800 walls: " + "; ".join(
+        f"{name} {walls[name]} s" for name in walls), flush=True)
+    video = {name: renderers[name].render_video_frame_from_pose(
+        pose, FRAME, FRAME, focal) for name in ("ipe2", "plain")}
+    for i, part in enumerate(("rgb", "disp")):
+        diff = np.abs(video["ipe2"][i].astype(int)
+                      - video["plain"][i].astype(int))
+        if diff.ndim == 3:
+            diff = diff.max(-1)
+        print(f"[frame] 800x800 video frame {part}, ipe2 vs plain: max "
+              f"{diff.max()} uint8 levels, {(diff > 0).mean():.3e} of the "
+              f"pixels differ", flush=True)
+    return {name: min(v) for name, v in walls.items()}
 
 
 def main():
@@ -506,22 +676,26 @@ def main():
     phase_device(torch)
     phase_build()
     max_err, timing = phase_kernel(torch)
+    enc_err, enc_timing = phase_enc_kernel(torch)
     train_err, train_timing = phase_train_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logroot:
         logdir, train_launches = phase_train_main_path(logroot)
         launches = phase_main_path(logdir)
+        video_launches = phase_video_main_path(logdir)
     step_ms = phase_train_parity(torch)
-    frame_kernel_s, frame_plain_s = phase_frame(torch)
-    print(f"[frame] best of two: kernel {frame_kernel_s:.3f} s, plain "
-          f"{frame_plain_s:.3f} s; train step kernel {step_ms['kernel']:.2f} "
-          f"ms, plain {step_ms['plain']:.2f} ms; whole run "
-          f"{time.perf_counter() - t_start:.1f} s")
+    frame_s = phase_frame(torch)
+    print(f"[frame] 800x800 best of two: kernel (B1) {frame_s['kernel']:.3f} "
+          f"s, ipe2 (B3) {frame_s['ipe2']:.3f} s, plain "
+          f"{frame_s['plain']:.3f} s; train step kernel "
+          f"{step_ms['kernel']:.2f} ms, plain {step_ms['plain']:.2f} ms; "
+          f"whole run {time.perf_counter() - t_start:.1f} s")
     leaked = [m for m in ("jax", "flax", "optax", "orbax") if m in sys.modules]
     if leaked:
         fail(f"imported {leaked}")
 
     ms, plain_ms = timing["DepthMipMLP"]
     coarse = train_timing["DepthMipMLP"]
+    enc = enc_timing["DepthMipMLP"]
     print(json.dumps({"kernels": [{
         "name": "fused_mlp_fwd",
         "route": "cuda",
@@ -549,6 +723,15 @@ def main():
         "max_abs_err": train_err["fused_mlp_bwd"],
         "ms": coarse["bwd"],
         "plain_ms": coarse["plain_bwd"],
+    }, {
+        "name": "fused_enc_mlp_fwd",
+        "route": "cuda",
+        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
+        "replaces": "ddnerf_tpu/kernels/fused_mlp.py:309",
+        "launches": video_launches["fused_enc_mlp_fwd"],
+        "max_abs_err": enc_err,
+        "ms": enc["enc"],
+        "plain_ms": enc["plain"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

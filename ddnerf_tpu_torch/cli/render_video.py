@@ -1,0 +1,45 @@
+"""CLI: video rendering on the GPU.  Mirrors ``python -m
+ddnerf_tpu.cli.render_video`` (reference ``render_video.py --logdir ...
+[--save_images]``) for a logdir holding ``config.yml`` and a
+reference-format ``checkpoint.ckpt``:
+
+    python -m ddnerf_tpu_torch.cli.render_video --logdir LOGDIR
+        [--save_images] [--max-frames N] [--torch-checkpoint PATH]
+        [--device cuda|cuda:1|cpu]
+
+The port keeps one rolling checkpoint, so ``--torch-checkpoint`` takes the
+place of the JAX CLI's ``--checkpoint STEP``.
+"""
+
+import argparse
+import json
+
+from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+from ddnerf_tpu_torch.render.video import render_model_video
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--logdir", type=str, required=True,
+                        help="Experiment logdir (config.yml + checkpoint.ckpt).")
+    parser.add_argument("--save_images", action="store_true",
+                        help="Also write video/frame_%%04d.png per frame.")
+    parser.add_argument("--max-frames", type=int, default=0,
+                        help="Render only the first N render poses (0: all).")
+    parser.add_argument("--torch-checkpoint", type=str, default=None,
+                        help="Reference checkpoint.ckpt to render "
+                             "(default: LOGDIR/checkpoint.ckpt).")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="torch device; CUDA asked for and absent is an "
+                             "error (default: cuda).")
+    args = parser.parse_args(argv)
+    render_model_video(args.logdir, save_images=args.save_images,
+                       max_frames=args.max_frames,
+                       torch_checkpoint=args.torch_checkpoint,
+                       device=args.device)
+    # Which kernels the frames went through (0 = the plain version ran).
+    print("kernel launches: " + json.dumps(LAUNCHES, sort_keys=True))
+
+
+if __name__ == "__main__":
+    main()

@@ -44,6 +44,23 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def load_pipeline(basedir: str, cfg, dev: torch.device,
+                  torch_checkpoint: str | None = None) -> NerfPipeline:
+    """The run's networks on ``dev``, from ``torch_checkpoint`` (default
+    ``basedir/checkpoint.ckpt``)."""
+    ckpt_path = torch_checkpoint or os.path.join(basedir, CHECKPOINT_NAME)
+    if not os.path.isfile(ckpt_path):
+        raise FileNotFoundError(
+            f"no {CHECKPOINT_NAME} at {ckpt_path!r}: the port reads "
+            "reference-format torch checkpoints (pass --torch-checkpoint); "
+            "orbax checkpoints of the JAX package are not readable yet")
+    ckpt = load_checkpoint(ckpt_path)
+    pipeline = NerfPipeline(cfg, dev)
+    pipeline.load_state_dicts(ckpt["coarse"], ckpt["fine"])
+    print(f"loaded {ckpt_path} (iter {ckpt['step']}) on {dev}")
+    return pipeline
+
+
 def eval_model(
     basedir: str,
     max_images: int = MAX_VALIDATION_IMAGES,
@@ -60,17 +77,7 @@ def eval_model(
 
     cfg = load_config_snapshot(basedir)
     _, val_ds, cfg = get_datasets(cfg)
-
-    ckpt_path = torch_checkpoint or os.path.join(basedir, CHECKPOINT_NAME)
-    if not os.path.isfile(ckpt_path):
-        raise FileNotFoundError(
-            f"no {CHECKPOINT_NAME} at {ckpt_path!r}: the port reads "
-            "reference-format torch checkpoints (pass --torch-checkpoint); "
-            "orbax checkpoints of the JAX package are not readable yet")
-    ckpt = load_checkpoint(ckpt_path)
-    pipeline = NerfPipeline(cfg, dev)
-    pipeline.load_state_dicts(ckpt["coarse"], ckpt["fine"])
-    print(f"loaded {ckpt_path} (iter {ckpt['step']}) on {dev}")
+    pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint)
 
     sched = ScheduleValues.for_eval(cfg)  # eval-time fixup, eval_nerf.py:53-55
     renderer = ImageRenderer(cfg, pipeline)

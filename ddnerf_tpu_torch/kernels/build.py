@@ -104,6 +104,12 @@ def load_library() -> ctypes.CDLL:
         *offs, ptr,  # w_off, b_off, stream
     ]
     lib.ddnerf_fused_mlp_fwd.restype = i32
+    lib.ddnerf_fused_enc_mlp_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # means, covs, dirs, w, b, dproj, out
+        i64, i32, i32, i32,  # n, samples, hidden, depth_head
+        *offs, ptr,  # w_off, b_off, stream
+    ]
+    lib.ddnerf_fused_enc_mlp_fwd.restype = i32
     lib.ddnerf_fused_mlp_bwd_workspace.argtypes = [i64, i32, i32]
     lib.ddnerf_fused_mlp_bwd_workspace.restype = i64
     lib.ddnerf_fused_mlp_bwd.argtypes = [

@@ -4,7 +4,10 @@
 //
 // Replaces the TPU kernel ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward
 // (body _kernel -> _net_body) in render mode (no stash) and in stash mode
-// (stash=True, the training forward), view directions given once per ray.
+// (stash=True, the training forward), view directions given once per ray;
+// and, as the compile-time mode ENC, fused_enc_mlp_forward (body
+// _enc_kernel): the same net body fed an IPE that the kernel computes itself
+// from raw means and covariances (see encode_ipe below).
 //
 // What it computes, per row (rows are ray-major: row r belongs to ray r / K):
 //   x0 = relu(ipe @ W0 + b0)                     trunk, width H, bf16 out
@@ -30,7 +33,11 @@
 // What bounds it on an H100: tensor-core throughput.  A row costs ~0.6
 // MFLOP x 2 against ~200 bytes of input and 16-24 bytes of output, and the
 // ~1.2 MB of bf16 weights per network are re-read by every tile from L2.
-// Stash mode adds 2 * (9 H + 128) bytes of writes per row.
+// Stash mode adds 2 * (9 H + 128) bytes of writes per row.  ENC mode reads
+// 24 bytes per row instead of the IPE's 192 and spends 48 expf and 96 sinf
+// (and, past 100 pi, fmodf) per row on the encode, which nothing overlaps:
+// about 10% of the time at width 256 (3.3 vs 3.0 ms per 524,288-row chunk
+// on an H100 80GB HBM3 at 700 W).
 //
 // Design (first, simple version; wgmma/TMA are later work):
 // * A CTA of 8 warps owns BM = 128 rows.  Its activations live in one
@@ -67,7 +74,9 @@ constexpr int IPE_LD = IPE + PAD;
 constexpr int WS_LD = KS + PAD;
 
 struct Params {
-  const bf16* ipe;     // [n, 96]
+  const bf16* ipe;     // [n, 96]; null in ENC mode
+  const float* means;  // [n, 3]; ENC mode only
+  const float* covs;   // [n, 3]; ENC mode only
   const bf16* w;       // packed weights
   const float* b;      // packed biases
   const float* dproj;  // [n / samples, 128]
@@ -123,6 +132,66 @@ __device__ __forceinline__ void load_ipe(const Params& p, bf16* ipe_s,
       cp_async16(dst, p.ipe + (r0 + r) * IPE + q * 8);
     } else {
       *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// ENC mode: the tile's IPE computed into ipe_s [BM][IPE_LD] from the raw
+// [n, 3] f32 means and covariances, in the direct form of the TPU kernel's
+// _enc_kernel (and of core/math.py::integrated_pos_enc with
+// double_angle=False): for row r, level l = 0..15 and coordinate j,
+//   y = x_j * 2^l, v = cov_j * 4^l      (exact power-of-two scalings)
+//   att = exp(-0.5 * v)
+//   ipe[r, l*3 + j]      = bf16(att * sin(wrap(y)))
+//   ipe[r, 48 + l*3 + j] = bf16(att * sin(wrap(y + (float)(pi/2))))
+// where wrap(y) = |y| < 100 pi ? y : floor-mod(y, 100 pi), safe_sin's
+// reduction, written as fmodf plus a sign fix (exact; what torch.remainder
+// and jnp.remainder compute).  sinf / expf are the accurate libdevice
+// functions: the wrapped argument reaches 100 pi, where the __sinf
+// intrinsic loses accuracy.  Rows past n are zero, as load_ipe's.
+// means / covs rows are 12 bytes, so they are read with plain loads.
+//
+// The tile's 8 warps have nothing else to run while they encode, so each
+// thread takes one (row, coordinate, half of the levels) item and climbs
+// its LPI levels unrolled, scaling y by 2 and v by 4 per level (exact, so
+// the values are those of x * 2^l and cov * 4^l): LPI independent
+// expf / sinf chains in flight instead of one.
+__device__ __forceinline__ float wrap_trig(float y) {
+  constexpr float T = 314.159265358979323846f;  // (float)(100 pi)
+  if (fabsf(y) < T) return y;
+  float m = fmodf(y, T);
+  if (m < 0.f) m += T;
+  return m;
+}
+
+__device__ __forceinline__ void encode_ipe(const Params& p, bf16* ipe_s,
+                                           long long r0) {
+  constexpr int HALF = IPE / 2;    // 48 = 16 levels x 3 coordinates
+  constexpr int LPI = 8;           // levels per item
+  constexpr int IPR = HALF / LPI;  // items per row: 3 coordinates x 2
+  constexpr float HALF_PI = 1.57079632679489661923f;
+  for (int c = threadIdx.x; c < BM * IPR; c += NTHREADS) {
+    const int r = c / IPR, j = c % 3, l0 = (c % IPR) / 3 * LPI;
+    bf16* dst = ipe_s + r * IPE_LD + l0 * 3 + j;  // level l0, coordinate j
+    if (r0 + r >= p.n) {
+#pragma unroll
+      for (int i = 0; i < LPI; ++i) {
+        dst[i * 3] = __float2bfloat16_rn(0.f);
+        dst[HALF + i * 3] = __float2bfloat16_rn(0.f);
+      }
+      continue;
+    }
+    const float f = (float)(1 << l0);
+    float y = p.means[(r0 + r) * 3 + j] * f;
+    float v = p.covs[(r0 + r) * 3 + j] * (f * f);
+#pragma unroll
+    for (int i = 0; i < LPI; ++i) {
+      const float att = expf(-0.5f * v);
+      dst[i * 3] = __float2bfloat16_rn(att * sinf(wrap_trig(y)));
+      dst[HALF + i * 3] =
+          __float2bfloat16_rn(att * sinf(wrap_trig(y + HALF_PI)));
+      y *= 2.f;
+      v *= 4.f;
     }
   }
 }
@@ -235,7 +304,7 @@ __device__ __forceinline__ void stash_tile(const bf16* act, int ld, int width,
   }
 }
 
-template <int H>
+template <int H, bool ENC>
 __global__ void __launch_bounds__(NTHREADS, 1)
     fused_mlp_fwd_kernel(const Params p) {
   using S = Shape<H>;
@@ -248,9 +317,17 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 
-  load_ipe(p, ipe_s, r0);
-  load_slice<H>(p, wst, 0, 0);
-  cp_async_commit();
+  if (ENC) {
+    // The first weight slice streams from L2 while the tile is encoded; the
+    // first gemm_layer step's barrier publishes ipe_s.
+    load_slice<H>(p, wst, 0, 0);
+    cp_async_commit();
+    encode_ipe(p, ipe_s, r0);
+  } else {
+    load_ipe(p, ipe_s, r0);
+    load_slice<H>(p, wst, 0, 0);
+    cp_async_commit();
+  }
   int stage = 0;
 
   // Trunk and fc_feat: warps tile the CTA 2 (rows) x 4 (columns).
@@ -354,16 +431,41 @@ __global__ void dir_proj_kernel(const bf16* dirs, const bf16* wdirs,
   dproj[r * DH + c] = acc;
 }
 
-template <int H>
+template <int H, bool ENC>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = Shape<H>::SMEM;
   cudaError_t e = cudaFuncSetAttribute(
-      fused_mlp_fwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fused_mlp_fwd_kernel<H, ENC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const long long blocks = (p.n + BM - 1) / BM;
-  fused_mlp_fwd_kernel<H><<<(unsigned)blocks, NTHREADS, smem, stream>>>(p);
+  fused_mlp_fwd_kernel<H, ENC><<<(unsigned)blocks, NTHREADS, smem, stream>>>(
+      p);
   return cudaGetLastError();
+}
+
+// The dir projection, then the network at width `hidden`; p.dproj is the
+// projection's output.
+template <bool ENC>
+cudaError_t run(Params& p, const void* dirs, int hidden,
+                const long long* w_off, const long long* b_off,
+                cudaStream_t st) {
+  if (hidden != 64 && hidden != 128 && hidden != 256)
+    return cudaErrorInvalidValue;
+  for (int i = 0; i < NLAYER; ++i) p.w_off[i] = w_off[i];
+  for (int i = 0; i < 4; ++i) p.b_off[i] = b_off[i];
+  const long long rays = p.n / p.samples;
+  dir_proj_kernel<<<(unsigned)rays, DH, 0, st>>>(
+      static_cast<const bf16*>(dirs), p.w + w_off[NLAYER],
+      const_cast<float*>(p.dproj));
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  switch (hidden) {
+    case 64: return launch<64, ENC>(p, st);
+    case 128: return launch<128, ENC>(p, st);
+    case 256: return launch<256, ENC>(p, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -382,8 +484,7 @@ extern "C" int ddnerf_fused_mlp_fwd(const void* ipe, const void* dirs,
                                     const long long* w_off,
                                     const long long* b_off, void* stream) {
   if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Params p;
+  Params p = {};
   p.ipe = static_cast<const bf16*>(ipe);
   p.w = static_cast<const bf16*>(w);
   p.b = static_cast<const float*>(b);
@@ -395,21 +496,33 @@ extern "C" int ddnerf_fused_mlp_fwd(const void* ipe, const void* dirs,
   p.n = n;
   p.samples = samples;
   p.out_dim = depth_head ? 6 : 4;
-  for (int i = 0; i < NLAYER; ++i) p.w_off[i] = w_off[i];
-  for (int i = 0; i < 4; ++i) p.b_off[i] = b_off[i];
+  return run<false>(p, dirs, hidden, w_off, b_off,
+                    static_cast<cudaStream_t>(stream));
+}
 
-  const long long rays = n / samples;
-  dir_proj_kernel<<<(unsigned)rays, DH, 0, st>>>(
-      static_cast<const bf16*>(dirs), p.w + w_off[NLAYER],
-      static_cast<float*>(dproj));
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  switch (hidden) {
-    case 64: return launch<64>(p, st);
-    case 128: return launch<128>(p, st);
-    case 256: return launch<256>(p, st);
-    default: return cudaErrorInvalidValue;
-  }
+// The same network fed the IPE that it computes from means [n, 3] and covs
+// [n, 3] f32 (ENC mode; render only, no stash).  Other arguments as
+// ddnerf_fused_mlp_fwd's.  Returns a cudaError_t.
+extern "C" int ddnerf_fused_enc_mlp_fwd(const void* means, const void* covs,
+                                        const void* dirs, const void* w,
+                                        const void* b, void* dproj, void* out,
+                                        long long n, int samples, int hidden,
+                                        int depth_head,
+                                        const long long* w_off,
+                                        const long long* b_off, void* stream) {
+  if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
+  Params p = {};
+  p.means = static_cast<const float*>(means);
+  p.covs = static_cast<const float*>(covs);
+  p.w = static_cast<const bf16*>(w);
+  p.b = static_cast<const float*>(b);
+  p.dproj = static_cast<const float*>(dproj);
+  p.out = static_cast<float*>(out);
+  p.n = n;
+  p.samples = samples;
+  p.out_dim = depth_head ? 6 : 4;
+  return run<true>(p, dirs, hidden, w_off, b_off,
+                   static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* ddnerf_cuda_error_string(int err) {

@@ -1,16 +1,16 @@
 """Fused NeRF MLP kernels and their wrappers: the forward
-(``csrc/fused_mlp_fwd.cu``) in render and stash mode, the backward
-(``csrc/fused_mlp_bwd.cu``), and the ``autograd.Function`` that joins them
-for training.
+(``csrc/fused_mlp_fwd.cu``) in render and stash mode and fed raw means and
+covariances (the in-kernel IPE), the backward (``csrc/fused_mlp_bwd.cu``),
+and the ``autograd.Function`` that joins them for training.
 
 Replaces ``ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward`` (render
-mode, and ``stash=True``), ``ddnerf_tpu/kernels/fused_mlp_bwd.py::
-fused_mlp_backward`` and its custom VJP ``fused_mlp_train_apply``, with
-per-ray view directions.  The forward computes the whole MipMLP /
-DepthMipMLP network per tile of 128 rows with every activation in shared
-memory; the backward computes every parameter gradient from the forward's
-stash in three deterministic passes.  The CUDA sources say what bounds
-them and how they are laid out.
+mode, and ``stash=True``), ``fused_enc_mlp_forward`` (render only),
+``ddnerf_tpu/kernels/fused_mlp_bwd.py::fused_mlp_backward`` and its custom
+VJP ``fused_mlp_train_apply``, with per-ray view directions.  The forward
+computes the whole MipMLP / DepthMipMLP network per tile of 128 rows with
+every activation in shared memory; the backward computes every parameter
+gradient from the forward's stash in three deterministic passes.  The CUDA
+sources say what bounds them and how they are laid out.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
 (:mod:`ddnerf_tpu_torch.kernels.reference`); on a CUDA tensor it launches
@@ -27,6 +27,7 @@ import torch
 from ddnerf_tpu_torch.kernels.reference import (
     NUM_STASH,
     Stash,
+    fused_enc_mlp_reference,
     fused_mlp_backward_reference,
     fused_mlp_reference,
     fused_mlp_stash_reference,
@@ -35,7 +36,8 @@ from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
 
 # Launch count of each kernel: +1 per launch of the CUDA kernel, never for
 # the plain version, so a run can show that its main path went through it.
-LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0}
+LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
+            "fused_enc_mlp_fwd": 0}
 
 SUPPORTED_HIDDEN = (64, 128, 256)
 DIR_HIDDEN = 128
@@ -165,17 +167,19 @@ def _check_net(net, device) -> None:
                          f"inputs on {device}")
 
 
-def _check_rows(ipe: torch.Tensor, dirs: torch.Tensor, k: int) -> int:
+def _check_rows(ipe: torch.Tensor, dirs: torch.Tensor, k: int,
+                name: str = "ipe", width: int = IPE_DIM) -> int:
     n = ipe.shape[0]
-    if ipe.dim() != 2 or ipe.shape[1] != IPE_DIM:
-        raise ValueError(f"ipe must be [N, {IPE_DIM}], got {tuple(ipe.shape)}")
+    if ipe.dim() != 2 or ipe.shape[1] != width:
+        raise ValueError(f"{name} must be [N, {width}], got "
+                         f"{tuple(ipe.shape)}")
     if k <= 0 or n % k:
         raise ValueError(f"{n} rows are not whole rays of {k} samples")
     if tuple(dirs.shape) != (n // k, DIR_DIM):
         raise ValueError(f"dirs must be [{n // k}, {DIR_DIM}] (one row per "
                          f"ray), got {tuple(dirs.shape)}")
     if dirs.device != ipe.device:
-        raise ValueError(f"ipe on {ipe.device}, dirs on {dirs.device}")
+        raise ValueError(f"{name} on {ipe.device}, dirs on {dirs.device}")
     if ipe.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused MLP kernel for device {ipe.device}")
     return n
@@ -239,6 +243,48 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     build.check(lib, err, name)
     LAUNCHES[name] += 1
     return (out, acts) if stash else out
+
+
+def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
+                          dirs: torch.Tensor,
+                          samples_per_ray: int) -> torch.Tensor:
+    """Evaluate ``net`` on ray-major rows given by their Gaussians: ``means``
+    / ``covs [N, 3]`` (float32; row ``r`` belongs to ray ``r // K``), with
+    the IPE computed inside the kernel in the direct form, and ``dirs
+    [N // K, 27]``.  Returns ``[N, 4|6]`` float32, the contract of
+    :func:`fused_mlp_forward` fed ``integrated_pos_enc(double_angle=False)``.
+    Forward only: the render paths' ``render_kernel_variant: ipe2``.
+    """
+    k = int(samples_per_ray)
+    n = _check_rows(means, dirs, k, name="means", width=3)
+    if tuple(covs.shape) != tuple(means.shape) or covs.device != means.device:
+        raise ValueError(f"covs must be [{n}, 3] on {means.device}, got "
+                         f"{tuple(covs.shape)} on {covs.device}")
+    if means.device.type == "cpu":
+        return fused_enc_mlp_reference(net, means, covs, dirs, k)
+
+    _check_net(net, means.device)
+    from ddnerf_tpu_torch.kernels import build
+
+    dev = means.device
+    out = torch.empty((n, net.out_dim), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    lib = build.load_library()
+    kw = _packed(net)
+    means32 = means.float().contiguous()
+    covs32 = covs.float().contiguous()
+    dirs_b = dirs.to(torch.bfloat16).contiguous()
+    dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32, device=dev)
+    err = lib.ddnerf_fused_enc_mlp_fwd(
+        means32.data_ptr(), covs32.data_ptr(), dirs_b.data_ptr(),
+        kw.w.data_ptr(), kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(),
+        n, k, net.hidden_size, int(net.depth_head), *_offsets(kw),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, err, "fused_enc_mlp_fwd")
+    LAUNCHES["fused_enc_mlp_fwd"] += 1
+    return out
 
 
 def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,

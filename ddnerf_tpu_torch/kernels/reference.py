@@ -5,6 +5,9 @@ interface: flat ray-major rows and per-ray view directions.
   of ``ddnerf_tpu/kernels/fused_mlp.py::_reference_apply``;
 * :func:`fused_mlp_stash_reference` — the training forward (B1 stash
   mode): the outputs and the activations the backward reads;
+* :func:`fused_enc_mlp_reference` — the forward fed raw means and
+  covariances (B3, ``ddnerf_tpu/kernels/fused_mlp.py::
+  fused_enc_mlp_forward``): the direct-form IPE, then the forward;
 * :func:`fused_mlp_backward_reference` — the backward (B2,
   ``ddnerf_tpu/kernels/fused_mlp_bwd.py::_bwd_kernel``), written out with
   the kernel's rounding points.
@@ -23,6 +26,8 @@ from __future__ import annotations
 from typing import Dict, NamedTuple
 
 import torch
+
+from ddnerf_tpu_torch.core.math import integrated_pos_enc
 
 NUM_STASH = 9  # x0..x7, feat: the first 7 slabs are the TPU split layout
 
@@ -47,6 +52,18 @@ def fused_mlp_reference(net, ipe: torch.Tensor, dirs: torch.Tensor,
     rays = ipe.shape[0] // k
     out = net(ipe.float().reshape(rays, k, ipe.shape[1]), dirs.float())
     return out.reshape(rays * k, out.shape[-1])
+
+
+def fused_enc_mlp_reference(net, means: torch.Tensor, covs: torch.Tensor,
+                            dirs: torch.Tensor,
+                            samples_per_ray: int) -> torch.Tensor:
+    """``means`` / ``covs [N, 3]`` (ray-major rows), ``dirs [N // K, 27]``
+    -> ``[N, 4|6]`` float32: the direct-form IPE
+    (``integrated_pos_enc(double_angle=False)``, JAX's oracle for B3 in
+    tests/test_fused_mlp.py), then :func:`fused_mlp_reference`."""
+    ipe = integrated_pos_enc((means.float(), covs.float()),
+                             double_angle=False)
+    return fused_mlp_reference(net, ipe, dirs, samples_per_ray)
 
 
 @torch.no_grad()

@@ -14,9 +14,18 @@ selects, per direction:
   (:func:`~ddnerf_tpu_torch.kernels.fused_mlp.fused_mlp_train_apply`)
   under ``train``, ``auto`` and ``all``; the plain module with autograd
   under ``off`` and ``render``, as the JAX package's XLA path;
-* ``mode="validation"`` / ``"render"``: the render-mode forward kernel
-  under ``render``, ``auto`` and ``all`` (as ``_use_pallas``), else the
-  plain module.
+* ``mode="validation"`` / ``"render"``: under ``render``, ``auto`` and
+  ``all`` (as ``_use_pallas``) the forward kernel that
+  ``parallel.render_kernel_variant`` selects: ``mlp``, the render-mode
+  forward fed the IPE computed in torch; ``ipe2``, the forward that
+  computes the direct-form IPE itself from raw means and covariances
+  (:func:`~ddnerf_tpu_torch.kernels.fused_mlp.fused_enc_mlp_forward`,
+  forward only, so training never takes it).  Else the plain module.
+
+``render_kernel_variant`` (``mlp | ipe2``) and ``ipe_variant`` (``stack |
+fused``, and ``fused`` not with ``ipe_transposed``) are checked at
+construction with the JAX package's errors; ``ipe_variant`` otherwise
+only shapes TPU programs and is ignored.
 
 On a CPU each kernel wrapper itself runs its plain version.  The JAX
 package's probe-and-fallback ladder has no counterpart: a kernel that fails
@@ -34,9 +43,10 @@ computes the per-ray form (``kernel_per_ray_dirs: true``).
 Config switches that only shape TPU programs are accepted and ignored:
 ``ipe_transposed``, ``raw_lane_inputs``, ``alpha_vpu``, ``split_h_stash``,
 ``kernel_stash_acts`` (the port always stashes), ``render_block_rows``,
-``fetch_dtype``, ``fetch_precision``, ``skip_resampler_sort`` (the
-resampler's sort is the identity and is never run here), and the other
-layout / compiler knobs of ``ParallelConfig``.
+``ipe_variant`` (once checked), ``fetch_dtype``, ``fetch_precision``,
+``skip_resampler_sort`` (the resampler's sort is the identity and is
+never run here), and the other layout / compiler knobs of
+``ParallelConfig``.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.core import math as mmath
 from ddnerf_tpu_torch.core import dd, rendering, sampling
 from ddnerf_tpu_torch.kernels.fused_mlp import (
+    fused_enc_mlp_forward,
     fused_mlp_forward,
     fused_mlp_train_apply,
 )
@@ -59,6 +70,8 @@ _KERNEL_POLICIES = ("render", "auto", "all")  # forward kernel: eval paths
 _TRAIN_KERNEL_POLICIES = ("train", "auto", "all")  # stash fwd + bwd kernels
 _POLICIES = ("off", "train", "render", "auto", "all")
 _MODES = ("train", "validation", "render")
+_RENDER_VARIANTS = ("mlp", "ipe2")
+_IPE_VARIANTS = ("stack", "fused")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -118,11 +131,25 @@ class NerfPipeline:
     """
 
     def __init__(self, cfg: Config, device="cpu", seed: int = 0):
+        par = cfg.parallel
+        # The render selectors, checked as ddnerf_tpu/models/nerf.py:137-156.
+        if par.render_kernel_variant not in _RENDER_VARIANTS:
+            raise ValueError(
+                f"parallel.render_kernel_variant="
+                f"{par.render_kernel_variant!r}: expected mlp | ipe2 (the "
+                "'ipe' fused_ipe_mlp kernel was retired in the JAX package)")
+        if par.ipe_variant not in _IPE_VARIANTS:
+            raise ValueError(f"parallel.ipe_variant={par.ipe_variant!r}: "
+                             "expected stack | fused")
+        if par.ipe_variant == "fused" and par.ipe_transposed:
+            raise ValueError(
+                "parallel.ipe_variant='fused' measures the row-major "
+                "assembly and is unreachable under ipe_transposed=true; set "
+                "ipe_transposed: false for that A/B")
         if not cfg.is_ddnerf():
             raise NotImplementedError(
                 f"nerf.type={cfg.nerf.type!r}: the port renders DDNerfModel; "
                 "mip-NeRF comes with a later slice")
-        par = cfg.parallel
         policy = "all" if par.use_pallas_mlp else par.pallas_mlp
         if policy not in _POLICIES:
             raise ValueError(f"parallel.pallas_mlp={policy!r}: expected one "
@@ -134,6 +161,7 @@ class NerfPipeline:
         self.device = torch.device(device)
         self.use_kernel = policy in _KERNEL_POLICIES
         self.use_train_kernel = policy in _TRAIN_KERNEL_POLICIES
+        self.render_variant = par.render_kernel_variant
         cdt = _DTYPES[par.compute_dtype]
         if self.device.type == "cuda":
             # The plain float32 matmuls (models/mlp.py) must not use TF32.
@@ -173,13 +201,20 @@ class NerfPipeline:
         """cast_rays → IPE → viewdir PE → MLP: ``[N, S, 4|6]``."""
         means, covs = mmath.cast_rays(t_vals, rays.origins, rays.directions,
                                       rays.radii, self.cfg.nerf.ray_shape)
+        dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
+        n, s = means.shape[0], means.shape[1]
+        if (mode != "train" and self.use_kernel
+                and self.render_variant == "ipe2"):
+            # The IPE is computed inside the kernel (JAX
+            # models/nerf.py:677-703).
+            flat = fused_enc_mlp_forward(net, means.reshape(n * s, 3),
+                                         covs.reshape(n * s, 3), dirs, s)
+            return flat.reshape(n, s, -1)
         ipe = mmath.integrated_pos_enc(
             (means, covs), double_angle=self.cfg.parallel.ipe_double_angle)
-        dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
         kernel = self.use_train_kernel if mode == "train" else self.use_kernel
         if not kernel:
             return net(ipe, dirs)
-        n, s = means.shape[0], means.shape[1]
         fn = fused_mlp_train_apply if mode == "train" else fused_mlp_forward
         flat = fn(net, ipe.reshape(n * s, -1), dirs, s)
         return flat.reshape(n, s, -1)

@@ -1,20 +1,24 @@
 """Whole-image rendering from a camera pose, chunked over the ray axis.
 
 Counterpart of ``ddnerf_tpu/render/renderer.py::ImageRenderer``'s pose
-path (``render_image_from_pose`` / ``render_images_from_poses``) with ray
-generation and chunking folded in from ``train/step.py::make_eval_step``.
-Rays are generated on the device from the [4, 4] pose and rendered in
-chunks of ``nerf.validation.chunksize``; maps come back as float32 numpy.
+paths (``render_image_from_pose`` / ``render_images_from_poses`` and the
+video frames ``render_video_frame_from_pose`` /
+``render_video_frames_from_poses``) with ray generation and chunking
+folded in from ``train/step.py::make_eval_step``.  Rays are generated on
+the device from the [4, 4] pose and rendered in chunks of
+``nerf.validation.chunksize``.  Image maps come back as float32 numpy;
+video frames keep only the fine ``rgb`` and ``disp`` and are quantized to
+uint8 on the device, so only the uint8 maps reach the host.
 ``mode="render"`` returns the image maps; ``mode="validation"`` (the
 train loop's validation image) adds the coarse weights and μ/σ maps and
 the scalar ``dp_loss``, averaged over chunks weighted by their ray counts
-(renderer.py:537-543).  The JAX renderer's packed fetch and dispatch
-pipelining serve its host link and are not carried over.
+(renderer.py:537-543).  The JAX renderer's packed fetch and its one-frame
+dispatch lookahead serve its host link and are not carried over.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -28,7 +32,25 @@ from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch, ScheduleValues
 MAP_KEYS = ("rgb", "disp", "acc", "depth", "corrected_disp_map")
 VALIDATION_KEYS = MAP_KEYS + ("weights", "mus", "sigmas", "smoothed_sigmas",
                               "dp_loss")
+VIDEO_KEYS = ("rgb", "disp")  # a video frame's maps (JAX extract_keys)
 Maps = Dict[int, Dict[str, np.ndarray]]
+
+
+def quantize_video_frame(rgb: torch.Tensor, disp: torch.Tensor,
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rgb [..., 3]`` and ``disp [...]`` float maps -> uint8 maps, on
+    their device, exactly as the JAX frame program (renderer.py:397-409,
+    ``viz.cast_to_image`` / ``cast_to_disparity_image``): rgb clipped to
+    [0, 1], times 255, truncated; disparity with non-finite values set to
+    0, normalized by its min and span (a zero span divides by 1), clipped,
+    times 255, truncated."""
+    rgb_u8 = (torch.clamp(rgb, 0.0, 1.0) * 255).to(torch.uint8)
+    d = torch.nan_to_num(disp, nan=0.0, posinf=0.0, neginf=0.0)
+    lo = torch.min(d)
+    span = torch.max(d) - lo
+    norm = (d - lo) / torch.where(span > 0, span, torch.ones_like(span))
+    disp_u8 = (torch.clamp(norm, 0.0, 1.0) * 255).to(torch.uint8)
+    return rgb_u8, disp_u8
 
 
 class ImageRenderer:
@@ -45,12 +67,14 @@ class ImageRenderer:
     def render_flat(self, origins, directions, radii,
                     generator: Optional[torch.Generator] = None,
                     sched: Optional[ScheduleValues] = None,
+                    keys: Optional[Sequence[str]] = None,
                     ) -> Dict[int, Dict[str, torch.Tensor]]:
         """Render ``N`` rays (device tensors ``[N, 3]``, ``[N, 3]``,
         ``[N, 1]``) chunk by chunk -> per-cycle ``[N(, C)]`` device maps
-        and 0-d scalars."""
+        and 0-d scalars, of ``keys`` (default: the mode's maps)."""
         if sched is None:
             sched = ScheduleValues.for_eval(self.cfg)
+        keys = self.keys if keys is None else keys
         ds = self.cfg.dataset
         n = origins.shape[0]
         parts: Dict[int, Dict[str, list]] = {0: {}, 1: {}}
@@ -60,7 +84,7 @@ class ImageRenderer:
                                    ds.near, ds.far)
             out = self.pipeline.render_rays(rays, sched, self.mode, generator)
             for i in (0, 1):
-                for key in self.keys:
+                for key in keys:
                     v = out[i].get(key)
                     if v is not None:
                         parts[i].setdefault(key, []).append(
@@ -70,20 +94,24 @@ class ImageRenderer:
                     for k, v in parts[i].items()}
                 for i in parts}
 
+    def _render_pose(self, pose, h, w, focal, generator, sched, keys=None):
+        """Rays of the pose, generated on the device, rendered flat.
+        Without a generator, one seeded with 0 is used per image (the JAX
+        renderer's ``PRNGKey(0)``)."""
+        dev = self.pipeline.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        ro, rd, radii = get_ray_bundle(h, w, float(focal), pose, device=dev)
+        return self.render_flat(ro.reshape(-1, 3), rd.reshape(-1, 3),
+                                radii.reshape(-1, 1), generator, sched, keys)
+
     def render_image_from_pose(self, pose, h: int, w: int, focal,
                                generator: Optional[torch.Generator] = None,
                                sched: Optional[ScheduleValues] = None) -> Maps:
         """Render an ``[h, w]`` image from a [4, 4] (or [3, 4]) camera pose
         -> per-cycle float32 numpy maps (``[h, w, C]`` for per-ray vectors,
-        ``[h, w]`` for per-ray scalars, a float for a scalar).  Without a
-        generator, one seeded with 0 is used per image (the JAX renderer's
-        ``PRNGKey(0)``)."""
-        dev = self.pipeline.device
-        if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
-        ro, rd, radii = get_ray_bundle(h, w, float(focal), pose, device=dev)
-        flat = self.render_flat(ro.reshape(-1, 3), rd.reshape(-1, 3),
-                                radii.reshape(-1, 1), generator, sched)
+        ``[h, w]`` for per-ray scalars, a float for a scalar)."""
+        flat = self._render_pose(pose, h, w, focal, generator, sched)
         result: Maps = {0: {}, 1: {}}
         for i in flat:
             for key, v in flat[i].items():
@@ -101,3 +129,23 @@ class ImageRenderer:
         """Yield :meth:`render_image_from_pose` for each pose."""
         for pose in poses:
             yield self.render_image_from_pose(pose, h, w, focal, sched=sched)
+
+    def render_video_frame_from_pose(self, pose, h: int, w: int, focal,
+                                     sched: Optional[ScheduleValues] = None,
+                                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """One video frame from a [4, 4] camera pose: the fine rgb and
+        disparity, quantized on the device (:func:`quantize_video_frame`)
+        -> ``(rgb_u8 [h, w, 3], disp_u8 [h, w])`` numpy."""
+        flat = self._render_pose(pose, h, w, focal, None, sched, VIDEO_KEYS)
+        rgb_u8, disp_u8 = quantize_video_frame(flat[1]["rgb"],
+                                               flat[1]["disp"])
+        return (rgb_u8.cpu().numpy().reshape(h, w, 3),
+                disp_u8.cpu().numpy().reshape(h, w))
+
+    def render_video_frames_from_poses(
+            self, poses: Iterable, h: int, w: int, focal,
+            sched: Optional[ScheduleValues] = None,
+    ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield :meth:`render_video_frame_from_pose` for each pose."""
+        for pose in poses:
+            yield self.render_video_frame_from_pose(pose, h, w, focal, sched)

@@ -1,0 +1,79 @@
+"""Video rendering of a trained run.
+
+Counterpart of ``ddnerf_tpu/render/video.py::render_model_video``
+(reference render_video.py:17-106): reads the config snapshot and
+``checkpoint.ckpt`` of a logdir, renders the dataset's render-pose path and
+writes a side-by-side rgb | disparity video at 24 fps
+(``video/video.avi``, frames ``[H, 2W, 3]``) and, on request, one PNG per
+frame (``video/frame_%04d.png``).  Each frame is rendered on the device
+and only its uint8 maps come to the host (:meth:`~ddnerf_tpu_torch.
+render.renderer.ImageRenderer.render_video_frames_from_poses`).
+
+The files are written by :mod:`ddnerf_tpu_torch.render.media`, with the
+standard library, on every machine: an uncompressed AVI of 24-bit DIB
+frames where the JAX package writes DIVX through OpenCV, and PNGs where it
+uses imageio.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+from ddnerf_tpu.data.assembly import get_datasets
+from ddnerf_tpu_torch.eval.evaluate import load_pipeline, resolve_device
+from ddnerf_tpu_torch.models.nerf import ScheduleValues
+from ddnerf_tpu_torch.render.media import AviWriter, write_png
+from ddnerf_tpu_torch.render.renderer import ImageRenderer
+from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+
+
+def side_by_side(rgb: np.ndarray, disp: np.ndarray) -> np.ndarray:
+    """``rgb [H, W, 3]`` and ``disp [H, W]`` uint8 -> the video frame
+    ``[H, 2W, 3]``: rgb on the left, the disparity as grey on the right."""
+    return np.concatenate([rgb, np.repeat(disp[..., None], 3, axis=-1)],
+                          axis=1)
+
+
+def render_model_video(basedir: str, save_images: bool = False,
+                       fps: int = 24, max_frames: int = 0,
+                       torch_checkpoint: str | None = None,
+                       device: str = "cuda") -> str:
+    """Render the video of the run in ``basedir``: the first ``max_frames``
+    render poses (0: all) at the dataset's resolution.  Returns the path
+    of ``video.avi``."""
+    dev = resolve_device(device)
+    savedir = os.path.join(basedir, "video")
+    os.makedirs(savedir, exist_ok=True)
+
+    cfg = load_config_snapshot(basedir)
+    _, val_ds, cfg = get_datasets(cfg)
+    pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint)
+    sched = ScheduleValues.for_eval(cfg)
+    renderer = ImageRenderer(cfg, pipeline, mode="render")
+    h, w = val_ds.H, val_ds.W
+
+    n = len(val_ds.render_poses)
+    if max_frames:
+        n = min(n, max_frames)
+    path = os.path.join(savedir, "video.avi")
+    frames = renderer.render_video_frames_from_poses(
+        val_ds.render_poses[:n], h, w, val_ds.focal, sched=sched)
+    times = []
+    with AviWriter(path, 2 * w, h, fps) as writer:
+        for idx in range(n):
+            t0 = time.perf_counter()
+            rgb, disp = next(frames)  # uint8 on the host: the frame is done
+            times.append(time.perf_counter() - t0)
+            frame = side_by_side(rgb, disp)
+            writer.write(frame)
+            if save_images:
+                write_png(os.path.join(savedir, f"frame_{idx:04d}.png"),
+                          frame)
+            print(f"frame {idx}/{n} ({times[-1]:.2f}s)")
+    if times:
+        print(f"avg render time per frame: {np.mean(times):.3f}s on {dev}")
+    print(f"video written to {path}")
+    return path

@@ -1,9 +1,11 @@
 """The fused-MLP CUDA kernels on the card: the forward against its plain
 version at the shapes the render path gives it, the whole render slice
-through it against the plain modules, and the training kernels (stash
-forward, fused backward) against their plain versions, bitwise
-repeatable, in a train step.  Marked ``cuda``; without a GPU every test
-here skips (the decision is made in a fixture, at run time).
+through it against the plain modules, the in-kernel-IPE forward against
+its plain version and bit for bit against the forward fed the plain IPE,
+and the training kernels (stash forward, fused backward) against their
+plain versions, bitwise repeatable, in a train step.  Marked ``cuda``;
+without a GPU every test here skips (the decision is made in a fixture,
+at run time).
 
 On a GPU machine:  python -m pytest tests/test_torch_port_cuda.py -m cuda
 """
@@ -11,8 +13,12 @@ On a GPU machine:  python -m pytest tests/test_torch_port_cuda.py -m cuda
 import pytest
 import torch
 
+from ddnerf_tpu_torch.core.math import integrated_pos_enc
 from ddnerf_tpu_torch.kernels import fused_mlp as fk
-from ddnerf_tpu_torch.kernels.reference import fused_mlp_reference
+from ddnerf_tpu_torch.kernels.reference import (
+    fused_enc_mlp_reference,
+    fused_mlp_reference,
+)
 from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +86,97 @@ def test_render_slice_through_kernel_matches_plain(device):
             pose_spherical(30.0, -30.0, 4.0), 48, 40, 50.0)
         launched = fk.LAUNCHES["fused_mlp_fwd"] - before
         assert launched == (2 if policy == "auto" else 0)
+    for i in (0, 1):
+        diff = abs(maps["auto"][i]["rgb"] - maps["off"][i]["rgb"]).max()
+        assert diff < 1e-3
+
+
+def _gaussians(gen, n, device):
+    """Section means up to +-3 (2^15 x 3 engages the 100 pi wrap) and
+    covariances over six decades, as cast_rays gives them."""
+    means = (torch.rand(n, 3, generator=gen) * 6 - 3).to(device)
+    covs = (10.0 ** (torch.rand(n, 3, generator=gen) * 6 - 7)).to(device)
+    return means, covs
+
+
+@pytest.mark.parametrize("hidden,rays,k", [(256, 512, 32), (256, 129, 33),
+                                           (128, 77, 32), (64, 50, 33),
+                                           (256, 3, 1)])
+@pytest.mark.parametrize("depth_head", [False, True])
+def test_enc_kernel_matches_plain_and_the_forward_fed_the_plain_ipe(
+        device, depth_head, hidden, rays, k):
+    gen = torch.Generator().manual_seed(hidden + rays + k)
+    net = (DepthMipMLP if depth_head else MipMLP)(
+        hidden_size=hidden, compute_dtype=torch.bfloat16,
+        generator=gen).to(device)
+    means, covs = _gaussians(gen, rays * k, device)
+    dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+    before = dict(fk.LAUNCHES)
+    out = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fused_enc_mlp_fwd"] == before["fused_enc_mlp_fwd"] + 1
+    assert fk.LAUNCHES["fused_mlp_fwd"] == before["fused_mlp_fwd"]
+    assert out.shape == (rays * k, net.out_dim) and torch.isfinite(out).all()
+    err = (out - fused_enc_mlp_reference(net, means, covs, dirs, k)).abs()
+    assert err.max().item() <= MAX_ABS_TOL
+    assert err.mean().item() <= MEAN_ABS_TOL
+    # Same libdevice sinf / expf in the same order, the same bf16 rounding
+    # and the same net body: bit-identical to B1 fed the torch IPE.
+    ipe = integrated_pos_enc((means, covs), double_angle=False)
+    assert torch.equal(out, fk.fused_mlp_forward(net, ipe, dirs, k))
+
+
+def test_enc_kernel_checks_its_inputs_and_never_falls_back(device):
+    gen = torch.Generator().manual_seed(0)
+    net = MipMLP(hidden_size=64, compute_dtype=torch.bfloat16,
+                 generator=gen).to(device)
+    means, covs = _gaussians(gen, 12, device)
+    dirs = torch.zeros(3, 27, device=device)
+    before = dict(fk.LAUNCHES)
+    with pytest.raises(ValueError, match="means must be"):
+        fk.fused_enc_mlp_forward(net, torch.zeros(12, 4, device=device),
+                                 covs, dirs, 4)
+    with pytest.raises(ValueError, match="covs must be"):
+        fk.fused_enc_mlp_forward(net, means, covs[:8], dirs, 4)
+    with pytest.raises(ValueError, match="one row per"):
+        fk.fused_enc_mlp_forward(net, means, covs, dirs[:2], 4)
+    with pytest.raises(ValueError, match="whole rays"):
+        fk.fused_enc_mlp_forward(net, means[:11], covs[:11], dirs, 4)
+    with pytest.raises(ValueError, match="computes in bf16"):
+        fk.fused_enc_mlp_forward(MipMLP(hidden_size=64).to(device), means,
+                                 covs, dirs, 4)
+    with pytest.raises(ValueError, match="hidden width"):
+        fk.fused_enc_mlp_forward(
+            MipMLP(hidden_size=32, compute_dtype=torch.bfloat16).to(device),
+            means, covs, dirs, 4)
+    assert fk.LAUNCHES == before
+
+
+def test_render_slice_through_enc_kernel_matches_plain(device):
+    from ddnerf_tpu_torch.config import Config
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.render.renderer import ImageRenderer
+    from ddnerf_tpu.data.synthetic import pose_spherical
+
+    base = Config.from_dict({
+        "nerf": {"type": "DDNerfModel",
+                 "validation": {"num_coarse": 32, "num_fine": 32,
+                                "perturb": False, "chunksize": 4096}},
+        # The plain side takes the direct-form IPE that the kernel computes.
+        "parallel": {"compute_dtype": "bfloat16", "ipe_double_angle": False,
+                     "render_kernel_variant": "ipe2"},
+    }).resolved()
+    maps = {}
+    for policy in ("auto", "off"):
+        cfg = base.replace_at("parallel.pallas_mlp", policy)
+        before = dict(fk.LAUNCHES)
+        r = ImageRenderer(cfg, NerfPipeline(cfg, device, seed=0))
+        maps[policy] = r.render_image_from_pose(
+            pose_spherical(30.0, -30.0, 4.0), 48, 40, 50.0)
+        launched = {name: fk.LAUNCHES[name] - before[name]
+                    for name in before}
+        assert launched["fused_enc_mlp_fwd"] == (2 if policy == "auto" else 0)
+        assert launched["fused_mlp_fwd"] == 0
     for i in (0, 1):
         diff = abs(maps["auto"][i]["rgb"] - maps["off"][i]["rgb"]).max()
         assert diff < 1e-3

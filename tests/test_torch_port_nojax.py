@@ -1,7 +1,8 @@
 """The port runs without JAX: every ddnerf_tpu_torch module imports, a
-tiny image renders and two training steps run through the train loop on
-the CPU, in a process where importing jax, flax, optax or orbax fails.
-chip_smoke.py refuses to report without a GPU."""
+tiny image renders, two training steps run through the train loop and a
+video frame of the logdir they write renders, on the CPU, in a process
+where importing jax, flax, optax or orbax fails.  chip_smoke.py refuses to
+report without a GPU."""
 
 import os
 import pkgutil
@@ -50,27 +51,34 @@ with tempfile.TemporaryDirectory() as tmp:
         "experiment.logdir", tmp, "experiment.validate_every", "1",
         "nerf.train.num_coarse", "4", "nerf.train.num_fine", "4",
         "nerf.train.num_random_rays", "16", "dataset.synthetic", "true",
-        "dataset.type", "blender"]).resolved()
+        "dataset.type", "blender", "nerf.validation.chunksize", "1024",
+        "parallel.render_kernel_variant", "ipe2"]).resolved()
     state, logdir = train(tcfg, max_iters=2, device="cpu")
     assert state.step == 2
     assert os.path.isfile(os.path.join(logdir, "checkpoint.ckpt"))
     losses = [json.loads(line)["loss"]
               for line in open(os.path.join(logdir, "metrics.jsonl"))]
     assert len(losses) == 4 and all(np.isfinite(losses)), losses
+    from ddnerf_tpu_torch.render.media import read_avi
+    from ddnerf_tpu_torch.render.video import render_model_video
+    frames, _ = read_avi(render_model_video(logdir, max_frames=1,
+                                            device="cpu"))
+    assert frames.shape == (1, 64, 128, 3), frames.shape
 leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not leaked, leaked
-print("RENDERED AND TRAINED", len(mods), "modules")
+print("RENDERED, TRAINED AND FILMED", len(mods), "modules")
 """
 
 
 def test_port_imports_and_renders_without_jax():
-    """Every module imports; a render and two train steps run."""
+    """Every module imports; a render, two train steps and a video frame
+    run."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "RENDERED AND TRAINED" in proc.stdout
+    assert "RENDERED, TRAINED AND FILMED" in proc.stdout
 
 
 def test_no_port_source_imports_jax():
