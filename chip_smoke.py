@@ -42,7 +42,9 @@ Run from the repository root.  Phases, each of which fails the run:
    with the plain one by PSNR, with the wall times; and the 800x800 video
    frame (uint8) of the in-kernel-IPE path against the plain one.
 
-The second-to-last line is the kernel table as JSON; the last line is
+The second-to-last line is the kernel table as JSON (each kernel's time
+beside its plain version's and beside ``bound_ms``, the least time the card
+could take for the same work, see :func:`_bound_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
 beside this file, the run exits non-zero and prints no result.
 """
@@ -75,6 +77,9 @@ FRAME = 800  # the blender lego resolution
 VIDEO_FRAMES = 8
 VIDEO_HW = (64, 64)  # the procedural synthetic scene's resolution
 TIMING_REPS = 10
+# Published peaks of one H100 SXM (dense, no sparsity), for the bounds.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 # The training shape: 2048 rays x 32 samples per network per step.
 TRAIN_RAYS = 2048
 # Fused backward vs its plain version, per gradient: ||kernel - plain|| /
@@ -132,7 +137,7 @@ def phase_build():
     state = "cached" if info.cached else "built"
     print(f"[build] {state} {info.path.name} in {info.seconds:.1f} s", flush=True)
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "(C75" in line:
             print(f"[build]   {line.strip()}")
     build.load_library()
 
@@ -151,6 +156,62 @@ def _event_ms(torch, fn, reps=TIMING_REPS):
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _forward_macs(net, rows, rays):
+    """Multiply-adds of one forward of ``net``: every weight once per row,
+    except the dir layer's view-direction columns, once per ray."""
+    per_row = sum(p.numel() for name, p in net.named_parameters()
+                  if name.endswith("weight"))
+    dirs_part = net.dir_hidden * 27
+    return rows * (per_row - dirs_part) + rays * dirs_part
+
+
+def _param_bytes(net):
+    """The kernels read weights as bf16 and biases as f32."""
+    return sum(p.numel() * (2 if name.endswith("weight") else 4)
+               for name, p in net.named_parameters())
+
+
+def _bound_ms(flop, nbytes):
+    """The least time the card could take: the larger of the operations
+    over the dense bf16 peak and the bytes (each input read once, each
+    output written once) over the device-memory rate -> (ms, which)."""
+    t_flop, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_flop, t_bytes) * 1e3, ("operations" if t_flop >= t_bytes
+                                        else "bytes")
+
+
+def kernel_bounds(net, rows, rays, train_rows, train_rays):
+    """``{kernel: (bound_ms, bound_by)}`` at the shapes that were timed:
+    the forwards B1 / B3 on ``rows`` (``rays`` rays), the training pair B1s
+    / B2 on ``train_rows``.  Forward: 2 FLOP per multiply-add; it reads the
+    IPE (96 bf16 per row; B3: means and covs, 6 f32), the dirs (27 bf16
+    per ray) and the parameters, and writes out_dim f32 per row; B1s also
+    writes the stash, (9 H + 128) bf16 per row.  Backward: the weight
+    gradients repeat the forward's multiply-adds, the cotangent chain
+    repeats all but those whose input is the IPE or the dirs (layer 0, the
+    skip layer's IPE columns, the dir layer's dirs columns); it reads the
+    IPE, the dirs, the cotangent (out_dim f32 per row), the stash and the
+    weights, and writes one f32 gradient per parameter."""
+    hid, out_dim = net.hidden_size, net.out_dim
+    params = _param_bytes(net)
+    n_params = sum(p.numel() for p in net.parameters())
+    out = {}
+    fwd = 2 * _forward_macs(net, rows, rays)
+    io = rays * 27 * 2 + params + rows * out_dim * 4
+    out["fused_mlp_fwd"] = _bound_ms(fwd, io + rows * 96 * 2)
+    out["fused_enc_mlp_fwd"] = _bound_ms(fwd, io + rows * 6 * 4)
+    macs = _forward_macs(net, train_rows, train_rays)
+    stash = train_rows * (9 * hid + 128) * 2
+    io = train_rows * 96 * 2 + train_rays * 27 * 2 + params
+    out["fused_mlp_fwd_stash"] = _bound_ms(
+        2 * macs, io + train_rows * out_dim * 4 + stash)
+    no_dgrad = train_rows * 2 * 96 * hid + train_rays * net.dir_hidden * 27
+    out["fused_mlp_bwd"] = _bound_ms(
+        2 * (2 * macs - no_dgrad),
+        io + train_rows * out_dim * 4 + stash + n_params * 4)
+    return out
 
 
 def phase_kernel(torch):
@@ -196,6 +257,15 @@ def phase_kernel(torch):
                       f"{plain:.3f} ms (CUDA-event medians of "
                       f"{TIMING_REPS})", flush=True)
                 timing[cls.__name__] = (ms, plain)
+    # A yardstick the port never calls: one trunk layer's product through
+    # the library.  No single PyTorch call computes the fused network, so
+    # the kernels' library_ms stays null.
+    a = torch.randn(CHUNK_RAYS * SAMPLES, 256, device=dev,
+                    dtype=torch.bfloat16)
+    w = torch.randn(256, 256, device=dev, dtype=torch.bfloat16)
+    print(f"[kernel] yardstick: torch.matmul [{a.shape[0]}, 256] x [256, 256] "
+          f"bf16 {_event_ms(torch, lambda: a @ w.T):.3f} ms (one trunk "
+          f"layer's product, activations through device memory)", flush=True)
     return worst, timing
 
 
@@ -689,50 +759,44 @@ def main():
           f"{frame_s['plain']:.3f} s; train step kernel "
           f"{step_ms['kernel']:.2f} ms, plain {step_ms['plain']:.2f} ms; "
           f"whole run {time.perf_counter() - t_start:.1f} s")
-    leaked = [m for m in ("jax", "flax", "optax", "orbax") if m in sys.modules]
+    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "ddnerf_tpu"))
     if leaked:
         fail(f"imported {leaked}")
+
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP
 
     ms, plain_ms = timing["DepthMipMLP"]
     coarse = train_timing["DepthMipMLP"]
     enc = enc_timing["DepthMipMLP"]
+    bounds = kernel_bounds(
+        DepthMipMLP(hidden_size=256, compute_dtype=torch.bfloat16),
+        CHUNK_RAYS * SAMPLES, CHUNK_RAYS, TRAIN_RAYS * SAMPLES, TRAIN_RAYS)
+    fwd_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu"
+    # name, source, the TPU kernel, main-path launches, error, ms, plain ms
+    rows = [
+        ("fused_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
+         launches["fused_mlp_fwd"], max_err, ms, plain_ms),
+        ("fused_mlp_fwd_stash", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
+         train_launches["fused_mlp_fwd_stash"],
+         train_err["fused_mlp_fwd_stash"], coarse["fwd_stash"],
+         coarse["plain_fwd"]),
+        ("fused_mlp_bwd", "ddnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
+         "ddnerf_tpu/kernels/fused_mlp_bwd.py:299",
+         train_launches["fused_mlp_bwd"], train_err["fused_mlp_bwd"],
+         coarse["bwd"], coarse["plain_bwd"]),
+        ("fused_enc_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:309",
+         video_launches["fused_enc_mlp_fwd"], enc_err, enc["enc"],
+         enc["plain"]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "fused_mlp_fwd",
-        "route": "cuda",
-        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
-        "replaces": "ddnerf_tpu/kernels/fused_mlp.py:464",
-        "launches": launches["fused_mlp_fwd"],
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "fused_mlp_fwd_stash",
-        "route": "cuda",
-        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
-        "replaces": "ddnerf_tpu/kernels/fused_mlp.py:464",
-        "launches": train_launches["fused_mlp_fwd_stash"],
-        "max_abs_err": train_err["fused_mlp_fwd_stash"],
-        "ms": coarse["fwd_stash"],
-        "plain_ms": coarse["plain_fwd"],
-    }, {
-        "name": "fused_mlp_bwd",
-        "route": "cuda",
-        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
-        "replaces": "ddnerf_tpu/kernels/fused_mlp_bwd.py:299",
-        "launches": train_launches["fused_mlp_bwd"],
-        "max_abs_err": train_err["fused_mlp_bwd"],
-        "ms": coarse["bwd"],
-        "plain_ms": coarse["plain_bwd"],
-    }, {
-        "name": "fused_enc_mlp_fwd",
-        "route": "cuda",
-        "source": "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu",
-        "replaces": "ddnerf_tpu/kernels/fused_mlp.py:309",
-        "launches": video_launches["fused_enc_mlp_fwd"],
-        "max_abs_err": enc_err,
-        "ms": enc["enc"],
-        "plain_ms": enc["plain"],
-    }]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": count, "max_abs_err": err, "ms": t, "plain_ms": plain_t,
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        # No single PyTorch call computes a fused 11-layer MLP (or its
+        # backward), so there is no library time to put beside these.
+        "library_ms": None,
+    } for name, source, replaces, count, err, t, plain_t in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

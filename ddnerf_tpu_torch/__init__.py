@@ -14,10 +14,13 @@ is easy to find:
   :mod:`ddnerf_tpu_torch.cli` — chunked whole-image rendering, the eval
   entry point and its command line.
 
-Modules of the JAX package that hold no JAX code (the config, the data
-loaders, host ray bundles, the PSNR/SSIM metrics, the results writer) are
-imported from :mod:`ddnerf_tpu`, not copied.  Nothing here imports JAX,
-Flax, Optax or Orbax.
+The package stands alone: it imports nothing of :mod:`ddnerf_tpu`, not even
+the modules there that hold no JAX code.  It keeps its own config
+(:mod:`ddnerf_tpu_torch.config`), data loaders and ray datasets
+(:mod:`ddnerf_tpu_torch.data`), PSNR/SSIM metrics
+(:mod:`ddnerf_tpu_torch.eval.metrics`) and results writer and documenter
+(:mod:`ddnerf_tpu_torch.viz`), under the same module names.  Nothing here
+imports JAX, Flax, Optax or Orbax.
 """
 
 __version__ = "0.1.0"

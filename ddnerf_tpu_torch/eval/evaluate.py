@@ -19,9 +19,9 @@ from collections import defaultdict
 
 import torch
 
-from ddnerf_tpu.data.assembly import get_datasets
-from ddnerf_tpu.eval.metrics import calc_ssim, psnr
-from ddnerf_tpu.viz.visualization import write_dicts_to_a_file
+from ddnerf_tpu_torch.data.assembly import get_datasets
+from ddnerf_tpu_torch.eval.metrics import calc_ssim, psnr
+from ddnerf_tpu_torch.viz.visualization import write_dicts_to_a_file
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, ScheduleValues
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train.checkpoint import (

@@ -2,8 +2,9 @@
 
 The library is compiled at first use with ``nvcc`` for ``sm_90a`` (Hopper)
 into ``kernels/_build/<hash>/``, keyed by a hash of the sources and flags,
-and loaded with ``ctypes``.  The sources have a plain C interface and no
-PyTorch headers, so a build takes seconds.  A failed build raises; nothing
+and loaded with ``ctypes``: one ``nvcc`` per source, all started together,
+then one link.  The sources have a plain C interface and no PyTorch
+headers, so a build takes well under a minute.  A failed build raises; nothing
 falls back to another implementation.
 """
 
@@ -25,7 +26,7 @@ LIB_NAME = "libddnerf_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into the build log
 )
 
@@ -75,17 +76,32 @@ def build() -> BuildInfo:
         return BuildInfo(lib, 0.0, log, True)
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    nvcc = find_nvcc()
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objects = [out_dir / f"{s.stem}.{os.getpid()}.o" for s in units]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(units, objects)]
+    log, failed = "", []
+    for src, proc in zip(units, procs):
+        log += proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objects)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
     return BuildInfo(lib, seconds, log, False)

@@ -22,7 +22,7 @@ import time
 
 import numpy as np
 
-from ddnerf_tpu.data.assembly import get_datasets
+from ddnerf_tpu_torch.data.assembly import get_datasets
 from ddnerf_tpu_torch.eval.evaluate import load_pipeline, resolve_device
 from ddnerf_tpu_torch.models.nerf import ScheduleValues
 from ddnerf_tpu_torch.render.media import AviWriter, write_png

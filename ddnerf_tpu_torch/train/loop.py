@@ -4,7 +4,7 @@ Counterpart of ``ddnerf_tpu/train/loop.py`` (reference
 train_model.py:19-264) in its per-iteration form: config snapshot, seeded
 networks, the device-resident ray store, one train step per iteration,
 the ``[TRAIN]`` line at ``print_every`` and at the last iteration, train
-scalars through the JAX package's ``Documenter`` (``metrics.jsonl``, and
+scalars through the ``Documenter`` (``metrics.jsonl``, and
 TensorBoard when tensorboardX is importable) every
 ``train_scalars_every`` iterations, a whole-image validation at
 ``validate_every``, and ``checkpoint.ckpt`` at ``save_every`` and at the
@@ -22,7 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ddnerf_tpu.viz.documentation import Documenter
+from ddnerf_tpu_torch.viz.documentation import Documenter
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.data.datasets import load_train_store
 from ddnerf_tpu_torch.eval.evaluate import resolve_device

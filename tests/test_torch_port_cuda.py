@@ -2,6 +2,8 @@
 version at the shapes the render path gives it, the whole render slice
 through it against the plain modules, the in-kernel-IPE forward against
 its plain version and bit for bit against the forward fed the plain IPE,
+the forward's three modes bit for bit against each other on ragged,
+one-tile and many-round grids and back to back with different weights,
 and the training kernels (stash forward, fused backward) against their
 plain versions, bitwise repeatable, in a train step.  Marked ``cuda``;
 without a GPU every test here skips (the decision is made in a fixture,
@@ -69,7 +71,7 @@ def test_render_slice_through_kernel_matches_plain(device):
     from ddnerf_tpu_torch.config import Config
     from ddnerf_tpu_torch.models.nerf import NerfPipeline
     from ddnerf_tpu_torch.render.renderer import ImageRenderer
-    from ddnerf_tpu.data.synthetic import pose_spherical
+    from ddnerf_tpu_torch.data.synthetic import pose_spherical
 
     base = Config.from_dict({
         "nerf": {"type": "DDNerfModel",
@@ -156,7 +158,7 @@ def test_render_slice_through_enc_kernel_matches_plain(device):
     from ddnerf_tpu_torch.config import Config
     from ddnerf_tpu_torch.models.nerf import NerfPipeline
     from ddnerf_tpu_torch.render.renderer import ImageRenderer
-    from ddnerf_tpu.data.synthetic import pose_spherical
+    from ddnerf_tpu_torch.data.synthetic import pose_spherical
 
     base = Config.from_dict({
         "nerf": {"type": "DDNerfModel",
@@ -180,6 +182,76 @@ def test_render_slice_through_enc_kernel_matches_plain(device):
     for i in (0, 1):
         diff = abs(maps["auto"][i]["rgb"] - maps["off"][i]["rgb"]).max()
         assert diff < 1e-3
+
+
+def _net(cls, hidden, seed, device):
+    gen = torch.Generator().manual_seed(seed)
+    return cls(hidden_size=hidden, compute_dtype=torch.bfloat16,
+               generator=gen).to(device), gen
+
+
+# Row counts that are no multiple of the 64 rows a warpgroup owns nor of the
+# 128-row tile, a grid of one CTA, and grids of more tiles than the card has
+# SMs, so the persistent CTAs walk several tiles and their barriers' phases
+# wrap (33,000 rows = 258 tiles; 50,717 rows = 397 tiles, the last ragged).
+@pytest.mark.parametrize("rays,k", [(5, 13), (3, 43), (7, 29), (1000, 33),
+                                    (1237, 41)])
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_forward_modes_agree_bit_for_bit(device, hidden, rays, k):
+    """Render mode, stash mode and the in-kernel IPE are one net body:
+    B1 == B1s == B3 fed the same Gaussians, bit for bit, and within the
+    forward tolerances of the plain version; the stash slabs too."""
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    net, gen = _net(DepthMipMLP, hidden, hidden + rays, device)
+    n = rays * k
+    means, covs = _gaussians(gen, n, device)
+    dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+    ipe = integrated_pos_enc((means, covs), double_angle=False)
+    b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+    b1s, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+    b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+    torch.cuda.synchronize()
+    assert b1.shape == (n, net.out_dim) and torch.isfinite(b1).all()
+    assert torch.equal(b1, b1s)
+    assert torch.equal(b1, b3)
+    want, want_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+    for a, b in zip([b1, *stash.trunk, stash.h],
+                    [want, *want_stash.trunk, want_stash.h]):
+        err = (a.float() - b.float()).abs()
+        assert err.max().item() <= MAX_ABS_TOL
+        assert err.mean().item() <= MEAN_ABS_TOL
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_back_to_back_launches_with_different_weights(device, hidden):
+    """Launches queued on one stream with no synchronisation between them,
+    alternating two networks and the three modes: each result equals the
+    same call made alone (no ring slot, tensor map or barrier state leaks
+    from one launch into the next)."""
+    net_a, gen = _net(DepthMipMLP, hidden, 1, device)
+    net_b, _ = _net(DepthMipMLP, hidden, 2, device)
+    rays, k = 300, 33
+    means, covs = _gaussians(gen, rays * k, device)
+    dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+    ipe = integrated_pos_enc((means, covs), double_angle=False)
+    alone = {}
+    for name, net in (("a", net_a), ("b", net_b)):
+        alone[name] = fk.fused_mlp_forward(net, ipe, dirs, k)
+        torch.cuda.synchronize()
+    assert not torch.equal(alone["a"], alone["b"])
+    queued = []
+    for _ in range(3):
+        queued.append(("a", fk.fused_mlp_forward(net_a, ipe, dirs, k)))
+        queued.append(("b", fk.fused_enc_mlp_forward(net_b, means, covs, dirs,
+                                                     k)))
+        queued.append(("b", fk.fused_mlp_forward(net_b, ipe, dirs, k,
+                                                 stash=True)[0]))
+        queued.append(("a", fk.fused_enc_mlp_forward(net_a, means, covs, dirs,
+                                                     k)))
+    torch.cuda.synchronize()
+    for name, out in queued:
+        assert torch.equal(out, alone[name])
 
 
 # The fused backward vs its plain version, per gradient, norm-relative:

@@ -1,7 +1,8 @@
-"""The port runs without JAX: every ddnerf_tpu_torch module imports, a
-tiny image renders, two training steps run through the train loop and a
-video frame of the logdir they write renders, on the CPU, in a process
-where importing jax, flax, optax or orbax fails.  chip_smoke.py refuses to
+"""The port runs without JAX and without the JAX package: every
+ddnerf_tpu_torch module imports, a tiny image renders, two training steps
+run through the train loop and a video frame of the logdir they write
+renders, on the CPU, in a process where importing jax, flax, optax, orbax
+or ddnerf_tpu fails.  chip_smoke.py refuses to
 report without a GPU."""
 
 import os
@@ -14,7 +15,7 @@ import sys
 import ddnerf_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "ddnerf_tpu")
 
 _PROGRAM = f"""
 import sys
@@ -31,7 +32,7 @@ import numpy as np
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.models.nerf import NerfPipeline
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
-from ddnerf_tpu.data.synthetic import pose_spherical
+from ddnerf_tpu_torch.data.synthetic import pose_spherical
 
 cfg = Config.from_dict({{
     "nerf": {{"type": "DDNerfModel", "coarse_hidden_size": 16,
@@ -82,7 +83,8 @@ def test_port_imports_and_renders_without_jax():
 
 
 def test_no_port_source_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax)\b", re.M)
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|ddnerf_tpu)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.dirname(ddnerf_tpu_torch.__file__)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
