@@ -5,7 +5,9 @@
 Run from the repository root.  Phases, each of which fails the run:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: compile the CUDA kernels from ``ddnerf_tpu_torch/kernels/csrc``;
+2. build: compile the CUDA kernels from ``ddnerf_tpu_torch/kernels/csrc``
+   and print ptxas' registers, spill bytes and advisories for each: at
+   widths 128 and 256 there must be no spill and no advisory;
 3. forward kernel vs plain: the fused MLP forward (render mode) against
    its plain PyTorch version for DepthMipMLP and MipMLP at width 256 on one
    production chunk (16384 rays x 32 samples) and on ragged shapes, with
@@ -19,7 +21,8 @@ Run from the repository root.  Phases, each of which fails the run:
    render mode, activation slabs within the forward tolerances) and the
    fused backward (every gradient within its norm-relative tolerance,
    bitwise repeatable) against their plain versions at the training shape
-   (2048 rays x 32 samples) and a ragged one, with CUDA-event timings;
+   (2048 rays x 32 samples), a ragged one, and ragged ones at widths 128
+   and 64, with CUDA-event timings;
 5. training main path: ``python -m ddnerf_tpu_torch.cli.train`` on
    ``configs/synthetic_smoke.yml`` for 200 iterations: finite losses, a
    lower mean loss over the last 20 iterations than over the first 20, a
@@ -95,8 +98,8 @@ TRAIN_RAYS = 2048
 GRAD_NORM_REL_TOL_TRUNK = 1e-3  # layers_xyz.*
 GRAD_NORM_REL_TOL_HEADS = 1.5e-4  # fc_feat, fc_alpha, layers_dir, fc_rgb, ...
 # B2 accumulates the weight gradients in f32: of their nonzero elements,
-# at most this share may be exactly representable in bf16 (read <= 0.4%;
-# weight gradients rounded to bf16 read 100%).
+# at most this share may be exactly representable in bf16 (read <= 0.8%,
+# the most at width 128; weight gradients rounded to bf16 read 100%).
 WEIGHT_GRAD_BF16_SHARE_MAX = 0.05
 TRAIN_ITERS = 200
 LOSS_WINDOW = 20  # iterations averaged at each end of the training run
@@ -136,9 +139,23 @@ def phase_build():
     info = build.build()
     state = "cached" if info.cached else "built"
     print(f"[build] {state} {info.path.name} in {info.seconds:.1f} s", flush=True)
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "(C75" in line:
-            print(f"[build]   {line.strip()}")
+    report = build.ptxas_report(info.log)
+    if not info.cached and not report:
+        fail("the build log holds no ptxas report (-Xptxas -v)")
+    bad = []
+    for r in report:
+        print(f"[build]   {r.name}: {r.registers} registers, "
+              f"{r.spill_bytes} spill bytes"
+              + "".join(f"; {a}" for a in r.advisories))
+        # Widths 128 and 256 (a kernel's first template argument) and the
+        # small kernels must neither spill nor draw an advisory: a wgmma
+        # kernel that does runs its products one at a time.
+        width = re.search(r"<(\d+)", r.name)
+        if (not width or int(width.group(1)) >= 128) and (
+                r.spill_bytes or r.advisories):
+            bad.append(r.name)
+    if bad:
+        fail(f"ptxas reports spills or advisories for {bad}")
     build.load_library()
 
 
@@ -361,11 +378,19 @@ def phase_train_kernels(torch):
     timing = {}
     for cls in (DepthMipMLP, MipMLP):
         gen = torch.Generator().manual_seed(1)
-        net = cls(hidden_size=256, compute_dtype=torch.bfloat16,
-                  generator=gen).to(dev)
-        for rays, k in ((TRAIN_RAYS, SAMPLES), (333, 33)):
+        nets = {}
+        # The training shape and a ragged one at width 256, then the two
+        # narrower widths (other tile widths of the backward's weight
+        # gradients) at ragged row counts with K = 13 and 7.
+        for hidden, rays, k in ((256, TRAIN_RAYS, SAMPLES), (256, 333, 33),
+                                (128, 700, 13), (64, 517, 7)):
+            if hidden not in nets:
+                nets[hidden] = cls(hidden_size=hidden,
+                                   compute_dtype=torch.bfloat16,
+                                   generator=gen).to(dev)
+            net = nets[hidden]
             n = rays * k
-            tag = f"{cls.__name__} N={n} K={k}"
+            tag = f"{cls.__name__} H={hidden} N={n} K={k}"
             ipe = (torch.rand(n, 96, generator=gen) * 2 - 1).to(dev)
             dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
             g = torch.randn(n, net.out_dim, generator=gen).to(dev)

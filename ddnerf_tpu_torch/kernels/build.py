@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,6 +38,45 @@ class BuildInfo:
     seconds: float  # compile time of this call; 0.0 when the cache was hit
     log: str  # nvcc / ptxas output of the build that made the library
     cached: bool
+
+
+@dataclass(frozen=True)
+class KernelReport:
+    """What ptxas said of one ``__global__`` function."""
+
+    name: str  # e.g. ``chain_kernel<256>``
+    registers: int
+    spill_bytes: int  # spill stores + spill loads
+    advisories: tuple  # "(C75..)" lines: wgmma serialized, and the like
+
+
+def kernel_name(mangled: str) -> str:
+    """``chain_kernel<256>`` from the mangled name that ptxas and cuobjdump
+    print."""
+    m = re.search(r"([a-z_]+_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def ptxas_report(log: str) -> list[KernelReport]:
+    """Registers, spill bytes and advisories of every kernel in a build
+    log (``-Xptxas -v``), in the log's order."""
+    advisories: dict[str, list[str]] = {}
+    for m in re.finditer(r"\((C75\d+)\) ([^\n]*?) in (?:the )?function '(\w+)",
+                         log):
+        advisories.setdefault(kernel_name(m.group(3)), []).append(
+            f"({m.group(1)}) {m.group(2)}")
+    out = []
+    for m in re.finditer(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S):
+        name = kernel_name(m.group(1))
+        out.append(KernelReport(name, int(m.group(4)),
+                                int(m.group(2)) + int(m.group(3)),
+                                tuple(advisories.get(name, ()))))
+    return out
 
 
 def _sources() -> list[Path]:

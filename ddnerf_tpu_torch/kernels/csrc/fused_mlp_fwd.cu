@@ -565,50 +565,6 @@ __global__ void dir_proj_kernel(const bf16* dirs, const bf16* wdirs,
   }
 }
 
-// cuTensorMapEncodeTiled, resolved through the runtime so that the library
-// links only cudart.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) f = nullptr;
-    return reinterpret_cast<EncodeTiled>(f);
-  }();
-  return fn;
-}
-
-// A bf16 tensor map of rank 2 or 3 (dims and box innermost first, strides
-// in elements for every dimension but the innermost), 128-byte swizzle,
-// out-of-range elements read as zero and never written.
-bool make_map(CUtensorMap* map, const void* ptr, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides,
-              const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  cuuint64_t bytes[2] = {0, 0};
-  for (int i = 0; i + 1 < rank; ++i) bytes[i] = strides[i] * sizeof(bf16);
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                const_cast<void*>(ptr), dims, bytes, box, ones,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int H, bool ENC>
 cudaError_t launch(const Params& p, const bf16* w, const long long* w_off,
                    const bf16* ipe, bf16* stash, bf16* stash_h,

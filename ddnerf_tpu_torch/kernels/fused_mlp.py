@@ -9,7 +9,8 @@ mode, and ``stash=True``), ``fused_enc_mlp_forward`` (render only),
 VJP ``fused_mlp_train_apply``, with per-ray view directions.  The forward
 computes the whole MipMLP / DepthMipMLP network per tile of 128 rows with
 every activation in shared memory; the backward computes every parameter
-gradient from the forward's stash in three deterministic passes.  The CUDA
+gradient from the forward's stash in deterministic passes (the cotangent
+chain, the weight gradients, fixed-order reductions).  The CUDA
 sources say what bounds them and how they are laid out.
 
 On a CPU tensor each wrapper runs its plain PyTorch version
@@ -44,6 +45,20 @@ DIR_HIDDEN = 128
 DIR_LAYER_ROWS = 144  # Wd_feat rows | fc_alpha | zero pad (an n8 multiple)
 HEAD_ROWS = 16  # fc_rgb (3) | fc_mu_sigma (2) | zero pad
 DIRS_LD = 32  # row stride of the packed Wd_dirs
+
+
+def _named_params(net) -> list:
+    """``list(net.named_parameters())`` read off the network's own layers:
+    the same names and tensors in the same order, without ``nn.Module``'s
+    recursive walk, which takes more host time than launching the kernels
+    does (every wrapper call needs the list)."""
+    layers = [(f"layers_xyz.{i}", m) for i, m in enumerate(net.layers_xyz)]
+    layers += [("fc_feat", net.fc_feat), ("fc_alpha", net.fc_alpha),
+               ("layers_dir.0", net.layers_dir[0]), ("fc_rgb", net.fc_rgb)]
+    if net.depth_head:
+        layers.append(("fc_mu_sigma", net.fc_mu_sigma))
+    return [(f"{name}.{leaf}", getattr(m, leaf)) for name, m in layers
+            for leaf in ("weight", "bias")]
 
 
 class KernelWeights(NamedTuple):
@@ -96,7 +111,7 @@ def pack_weights(net) -> KernelWeights:
         return tuple(offs)
 
     w_off, b_off = offsets(mats), offsets(biases)
-    # 16-byte alignment of every matrix for the kernels' cp.async copies.
+    # 16-byte alignment of every matrix: each is the base of a TMA tensor map.
     assert all(o % 8 == 0 for o in w_off), w_off
     w = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
     b = torch.cat([t.reshape(-1) for t in biases]).float()
@@ -109,37 +124,38 @@ def unpack_grads(net, kw: KernelWeights, gw: torch.Tensor,
     laid out as ``kw.w`` / ``kw.b`` -> ``{parameter name: tensor}`` in
     ``net.named_parameters()`` order (views where the layout allows)."""
     hid, dh = net.hidden_size, net.dir_hidden
-
-    def mat(i, rows, cols):
-        return gw[kw.w_off[i]:kw.w_off[i] + rows * cols].view(rows, cols)
-
-    def vec(i, size):
-        return gb[kw.b_off[i]:kw.b_off[i] + size]
+    # One split per buffer, then a view per matrix: this runs twice per
+    # train step on the host's clock, so it spends few dispatches.
+    ends_w = (*kw.w_off[1:], gw.numel())
+    ends_b = (*kw.b_off[1:], gb.numel())
+    mats = gw.split([e - o for o, e in zip(kw.w_off, ends_w)])
+    b_trunk, b_feat, b_dir, b_head = gb.split(
+        [e - o for o, e in zip(kw.b_off, ends_b)])
 
     grads = {}
-    b_trunk = vec(0, net.num_trunk_layers * hid).view(-1, hid)
-    for i, layer in enumerate(net.layers_xyz):
-        grads[f"layers_xyz.{i}.weight"] = mat(i, hid, layer.in_features)
-        grads[f"layers_xyz.{i}.bias"] = b_trunk[i]
-    grads["fc_feat.weight"] = mat(8, hid, hid)
-    grads["fc_feat.bias"] = vec(1, hid)
-    w_dir, b_dir = mat(9, DIR_LAYER_ROWS, hid), vec(2, DIR_LAYER_ROWS)
+    for i, (layer, bias) in enumerate(zip(net.layers_xyz,
+                                          b_trunk.view(-1, hid).unbind(0))):
+        grads[f"layers_xyz.{i}.weight"] = mats[i].view(hid, layer.in_features)
+        grads[f"layers_xyz.{i}.bias"] = bias
+    grads["fc_feat.weight"] = mats[8].view(hid, hid)
+    grads["fc_feat.bias"] = b_feat
+    w_dir = mats[9].view(DIR_LAYER_ROWS, hid)
     grads["fc_alpha.weight"] = w_dir[dh:dh + 1]
     grads["fc_alpha.bias"] = b_dir[dh:dh + 1]
     grads["layers_dir.0.weight"] = torch.cat(
-        [w_dir[:dh], mat(11, dh, DIRS_LD)[:, :DIR_DIM]], 1)
+        [w_dir[:dh], mats[11].view(dh, DIRS_LD)[:, :DIR_DIM]], 1)
     grads["layers_dir.0.bias"] = b_dir[:dh]
-    w_head, b_head = mat(10, HEAD_ROWS, dh), vec(3, HEAD_ROWS)
+    w_head = mats[10].view(HEAD_ROWS, dh)
     grads["fc_rgb.weight"], grads["fc_rgb.bias"] = w_head[:3], b_head[:3]
     if net.depth_head:
         grads["fc_mu_sigma.weight"] = w_head[3:5]
         grads["fc_mu_sigma.bias"] = b_head[3:5]
-    return {name: grads[name] for name, _ in net.named_parameters()}
+    return {name: grads[name] for name, _ in _named_params(net)}
 
 
 def _packed(net) -> KernelWeights:
     """``pack_weights`` cached on the module until a parameter changes."""
-    key = tuple((p.data_ptr(), p._version) for p in net.parameters())
+    key = tuple((p.data_ptr(), p._version) for _, p in _named_params(net))
     cached = getattr(net, "_fused_mlp_pack", None)
     if cached is None or cached[0] != key:
         cached = (key, pack_weights(net))
@@ -294,6 +310,9 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     ``g [N, 4|6]``, from the ``stash`` of the same forward ->
     ``{parameter name: float32 gradient}`` in ``net.named_parameters()``
     order.  Deterministic: the same inputs give bitwise the same gradients.
+    The kernel's TMA tensor maps (weights, stash, workspace slabs) are
+    encoded inside the C entry point at every call: the stash and the
+    workspace are fresh storage each time, so no map outlives its call.
     """
     k = int(samples_per_ray)
     n = _check_rows(ipe, dirs, k)
@@ -377,4 +396,4 @@ def fused_mlp_train_apply(net, ipe: torch.Tensor, dirs: torch.Tensor,
     cdt = net.compute_dtype
     return _FusedMLPTrain.apply(net, ipe.detach().to(cdt),
                                 dirs.detach().to(cdt), int(samples_per_ray),
-                                *net.parameters())
+                                *(p for _, p in _named_params(net)))

@@ -76,7 +76,9 @@ def _stash_tail(net, x6):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("depth_head", [False, True])
-@pytest.mark.parametrize("rays,k", [(8, 3), (13, 4)])  # 13: a ragged block
+# 13 and 37 rays leave a ragged last block of RAYS_PER_BLOCK rays; at K = 33
+# the rays also straddle the edges of the CUDA kernel's 128-row tiles.
+@pytest.mark.parametrize("rays,k", [(8, 3), (13, 4), (37, 33)])
 def test_plain_backward_matches_pallas_interpret(rays, k, depth_head, dtype):
     params, net, ipe, dirs, g = _setup(depth_head, rays, k, dtype)
     n = rays * k
@@ -99,6 +101,40 @@ def test_plain_backward_matches_pallas_interpret(rays, k, depth_head, dtype):
         else:
             rel = ((got[name] - w).norm() / w.norm().clamp_min(1e-30)).item()
             assert rel <= BF16_NORM_REL_TOL, (name, rel)
+
+
+@pytest.mark.parametrize("depth_head", [False, True])
+def test_dirs_gradient_rounds_the_per_ray_sum_once(depth_head):
+    """d layers_dir.0.weight[:, hid:] = bf16(sum_K g_h)^T dirs, computed here
+    by hand: g_h is summed over the ray's K rows in float32 and rounded to
+    bf16 once, after the sum (``_bwd_kernel``'s g_dproj).  Rounding each row
+    first, the other place the rounding could sit, gives another result on
+    these inputs, so a kernel that moved the rounding point would show."""
+    gen = torch.Generator().manual_seed(6)
+    hid, rays, k = 32, 11, 33
+    net = (DepthMipMLP if depth_head else MipMLP)(
+        hidden_size=hid, compute_dtype=torch.bfloat16, generator=gen)
+    n = rays * k
+    ipe = torch.rand(n, 96, generator=gen) * 2 - 1
+    dirs = torch.rand(rays, 27, generator=gen) * 2 - 1
+    g = torch.randn(n, net.out_dim, generator=gen)
+    _, stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+    got = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash)
+
+    def q(x):
+        return x.to(torch.bfloat16).float()
+
+    with torch.no_grad():
+        g_h = q(g[:, 0:3]) @ q(net.fc_rgb.weight)
+        if depth_head:
+            g_h = g_h + q(g[:, 4:6]) @ q(net.fc_mu_sigma.weight)
+        g_h = torch.where(stash.h.float() > 0, g_h, 0.0).reshape(rays, k, -1)
+        want = q(g_h.sum(1)).T @ q(dirs)
+        rounded_first = q(q(g_h).sum(1)).T @ q(dirs)
+    d_dirs = got["layers_dir.0.weight"][:, hid:]
+    assert d_dirs.shape == (net.dir_hidden, 27)
+    assert torch.equal(d_dirs, want)
+    assert not torch.equal(d_dirs, rounded_first)
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 2e-2)])
@@ -187,6 +223,17 @@ def test_gradient_layout_round_trips(depth_head, hidden):
         if name.endswith("weight"):
             want = want.to(torch.bfloat16).float()
         assert torch.equal(back[name], want), name
+
+
+@pytest.mark.parametrize("depth_head", [False, True])
+def test_wrapper_parameter_list_is_named_parameters(depth_head):
+    """The wrappers read the parameters off the network's layers instead of
+    walking the module tree; names, order and tensors are
+    ``named_parameters()``'s."""
+    net = (DepthMipMLP if depth_head else MipMLP)(hidden_size=32)
+    got, want = fk._named_params(net), list(net.named_parameters())
+    assert [name for name, _ in got] == [name for name, _ in want]
+    assert all(a is b for (_, a), (_, b) in zip(got, want))
 
 
 def test_backward_wrapper_checks_its_inputs():

@@ -5,7 +5,8 @@ its plain version and bit for bit against the forward fed the plain IPE,
 the forward's three modes bit for bit against each other on ragged,
 one-tile and many-round grids and back to back with different weights,
 and the training kernels (stash forward, fused backward) against their
-plain versions, bitwise repeatable, in a train step.  Marked ``cuda``;
+plain versions at every width, below one tile and above 132 tiles, bitwise
+repeatable (also around a call with other weights), in a train step.  Marked ``cuda``;
 without a GPU every test here skips (the decision is made in a fixture,
 at run time).
 
@@ -263,9 +264,20 @@ def test_back_to_back_launches_with_different_weights(device, hidden):
 GRAD_NORM_REL_TOL = 1e-2
 
 
-@pytest.mark.parametrize("hidden,rays,k", [(256, 64, 32), (256, 37, 33),
-                                           (128, 77, 3), (64, 50, 1),
-                                           (256, 5, 1), (128, 9, 33)])
+def _training_shapes():
+    """(hidden, rays, k): every width x K in {32, 33, 13} x a row count
+    below one 128-row tile and one above 132 tiles (more tiles than the card
+    has SMs, so the persistent CTAs walk several and the last is ragged),
+    then a few odd ones (K = 1, five rows)."""
+    shapes = []
+    for hidden in (64, 128, 256):
+        for k in (32, 33, 13):
+            shapes.append((hidden, 3, k))
+            shapes.append((hidden, 132 * 128 // k + 7, k))
+    return shapes + [(128, 77, 3), (64, 50, 1), (256, 5, 1), (256, 37, 33)]
+
+
+@pytest.mark.parametrize("hidden,rays,k", _training_shapes())
 @pytest.mark.parametrize("depth_head", [False, True])
 def test_training_kernels_match_plain_versions(device, depth_head, hidden,
                                                rays, k):
@@ -301,6 +313,58 @@ def test_training_kernels_match_plain_versions(device, depth_head, hidden,
         rel = ((grads[name] - want[name]).norm()
                / want[name].norm().clamp_min(1e-30)).item()
         assert rel <= GRAD_NORM_REL_TOL, (name, rel)
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 256])
+def test_backward_repeats_bitwise_after_a_call_with_other_weights(device,
+                                                                  hidden):
+    """Two backward calls on one network give bitwise the same gradients,
+    with a call on another network (other weights, another row count, so
+    other workspace and tensor maps) queued between them: nothing that a
+    call builds (tensor maps, workspace, partial sums) outlives it."""
+    net_a, gen = _net(DepthMipMLP, hidden, 3, device)
+    net_b, _ = _net(DepthMipMLP, hidden, 4, device)
+    calls = {}
+    for name, net, rays, k in (("a", net_a, 300, 33), ("b", net_b, 129, 32)):
+        n = rays * k
+        ipe = (torch.rand(n, 96, generator=gen) * 2 - 1).to(device)
+        dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+        g = torch.randn(n, net.out_dim, generator=gen).to(device)
+        _, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+        calls[name] = (net, ipe, dirs, g, k, stash)
+    first = fk.fused_mlp_backward(*calls["a"])
+    other = fk.fused_mlp_backward(*calls["b"])
+    second = fk.fused_mlp_backward(*calls["a"])
+    torch.cuda.synchronize()
+    alone_b = fk.fused_mlp_backward(*calls["b"])
+    torch.cuda.synchronize()
+    for name in first:
+        assert torch.equal(first[name], second[name]), name
+        assert torch.equal(other[name], alone_b[name]), name
+        assert not torch.equal(first[name], other[name]), name
+
+
+def test_backward_rejects_float32_compute_and_never_falls_back(device,
+                                                               monkeypatch):
+    """On CUDA tensors the backward launches its kernel or raises: an
+    f32-compute network raises, and neither a kernel nor the plain version
+    runs in its place."""
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    gen = torch.Generator().manual_seed(0)
+    net = MipMLP(hidden_size=64, generator=gen).to(device)
+    rays, k = 4, 3
+    ipe = torch.rand(rays * k, 96, generator=gen).to(device)
+    dirs = torch.rand(rays, 27, generator=gen).to(device)
+    g = torch.randn(rays * k, 4, generator=gen).to(device)
+    _, stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+    before = dict(fk.LAUNCHES)
+    called = []
+    monkeypatch.setattr(fk, "fused_mlp_backward_reference",
+                        lambda *a, **kw: called.append(a))
+    with pytest.raises(ValueError, match="computes in bf16"):
+        fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
+    assert not called and fk.LAUNCHES == before
 
 
 def test_training_step_runs_both_kernels_twice(device):
