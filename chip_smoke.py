@@ -21,12 +21,13 @@ Run from the repository root.  Phases, each of which fails the run:
    render mode, activation slabs within the forward tolerances) and the
    fused backward (every gradient within its norm-relative tolerance,
    bitwise repeatable) against their plain versions at the training shape
-   (2048 rays x 32 samples), a ragged one, and ragged ones at widths 128
-   and 64, with CUDA-event timings;
+   (2048 rays x 32 samples), the NDC path's training shapes (2048 rays x 16
+   and x 17 samples), a ragged one, and ragged ones at widths 128 and 64,
+   with CUDA-event timings;
 5. training main path: ``python -m ddnerf_tpu_torch.cli.train`` on
    ``configs/synthetic_smoke.yml`` for 200 iterations: finite losses, a
    lower mean loss over the last 20 iterations than over the first 20, a
-   validation line, ``config.yml`` and ``checkpoint.ckpt``, and two
+   validation line, ``config.yml`` and ``checkpoint_200.ckpt``, and two
    launches of each training kernel per step;
 6. serving main path: ``python -m ddnerf_tpu_torch.cli.eval`` on the
    trained logdir; results.txt must hold finite PSNR / SSIM and the render
@@ -43,20 +44,41 @@ Run from the repository root.  Phases, each of which fails the run:
 8. full-size frame: one 800x800 render through the forward kernel, the
    in-kernel-IPE forward and the plain version, each kernel render compared
    with the plain one by PSNR, with the wall times; and the 800x800 video
-   frame (uint8) of the in-kernel-IPE path against the plain one.
+   frame (uint8) of the in-kernel-IPE path against the plain one;
+9. mip-NeRF main path (``nerf.type GeneralMipNerfModel``: one shared
+   MipMLP through both cycles): phases 5, 6 and 6b again with that
+   override (the eval with ``--save_images``: the image dumps must
+   decode), phase 7 on the shared net, the summed two-call gradient of
+   each leaf through the backward kernel against the plain backward on
+   the same forward, and an 800x800 frame through the forward kernel, the
+   in-kernel-IPE forward and the plain version;
+10. NDC main path: a forward-facing scene written to disk in the LLFF
+   layout, ``configs/ff_dd.yml`` (NDC rays, depth analysis on a keypoint
+   file written here) trained by the CLI, stopped and run again (it must
+   resume at the iteration it stopped at and keep the configured number of
+   step checkpoints), evaluated with ``--save_images --extract_ptc`` (every
+   artifact must exist and decode), one video frame, an NDC frame
+   through both forward kernels against the plain version by PSNR, and on
+   that scene and config phase 7 and phase 9's per-leaf gradient check
+   (both networks), so that the training kernels are held against their
+   plain versions at this path's shapes and cotangents too.
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`); the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
+sum over the main paths of phases 5-6b, 9 and 10, each counted from 0 in
+its own process.  Without CUDA, or without the package
 beside this file, the run exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -113,6 +135,20 @@ PARITY_STEPS = 20
 # bf16-rounded weight gradients (5.3e-7) are invisible in 20 early steps:
 # the per-gradient gates above catch those.
 PARITY_GAP_TOL = 1e-5
+MIPNERF = ("nerf.type", "GeneralMipNerfModel")  # the CLI override
+FF_CONFIG = os.path.join(REPO, "configs", "ff_dd.yml")
+# The NDC scene: 10 views of 512 x 512, which the config's
+# downsample_factor 4 minifies to 128 x 128; llffhold 8 holds out 2.
+NDC_SCENE_SIZE, NDC_SCENE_VIEWS, NDC_HW = 512, 10, (128, 128)
+NDC_ITERS = (20, 40)  # the first run stops at 20, the rerun goes on to 40
+NDC_KEEP = 2  # experiment.max_keep_ckpts of that run
+# Rows per ray of that config's two training evaluations (num_coarse 16;
+# the fine pass adds one).
+NDC_SAMPLES = (16, 17)
+# Modules that must not have been imported when the run ends: the JAX
+# package and its frameworks, and the libraries not every installation has.
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "ddnerf_tpu",
+                     "imageio", "matplotlib")
 
 
 def fail(msg: str) -> None:
@@ -130,6 +166,11 @@ def phase_device(torch):
     print(card, flush=True)
     print(f"[device] torch {torch.__version__} CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    # Looked up, never imported: the port must not come to need them.
+    print("[device] installed here: " + ", ".join(
+        f"{m} {'yes' if importlib.util.find_spec(m) else 'no'}"
+        for m in ("jax", "imageio", "matplotlib", "tensorboardX", "cv2",
+                  "PIL")), flush=True)
     return card
 
 
@@ -379,11 +420,13 @@ def phase_train_kernels(torch):
     for cls in (DepthMipMLP, MipMLP):
         gen = torch.Generator().manual_seed(1)
         nets = {}
-        # The training shape and a ragged one at width 256, then the two
-        # narrower widths (other tile widths of the backward's weight
-        # gradients) at ragged row counts with K = 13 and 7.
-        for hidden, rays, k in ((256, TRAIN_RAYS, SAMPLES), (256, 333, 33),
-                                (128, 700, 13), (64, 517, 7)):
+        # The training shape, the NDC path's two and a ragged one at width
+        # 256, then the two narrower widths (other tile widths of the
+        # backward's weight gradients) at ragged row counts with K = 13
+        # and 7.
+        for hidden, rays, k in ((256, TRAIN_RAYS, SAMPLES),
+                                *((256, TRAIN_RAYS, k) for k in NDC_SAMPLES),
+                                (256, 333, 33), (128, 700, 13), (64, 517, 7)):
             if hidden not in nets:
                 nets[hidden] = cls(hidden_size=hidden,
                                    compute_dtype=torch.bfloat16,
@@ -451,7 +494,7 @@ def phase_train_kernels(torch):
             if bad:
                 fail(f"fused_mlp_bwd disagrees with the plain version "
                      f"({tag}: {bad})")
-            if rays != TRAIN_RAYS:
+            if (rays, k) != (TRAIN_RAYS, SAMPLES):
                 continue
             t = {
                 "fwd_stash": _event_ms(torch, lambda: fk.fused_mlp_forward(
@@ -480,6 +523,15 @@ def phase_train_kernels(torch):
     return worst, timing
 
 
+def _sum_launches(*counts):
+    """Launch counts of several runs, added per kernel."""
+    total = {}
+    for c in counts:
+        for name, n in c.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def _subprocess(cmd, tag, timeout=900):
     """Run ``cmd`` from the repository root in a fresh process (its kernel
     launch counts start at 0), echo its stdout, fail on a non-zero exit."""
@@ -498,13 +550,8 @@ def _subprocess(cmd, tag, timeout=900):
     return proc.stdout, (json.loads(m.group(1)) if m else {}), wall
 
 
-def phase_train_main_path(logroot):
-    """The training CLI at full width; returns (logdir, launch counts)."""
-    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
-           CONFIG, "--max-iters", str(TRAIN_ITERS),
-           "experiment.logdir", logroot]
-    out, launches, wall = _subprocess(cmd, "train")
-    logdir = os.path.join(logroot, "synthetic_smoke")
+def _check_train_output(out, tag):
+    """Finite ``[TRAIN]`` and ``[VAL]`` lines -> the iterations printed."""
     train_lines = re.findall(r"^\[TRAIN\] iter (\d+) loss (\S+) psnr (\S+)",
                              out, re.M)
     val_lines = re.findall(r"^\[VAL\] iter \d+ loss (\S+) psnr (\S+)", out,
@@ -512,58 +559,101 @@ def phase_train_main_path(logroot):
     if not train_lines or not all(math.isfinite(float(a)) and
                                   math.isfinite(float(b))
                                   for _, a, b in train_lines):
-        fail(f"[TRAIN] lines missing or not finite: {train_lines}")
+        fail(f"{tag}: [TRAIN] lines missing or not finite: {train_lines}")
     if not val_lines or not all(math.isfinite(float(a)) and
                                 math.isfinite(float(b)) for a, b in val_lines):
-        fail(f"[VAL] lines missing or not finite: {val_lines}")
-    for name in ("config.yml", "checkpoint.ckpt", "metrics.jsonl"):
+        fail(f"{tag}: [VAL] lines missing or not finite: {val_lines}")
+    return [int(i) for i, _, _ in train_lines]
+
+
+def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
+    """The training CLI at full width (``opts``: config overrides);
+    returns (logdir, launch counts)."""
+    from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+
+    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
+           CONFIG, "--max-iters", str(TRAIN_ITERS),
+           "experiment.logdir", logroot, "experiment.id", run, *opts]
+    out, launches, wall = _subprocess(cmd, tag)
+    logdir = os.path.join(logroot, run)
+    _check_train_output(out, tag)
+    for name in ("config.yml", "metrics.jsonl",
+                 f"checkpoint_{TRAIN_ITERS}.ckpt"):
         if not os.path.isfile(os.path.join(logdir, name)):
-            fail(f"training wrote no {name} in {logdir}")
+            fail(f"{tag}: training wrote no {name} in {logdir}")
+    is_dd = load_config_snapshot(logdir).is_ddnerf()
+    if is_dd != bool(re.search(r"^\[VAL\] .* dp_loss \S+$", out, re.M)):
+        fail(f"{tag}: the [VAL] line must carry dp_loss for DDNeRF only")
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
         records = [json.loads(line) for line in f]
-    losses = [r["loss"] for r in records if r["kind"] == "train"]
+    records = [r for r in records if r["kind"] == "train"]
+    losses = [r["loss"] for r in records]
     if len(losses) != TRAIN_ITERS or not all(map(math.isfinite, losses)):
-        fail(f"metrics.jsonl holds {len(losses)} finite train losses, "
+        fail(f"{tag}: metrics.jsonl holds {len(losses)} finite train losses, "
              f"expected {TRAIN_ITERS}")
+    if is_dd != ("dp_loss" in records[0]):
+        fail(f"{tag}: the train records must carry dp_loss for DDNeRF only")
     first = statistics.mean(losses[:LOSS_WINDOW])
     last = statistics.mean(losses[-LOSS_WINDOW:])
-    print(f"[train] mean loss of iterations 0-{LOSS_WINDOW - 1}: {first:.5f}, "
-          f"of the last {LOSS_WINDOW}: {last:.5f}; wall {wall:.1f} s, "
-          f"launches {launches}", flush=True)
+    # The loop's own pace, from the records' time stamps (the loop reads
+    # every step's metrics on the host, which ends the step; a record is
+    # stamped before its iteration's validation, and none falls inside).
+    half = TRAIN_ITERS // 2
+    step_ms = (records[-1]["time"] - records[half]["time"]) * 1e3 / (
+        TRAIN_ITERS - 1 - half)
+    print(f"[{tag}] mean loss of iterations 0-{LOSS_WINDOW - 1}: {first:.5f}, "
+          f"of the last {LOSS_WINDOW}: {last:.5f}; {step_ms:.2f} ms/step "
+          f"over the second half of the run; wall {wall:.1f} s, launches "
+          f"{launches}", flush=True)
     if not last < first:
-        fail("training did not lower the mean loss")
+        fail(f"{tag}: training did not lower the mean loss")
     for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
         if launches.get(name) != 2 * TRAIN_ITERS:
-            fail(f"training launched {name} {launches.get(name)} times, "
-                 f"expected {2 * TRAIN_ITERS} (two networks per step)")
+            fail(f"{tag}: training launched {name} {launches.get(name)} "
+                 f"times, expected {2 * TRAIN_ITERS} (two network "
+                 f"evaluations per step)")
     return logdir, launches
 
 
-def phase_main_path(logdir):
+def _decoded_pngs(folder, names):
+    """Read each PNG of ``folder`` -> {name: array}; a missing or
+    undecodable file fails the run."""
+    from ddnerf_tpu_torch.render.media import read_png
+
+    out = {}
+    for name in names:
+        path = os.path.join(folder, name)
+        if not os.path.isfile(path):
+            fail(f"missing artifact {path}")
+        out[name] = read_png(path)
+    return out
+
+
+def phase_main_path(logdir, tag="eval", flags=(), images=2):
     """The eval CLI on the trained logdir; returns its launch counts."""
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.eval",
-           "--logdir", logdir, "--max-images", "2"]
-    _, launches, wall = _subprocess(cmd, "eval")
+           "--logdir", logdir, "--max-images", str(images), *flags]
+    _, launches, wall = _subprocess(cmd, tag)
     results = os.path.join(logdir, "validation", "results.txt")
     if not os.path.isfile(results):
-        fail("eval wrote no validation/results.txt")
+        fail(f"{tag}: eval wrote no validation/results.txt")
     with open(results) as f:
         metrics = re.findall(
             r"^(?:image \d+ , )?((?:psnr|ssim)\w*):\s*(\S+)$", f.read(),
             re.M)
-    if len(metrics) < 12 or not all(math.isfinite(float(v))
-                                    for _, v in metrics):
-        fail(f"results.txt metrics not all finite: {metrics}")
-    print(f"[eval] {len(metrics)} finite PSNR/SSIM values, wall {wall:.1f} s, "
+    if len(metrics) < 6 * (images + 1) or not all(
+            math.isfinite(float(v)) for _, v in metrics):
+        fail(f"{tag}: results.txt metrics not all finite: {metrics}")
+    print(f"[{tag}] {len(metrics)} finite PSNR/SSIM values, wall {wall:.1f} s, "
           f"launches {launches}", flush=True)
     if launches.get("fused_mlp_fwd", 0) <= 0:
-        fail("the eval render did not launch fused_mlp_fwd")
+        fail(f"{tag}: the eval render did not launch fused_mlp_fwd")
     return launches
 
 
-def phase_video_main_path(logdir):
+def phase_video_main_path(logdir, tag="video"):
     """The video CLI on an ``ipe2`` sibling of the trained logdir and on
-    the logdir itself (``mlp``); returns the ``ipe2`` run's launch counts."""
+    the logdir itself (``mlp``); returns both runs' launch counts summed."""
     from ddnerf_tpu_torch.config import Config
     from ddnerf_tpu_torch.render.media import read_avi, read_png
 
@@ -576,8 +666,8 @@ def phase_video_main_path(logdir):
     with open(os.path.join(sibling, "config.yml"), "w") as f:
         f.write(cfg.replace_at("parallel.render_kernel_variant",
                                "ipe2").dump())
-    os.symlink(os.path.join(logdir, "checkpoint.ckpt"),
-               os.path.join(sibling, "checkpoint.ckpt"))
+    newest = f"checkpoint_{TRAIN_ITERS}.ckpt"
+    os.symlink(os.path.join(logdir, newest), os.path.join(sibling, newest))
     h, w = VIDEO_HW
     chunks = -(-h * w // cfg.nerf.validation.chunksize)
     expected = 2 * chunks * VIDEO_FRAMES  # two networks per chunk
@@ -588,7 +678,7 @@ def phase_video_main_path(logdir):
         cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
                "--logdir", path, "--max-frames", str(VIDEO_FRAMES),
                "--save_images"]
-        out, launches, wall = _subprocess(cmd, f"video-{variant}")
+        out, launches, wall = _subprocess(cmd, f"{tag}-{variant}")
         avi = os.path.join(path, "video", "video.avi")
         if not os.path.isfile(avi) or os.path.getsize(avi) == 0:
             fail(f"video ({variant}) wrote no video.avi")
@@ -603,7 +693,7 @@ def phase_video_main_path(logdir):
         if frames.std() == 0:
             fail(f"video ({variant}) frames are constant")
         avg = re.search(r"^avg render time per frame: (\S+)s", out, re.M)
-        print(f"[video-{variant}] {VIDEO_FRAMES} frames of "
+        print(f"[{tag}-{variant}] {VIDEO_FRAMES} frames of "
               f"{frames.shape[1:]} in video.avi ({os.path.getsize(avi)} "
               f"bytes) and as PNGs; avg frame {avg.group(1) if avg else '?'} "
               f"s, wall {wall:.1f} s, launches {launches}", flush=True)
@@ -613,13 +703,14 @@ def phase_video_main_path(logdir):
                  f"times, expected {expected} and 0")
         runs[variant] = (frames, launches)
     diff = np.abs(runs["ipe2"][0].astype(int) - runs["mlp"][0].astype(int))
-    print(f"[video] ipe2 vs mlp frames: max {diff.max()} uint8 levels, "
+    print(f"[{tag}] ipe2 vs mlp frames: max {diff.max()} uint8 levels, "
           f"{(diff.max(-1) > 0).mean():.2e} of the pixels differ", flush=True)
-    return runs["ipe2"][1]
+    return _sum_launches(runs["ipe2"][1], runs["mlp"][1])
 
 
-def phase_train_parity(torch):
-    """Kernel vs plain training from one seed on the same batches."""
+def phase_train_parity(torch, tag="parity", opts=(), config=CONFIG):
+    """Kernel vs plain training from one seed on the same batches
+    (``opts``: overrides of ``config``)."""
     from ddnerf_tpu_torch.config import load_config
     from ddnerf_tpu_torch.data.datasets import (
         load_train_store,
@@ -630,7 +721,10 @@ def phase_train_parity(torch):
     from ddnerf_tpu_torch.train.step import train_step
 
     dev = torch.device("cuda")
-    store, _, cfg = load_train_store(load_config(CONFIG), dev)
+    cfg = load_config(config)
+    if opts:
+        cfg = cfg.merge_from_list(list(opts)).resolved()
+    store, _, cfg = load_train_store(cfg, dev)
     draw = torch.Generator(device=dev).manual_seed(7)
     batches = []
     for _ in range(PARITY_STEPS):
@@ -659,16 +753,16 @@ def phase_train_parity(torch):
               for a, b in zip(losses["kernel"], losses["plain"]))
     rays = cfg.nerf.train.num_random_rays
     for name in losses:
-        print(f"[parity] {name} losses: "
+        print(f"[{tag}] {name} losses: "
               + " ".join(f"{v:.5f}" for v in losses[name]))
-        print(f"[parity] {name}: {step_ms[name]:.2f} ms/step steady state "
+        print(f"[{tag}] {name}: {step_ms[name]:.2f} ms/step steady state "
               f"(steps 5-{PARITY_STEPS - 1}), "
               f"{rays / step_ms[name] * 1e3:,.0f} rays/s", flush=True)
-    print(f"[parity] largest relative loss gap kernel vs plain {gap:.3e} "
+    print(f"[{tag}] largest relative loss gap kernel vs plain {gap:.3e} "
           f"(gate {PARITY_GAP_TOL:g})", flush=True)
     if not gap <= PARITY_GAP_TOL or not all(
             math.isfinite(v) for v in losses["kernel"] + losses["plain"]):
-        fail("kernel and plain training trajectories disagree")
+        fail(f"{tag}: kernel and plain training trajectories disagree")
     return step_ms
 
 
@@ -688,13 +782,17 @@ def _pose(theta_deg=30.0, phi_deg=-30.0, radius=4.0):
     return flip @ rot_th @ rot_phi @ trans
 
 
-def phase_frame(torch):
+def phase_frame(torch, tag="frame", opts=()):
+    """800x800 renders of seeded weights, each path twice (``opts``: config
+    overrides); returns each path's best wall time."""
     from ddnerf_tpu_torch.config import load_config
     from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
     from ddnerf_tpu_torch.models.nerf import NerfPipeline
     from ddnerf_tpu_torch.render.renderer import ImageRenderer
 
     cfg = load_config(CONFIG)
+    if opts:
+        cfg = cfg.merge_from_list(list(opts)).resolved()
     focal = 0.5 * FRAME / math.tan(0.5 * 0.6911)  # the lego camera's FOV
     pose = _pose()
     chunks = -(-FRAME * FRAME // cfg.nerf.validation.chunksize)
@@ -727,21 +825,22 @@ def phase_frame(torch):
         launched = {k: v for k, v in LAUNCHES.items() if v}
         want = {kernel: 2 * chunks} if kernel else {}
         if launched != want:
-            fail(f"800x800 {name} render launched {launched}, expected "
-                 f"{want}")
+            fail(f"{tag}: 800x800 {name} render launched {launched}, "
+                 f"expected {want}")
     rgb_p = outs["plain"][1]["rgb"]
     for name in ("kernel", "ipe2"):
         rgb = outs[name][1]["rgb"]
         if rgb.shape != (FRAME, FRAME, 3) or not np.isfinite(rgb).all():
-            fail(f"800x800 {name} render: shape {rgb.shape} or non-finite "
-                 f"rgb")
+            fail(f"{tag}: 800x800 {name} render: shape {rgb.shape} or "
+                 f"non-finite rgb")
         mse = float(np.mean((rgb - rgb_p) ** 2))
         frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
-        print(f"[frame] 800x800 rgb PSNR {name} vs plain {frame_psnr:.2f} dB "
+        print(f"[{tag}] 800x800 rgb PSNR {name} vs plain {frame_psnr:.2f} dB "
               f"(gate {FRAME_PSNR_MIN:g})", flush=True)
         if not frame_psnr >= FRAME_PSNR_MIN:
-            fail(f"800x800 {name} frame disagrees with the plain version")
-    print("[frame] 800x800 walls: " + "; ".join(
+            fail(f"{tag}: 800x800 {name} frame disagrees with the plain "
+                 f"version")
+    print(f"[{tag}] 800x800 walls: " + "; ".join(
         f"{name} {walls[name]} s" for name in walls), flush=True)
     video = {name: renderers[name].render_video_frame_from_pose(
         pose, FRAME, FRAME, focal) for name in ("ipe2", "plain")}
@@ -750,10 +849,223 @@ def phase_frame(torch):
                       - video["plain"][i].astype(int))
         if diff.ndim == 3:
             diff = diff.max(-1)
-        print(f"[frame] 800x800 video frame {part}, ipe2 vs plain: max "
+        print(f"[{tag}] 800x800 video frame {part}, ipe2 vs plain: max "
               f"{diff.max()} uint8 levels, {(diff > 0).mean():.3e} of the "
               f"pixels differ", flush=True)
     return {name: min(v) for name, v in walls.items()}
+
+
+def phase_step_gradients(torch, tag, opts, config=CONFIG):
+    """One train loss of ``config`` (``opts``: overrides) at its training
+    shape, backward through the kernel, and the same step again with the
+    plain backward in the kernel's place (the forward stays the kernel, so
+    the stash and the cotangents are the same): every leaf of every network
+    under the limits of phase 4.  Under mip-NeRF the one net appears twice
+    in the autograd graph, and each leaf's gradient is the sum of two
+    backward-kernel results."""
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.datasets import (
+        load_train_store,
+        sample_rays_on_device,
+    )
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch
+    from ddnerf_tpu_torch.train.step import compute_loss, schedule_values
+
+    dev = torch.device("cuda")
+    cfg = load_config(config).merge_from_list(list(opts)).resolved()
+    store, _, cfg = load_train_store(cfg, dev)
+    ro, rd, radii, rgb = sample_rays_on_device(
+        store, torch.Generator(device=dev).manual_seed(3),
+        cfg.nerf.train.num_random_rays, cfg.dataset.single_image_mode)
+    rays = RayBatch.create(ro, rd, radii, cfg.dataset.near, cfg.dataset.far)
+
+    def gradients(backward):
+        pipe = NerfPipeline(cfg, dev, seed=0)
+        kernel_backward = fk.fused_mlp_backward
+        fk.fused_mlp_backward = backward or kernel_backward
+        before = dict(fk.LAUNCHES)
+        try:
+            loss, _ = compute_loss(cfg, pipe, rays, rgb,
+                                   schedule_values(cfg, 0),
+                                   torch.Generator(device=dev).manual_seed(5))
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            fk.fused_mlp_backward = kernel_backward
+        launched = {k: fk.LAUNCHES[k] - before[k] for k in before
+                    if fk.LAUNCHES[k] != before[k]}
+        nets = {"coarse": pipe.coarse, "fine": pipe.fine}
+        return (loss.item(), launched,
+                {f"{net}.{n}": p.grad for net, module in nets.items()
+                 if module is not None
+                 for n, p in module.named_parameters()})
+
+    loss_k, launched_k, kernel = gradients(None)
+    loss_p, launched_p, plain = gradients(ref.fused_mlp_backward_reference)
+    if launched_k != {"fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2} or \
+            launched_p != {"fused_mlp_fwd_stash": 2}:
+        fail(f"{tag}: the step launched {launched_k} (kernel backward) and "
+             f"{launched_p} (plain backward)")
+    if loss_k != loss_p:
+        fail(f"{tag}: the same forward gave two losses: {loss_k} and "
+             f"{loss_p}")
+    bad = []
+    for name in plain:
+        rel = _rel(kernel[name], plain[name])
+        tol = (GRAD_NORM_REL_TOL_TRUNK if ".layers_xyz." in name
+               else GRAD_NORM_REL_TOL_HEADS)
+        if not rel <= tol:
+            bad.append(name)
+        print(f"[{tag}] d{name}: norm_rel {rel:.3e} (tol {tol:g})")
+    print(f"[{tag}] {len(plain)} leaves, two backward calls per step, loss "
+          f"{loss_k:.5f}: {'all within tolerance' if not bad else bad}",
+          flush=True)
+    if bad:
+        fail(f"{tag}: the step's gradient through the backward kernel "
+             f"disagrees with the plain backward: {bad}")
+
+
+def phase_ndc_main_path(logroot):
+    """The NDC path through the CLIs on an on-disk LLFF scene, with a stop
+    and a rerun; returns the launch counts of its runs, summed, and the
+    config overrides that name the scene."""
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.assembly import get_datasets
+    from ddnerf_tpu_torch.data.synthetic import write_synthetic_llff
+    from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.render.media import read_avi
+    from ddnerf_tpu_torch.render.renderer import ImageRenderer
+    from ddnerf_tpu_torch.train.checkpoint import all_steps
+
+    t0 = time.perf_counter()
+    scene = os.path.join(logroot, "ndc_scene")
+    write_synthetic_llff(scene, size=NDC_SCENE_SIZE, n=NDC_SCENE_VIEWS, seed=0)
+    keypoints = os.path.join(logroot, "keypoints.yml")
+    with open(keypoints, "w") as f:  # pixels of the minified validation image
+        f.write("img_idx: 0\nresized_by: 4\npixels_and_depth:\n"
+                "  0: [40, 50, 3.2]\n  1: [64, 64, 4.0]\n  2: [90, 30, 3.6]\n")
+    print(f"[ndc] wrote {NDC_SCENE_VIEWS} views of {NDC_SCENE_SIZE}^2 in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    opts = ["experiment.logdir", logroot, "experiment.id", "ndc_smoke",
+            "dataset.basedir", scene,
+            "train_params.depth_analysis_path", keypoints,
+            "experiment.validate_every", "20", "experiment.save_every", "10",
+            "experiment.print_every", "10",
+            "experiment.max_keep_ckpts", str(NDC_KEEP)]
+    logdir = os.path.join(logroot, "ndc_smoke")
+    runs = []
+    for attempt, (iters, first_iter, steps) in enumerate((
+            (NDC_ITERS[0], 0, [11, 20]), (NDC_ITERS[1], 20, [31, 40]))):
+        # The same command again, run further: it must go on from the
+        # logdir's checkpoint, not start over.
+        cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
+               FF_CONFIG, "--max-iters", str(iters), *opts]
+        out, launches, wall = _subprocess(cmd, f"ndc-train-{attempt}")
+        printed = _check_train_output(out, f"ndc-train-{attempt}")
+        resumed = re.search(r"^resumed from .* at iteration (\d+)$", out, re.M)
+        at = int(resumed.group(1)) if resumed else None
+        done = iters - first_iter
+        print(f"[ndc] run {attempt}: [TRAIN] iterations {printed}, resumed at "
+              f"{at}, step checkpoints {all_steps(logdir)}, wall {wall:.1f} s, "
+              f"launches {launches}", flush=True)
+        if printed[0] != first_iter or at != (first_iter or None):
+            fail(f"ndc run {attempt} started at iteration {printed[0]} "
+                 f"(resumed at {at}), expected {first_iter}")
+        if all_steps(logdir) != steps:
+            fail(f"ndc run {attempt} kept step checkpoints "
+                 f"{all_steps(logdir)}, expected {steps}")
+        for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+            if launches.get(name) != 2 * done:
+                fail(f"ndc run {attempt} launched {name} "
+                     f"{launches.get(name)} times, expected {2 * done}")
+        if launches.get("fused_mlp_fwd", 0) <= 0:
+            fail(f"ndc run {attempt}: validation did not launch "
+                 f"fused_mlp_fwd")
+        runs.append(launches)
+    if not os.path.isdir(os.path.join(scene, "images_4")):
+        fail("the LLFF loader wrote no images_4 cache")
+
+    runs.append(phase_main_path(logdir, "ndc-eval",
+                                ("--save_images", "--extract_ptc"), images=1))
+    h, w = NDC_HW
+    val = os.path.join(logdir, "validation")
+    maps = _decoded_pngs(os.path.join(val, "0"), [
+        "rgb_coarse.png", "rgb_fine.png", "coarse.png", "fine.png",
+        "depth_coarse.png", "depth_fine.png", "mus.png", "gt.png"])
+    for name, img in maps.items():
+        if img.shape[:2] != (h, w):
+            fail(f"validation/0/{name} is {img.shape}, expected {h} x {w}")
+    figures = _decoded_pngs(os.path.join(val, "rays"),
+                            [f"ray_{j}.png" for j in range(3)])
+    if any(img.std() == 0 for img in (*figures.values(), maps["gt.png"])):
+        fail("a depth-analysis figure or gt.png is constant")
+    ptc = np.load(os.path.join(val, "ptc_0.npy"))
+    with open(os.path.join(val, "ray_dict.pkl"), "rb") as f:
+        ray_dict = pickle.load(f)
+    want_keys = {"uniform_incell_pdf", "gaussian_incell_pdf",
+                 "smoothed_gaussian_incell_pdf", "t_vals", "weights"}
+    if ptc.shape != (h * w, 6) or not np.isfinite(ptc).all() or \
+            not want_keys <= set(ray_dict[1]) or \
+            ray_dict[1]["gaussian_incell_pdf"].shape != (3, 1000):
+        fail(f"ptc_0.npy {ptc.shape} or ray_dict.pkl {sorted(ray_dict[1])} "
+             f"is not what eval should write")
+    print(f"[ndc] eval artifacts decode: {len(maps)} maps of {h} x {w}, "
+          f"{len(figures)} ray figures of {figures['ray_0.png'].shape}, "
+          f"ptc_0.npy {ptc.shape}, ray_dict.pkl {sorted(ray_dict[1])}",
+          flush=True)
+
+    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
+           "--logdir", logdir, "--max-frames", "1", "--save_images",
+           "--checkpoint", str(NDC_ITERS[1])]
+    out, launches, wall = _subprocess(cmd, "ndc-video")
+    frames, _ = read_avi(os.path.join(logdir, "video", "video.avi"))
+    _decoded_pngs(os.path.join(logdir, "video"), ["frame_0000.png"])
+    avg = re.search(r"^avg render time per frame: (\S+)s", out, re.M)
+    print(f"[ndc-video] {frames.shape} in video.avi, frame "
+          f"{avg.group(1) if avg else '?'} s, wall {wall:.1f} s, launches "
+          f"{launches}", flush=True)
+    if frames.shape != (1, h, 2 * w, 3) or frames.std() == 0:
+        fail(f"ndc video.avi holds {frames.shape}")
+    cfg = load_config(FF_CONFIG).merge_from_list(
+        ["dataset.basedir", scene]).resolved()
+    chunks = -(-h * w // cfg.nerf.validation.chunksize)
+    if launches.get("fused_mlp_fwd") != 2 * chunks or \
+            launches.get("fused_enc_mlp_fwd") != 0:
+        fail(f"ndc video launched {launches}, expected {2 * chunks} of "
+             f"fused_mlp_fwd only")
+    runs.append(launches)
+
+    # An NDC frame of seeded weights through both forward kernels against
+    # the plain version: the rays are projected on the card.
+    _, val_ds, cfg = get_datasets(cfg)
+    pose = val_ds.render_poses[0]
+    rgbs = {}
+    for name, policy, variant, kernel in (
+            ("plain", "off", "mlp", None), ("kernel", "auto", "mlp",
+                                            "fused_mlp_fwd"),
+            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd")):
+        c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
+            "parallel.render_kernel_variant", variant)
+        renderer = ImageRenderer(c, NerfPipeline(c, "cuda", seed=0))
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        rgbs[name] = renderer.render_image_from_pose(
+            pose, val_ds.H, val_ds.W, val_ds.focal)[1]["rgb"]
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        if launched != ({kernel: 2} if kernel else {}):
+            fail(f"ndc {name} frame launched {launched}")
+    for name in ("kernel", "ipe2"):
+        mse = float(np.mean((rgbs[name] - rgbs["plain"]) ** 2))
+        frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
+        print(f"[ndc-frame] {h} x {w} NDC rgb PSNR {name} vs plain "
+              f"{frame_psnr:.2f} dB (gate {FRAME_PSNR_MIN:g})", flush=True)
+        if not (frame_psnr >= FRAME_PSNR_MIN
+                and np.isfinite(rgbs[name]).all()):
+            fail(f"ndc {name} frame disagrees with the plain version")
+    return _sum_launches(*runs), ("dataset.basedir", scene)
 
 
 def main():
@@ -777,17 +1089,64 @@ def main():
         logdir, train_launches = phase_train_main_path(logroot)
         launches = phase_main_path(logdir)
         video_launches = phase_video_main_path(logdir)
+        # The mip-NeRF path: the same three entry points on one shared net.
+        mip_logdir, mip_train = phase_train_main_path(
+            logroot, "mip-train", MIPNERF, run="mipnerf_smoke")
+        mip_eval = phase_main_path(mip_logdir, "mip-eval", ("--save_images",))
+        _decoded_pngs(os.path.join(mip_logdir, "validation", "1"), [
+            "rgb_coarse.png", "rgb_fine.png", "coarse.png", "fine.png",
+            "depth_coarse.png", "depth_fine.png", "gt.png"])
+        with open(os.path.join(mip_logdir, "config.yml")) as f:
+            chunksize = int(re.search(r"validation:.*?chunksize: (\d+)",
+                                      f.read(), re.S).group(1))
+        chunks = -(-VIDEO_HW[0] * VIDEO_HW[1] // chunksize)
+        if mip_eval != {"fused_mlp_fwd": 2 * chunks * 2,
+                        "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
+                        "fused_enc_mlp_fwd": 0}:
+            fail(f"mip-NeRF eval launched {mip_eval}, expected "
+                 f"{2 * chunks * 2} of fused_mlp_fwd only")
+        mip_video = phase_video_main_path(mip_logdir, "mip-video")
+        ndc_launches, ndc_scene = phase_ndc_main_path(logroot)
+        # The training kernels against plain on that path's own batches.
+        ndc_step_ms = phase_train_parity(torch, "ndc-parity", ndc_scene,
+                                         FF_CONFIG)
+        phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
     step_ms = phase_train_parity(torch)
     frame_s = phase_frame(torch)
+    mip_step_ms = phase_train_parity(torch, "mip-parity", MIPNERF)
+    phase_step_gradients(torch, "mip-grads", MIPNERF)
+    mip_frame_s = phase_frame(torch, "mip-frame", MIPNERF)
     print(f"[frame] 800x800 best of two: kernel (B1) {frame_s['kernel']:.3f} "
           f"s, ipe2 (B3) {frame_s['ipe2']:.3f} s, plain "
           f"{frame_s['plain']:.3f} s; train step kernel "
-          f"{step_ms['kernel']:.2f} ms, plain {step_ms['plain']:.2f} ms; "
-          f"whole run {time.perf_counter() - t_start:.1f} s")
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "optax", "orbax", "ddnerf_tpu"))
+          f"{step_ms['kernel']:.2f} ms, plain {step_ms['plain']:.2f} ms")
+    print(f"[mip-frame] 800x800 best of two: kernel (B1) "
+          f"{mip_frame_s['kernel']:.3f} s, ipe2 (B3) "
+          f"{mip_frame_s['ipe2']:.3f} s, plain {mip_frame_s['plain']:.3f} s; "
+          f"mip-NeRF train step kernel {mip_step_ms['kernel']:.2f} ms, plain "
+          f"{mip_step_ms['plain']:.2f} ms; NDC train step kernel "
+          f"{ndc_step_ms['kernel']:.2f} ms, plain "
+          f"{ndc_step_ms['plain']:.2f} ms; whole run "
+          f"{time.perf_counter() - t_start:.1f} s")
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in FORBIDDEN_MODULES)
     if leaked:
         fail(f"imported {leaked}")
+
+    # Each kernel's launches: the sum over the main paths, and per path.
+    by_path = {"ddnerf": _sum_launches(train_launches, launches,
+                                       video_launches),
+               "mipnerf": _sum_launches(mip_train, mip_eval, mip_video),
+               "ndc": ndc_launches}
+    total = _sum_launches(*by_path.values())
+    print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
+    for path, counts in by_path.items():
+        # The NDC path films through B1 alone (the config's variant).
+        expected = [k for k in total if not (path == "ndc"
+                                             and k == "fused_enc_mlp_fwd")]
+        idle = [k for k in expected if counts.get(k, 0) <= 0]
+        if idle:
+            fail(f"the {path} main path never launched {idle}")
 
     from ddnerf_tpu_torch.models.mlp import DepthMipMLP
 
@@ -801,17 +1160,17 @@ def main():
     # name, source, the TPU kernel, main-path launches, error, ms, plain ms
     rows = [
         ("fused_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
-         launches["fused_mlp_fwd"], max_err, ms, plain_ms),
+         total["fused_mlp_fwd"], max_err, ms, plain_ms),
         ("fused_mlp_fwd_stash", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
-         train_launches["fused_mlp_fwd_stash"],
+         total["fused_mlp_fwd_stash"],
          train_err["fused_mlp_fwd_stash"], coarse["fwd_stash"],
          coarse["plain_fwd"]),
         ("fused_mlp_bwd", "ddnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
          "ddnerf_tpu/kernels/fused_mlp_bwd.py:299",
-         train_launches["fused_mlp_bwd"], train_err["fused_mlp_bwd"],
+         total["fused_mlp_bwd"], train_err["fused_mlp_bwd"],
          coarse["bwd"], coarse["plain_bwd"]),
         ("fused_enc_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:309",
-         video_launches["fused_enc_mlp_fwd"], enc_err, enc["enc"],
+         total["fused_enc_mlp_fwd"], enc_err, enc["enc"],
          enc["plain"]),
     ]
     print(json.dumps({"kernels": [{

@@ -20,7 +20,8 @@ the modules there that hold no JAX code.  It keeps its own config
 (:mod:`ddnerf_tpu_torch.data`), PSNR/SSIM metrics
 (:mod:`ddnerf_tpu_torch.eval.metrics`) and results writer and documenter
 (:mod:`ddnerf_tpu_torch.viz`), under the same module names.  Nothing here
-imports JAX, Flax, Optax or Orbax.
+imports JAX, Flax, Optax or Orbax, nor imageio or matplotlib: image files
+and figures go through PIL and the standard library.
 """
 
 __version__ = "0.1.0"

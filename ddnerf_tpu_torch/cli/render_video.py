@@ -4,11 +4,8 @@ ddnerf_tpu.cli.render_video`` (reference ``render_video.py --logdir ...
 reference-format ``checkpoint.ckpt``:
 
     python -m ddnerf_tpu_torch.cli.render_video --logdir LOGDIR
-        [--save_images] [--max-frames N] [--torch-checkpoint PATH]
-        [--device cuda|cuda:1|cpu]
-
-The port keeps one rolling checkpoint, so ``--torch-checkpoint`` takes the
-place of the JAX CLI's ``--checkpoint STEP``.
+        [--save_images] [--max-frames N] [--checkpoint STEP]
+        [--torch-checkpoint PATH] [--device cuda|cuda:1|cpu]
 """
 
 import argparse
@@ -27,8 +24,11 @@ def main(argv=None):
     parser.add_argument("--max-frames", type=int, default=0,
                         help="Render only the first N render poses (0: all).")
     parser.add_argument("--torch-checkpoint", type=str, default=None,
-                        help="Reference checkpoint.ckpt to render "
-                             "(default: LOGDIR/checkpoint.ckpt).")
+                        help="A checkpoint file to render instead of the "
+                             "logdir's.")
+    parser.add_argument("--checkpoint", type=int, default=None,
+                        help="Render a retained checkpoint step "
+                             "(checkpoint_{STEP}.ckpt; default: the newest).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; CUDA asked for and absent is an "
                              "error (default: cuda).")
@@ -36,6 +36,7 @@ def main(argv=None):
     render_model_video(args.logdir, save_images=args.save_images,
                        max_frames=args.max_frames,
                        torch_checkpoint=args.torch_checkpoint,
+                       checkpoint_step=args.checkpoint,
                        device=args.device)
     # Which kernels the frames went through (0 = the plain version ran).
     print("kernel launches: " + json.dumps(LAUNCHES, sort_keys=True))

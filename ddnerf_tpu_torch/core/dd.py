@@ -1,4 +1,6 @@
-"""The DDNeRF depth-prediction loss.
+"""The DDNeRF depth-prediction loss, and the densified per-ray pdfs of the
+depth-analysis figures (:func:`uniform_incell_pdf`,
+:func:`gaussian_incell_pdf`; ``ddnerf_tpu/core/dd.py:128-170``).
 
 Counterpart of ``ddnerf_tpu/core/dd.py::estimate_dp_loss`` (reference
 dd_utils.py:6-78) in the JAX package's row-aligned form: empty rays are
@@ -89,3 +91,51 @@ def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
         count = torch.clamp(torch.sum(keep), min=1)
         return torch.sum(torch.where(keep, per_ray, 0.0)) / count
     return torch.mean(per_ray)
+
+
+# --------------------------------------------------------------------------
+# Densified pdfs for the depth-analysis plots (math_utils.py:210-278)
+# --------------------------------------------------------------------------
+
+
+def uniform_incell_pdf(t_vals, weights, near, far, num_bins: int = 1000):
+    """Densify a per-section histogram (``t_vals [N, S+1]``, ``weights
+    [N, S]``) into ``num_bins`` uniform cells between ``near`` and ``far``
+    -> ``[N, B]``: each section's mass is spread evenly over the bins that
+    start inside it (reference math_utils.py:210-233)."""
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)  # [N, S]
+    bins = torch.linspace(near, far, num_bins, dtype=t_vals.dtype,
+                          device=t_vals.device)  # [B]
+    start = t_vals[..., :-1, None]  # [N, S, 1]
+    end = t_vals[..., 1:, None]
+    relevant = (bins >= start) & (bins < end)  # [N, S, B]
+    divided_by = torch.clamp(torch.sum(relevant, dim=-1, keepdim=True), min=1)
+    return torch.sum(relevant * pdf[..., None] / divided_by, dim=-2)
+
+
+def gaussian_incell_pdf(t_vals, weights, mus, sigmas, part_inside_cells,
+                        near, far, num_bins: int = 1000):
+    """Densify the truncated-Gaussian in-cell distribution onto ``num_bins``
+    partitions between ``near`` and ``far`` -> ``[N, B]`` (reference
+    math_utils.py:236-278).  A cell that comes out zero takes the mean of
+    its neighbours (a shift by one with the ends pinned)."""
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)  # [N, S]
+    seg = t_vals[..., 1:] - t_vals[..., :-1]
+    mus_ray = t_vals[..., :-1] + mus * seg  # [N, S]
+    sigmas_ray = sigmas * seg
+
+    partitions = torch.linspace(near, far, num_bins + 1, dtype=t_vals.dtype,
+                                device=t_vals.device)  # [B+1]
+    x0, x1 = partitions[:-1], partitions[1:]  # [B]
+    start = t_vals[..., :-1, None]  # [N, S, 1]
+    end = t_vals[..., 1:, None]
+    relevant = (x0 >= start) & (x1 <= end)  # [N, S, B]
+
+    z0 = (x0 - mus_ray[..., None]) / sigmas_ray[..., None]
+    z1 = (x1 - mus_ray[..., None]) / sigmas_ray[..., None]
+    cells_cdf = (normal_cdf(z1) - normal_cdf(z0)) / part_inside_cells[..., None]
+    est = torch.sum(relevant * cells_cdf * pdf[..., None], dim=-2)  # [N, B]
+
+    left = torch.cat([est[..., :1], est[..., :-1]], dim=-1)
+    right = torch.cat([est[..., 1:], est[..., -1:]], dim=-1)
+    return torch.where(est == 0, (left + right) / 2.0, est)

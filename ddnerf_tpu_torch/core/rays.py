@@ -3,7 +3,9 @@
 Counterpart of ``ddnerf_tpu/core/rays.py``: :func:`get_ray_bundle` is its
 ``get_ray_bundle_device`` on torch tensors; the numpy forms that the ray
 datasets use on the host (:func:`get_ray_bundle_np`,
-:func:`ndc_mipnerf_rays`, :func:`switch_t_ndc_to_regular`) follow it.
+:func:`ndc_mipnerf_rays`, :func:`switch_t_ndc_to_regular`) follow it, and
+:func:`ndc_mipnerf_rays_device` is the NDC projection on tensors, for the
+rays a pose is rendered with.
 """
 
 from __future__ import annotations
@@ -127,6 +129,36 @@ def ndc_mipnerf_rays(H, W, focal, rays_o, rays_d, near=1.0, xp=np):
     radii = ((0.5 * (dx + dy)) * 2.0 / xp.sqrt(12.0)).astype(xp.float32)
 
     return rays_o, rays_d, radii
+
+
+def ndc_mipnerf_rays_device(H, W, focal, rays_o, rays_d, near=1.0):
+    """:func:`ndc_mipnerf_rays` on float32 tensors ``[H, W, 3]``, on their
+    device -> (rays_o, rays_d, radii ``[H, W]``).
+
+    The radii are neighbour differences over the whole ``[H, W]`` grid of
+    NDC origins: project the full image, then flatten and chunk.  The
+    projection divides by ``rays_d[..., 2]`` and stays plain float32
+    arithmetic."""
+    sx = -1.0 / (W / (2.0 * float(focal)))
+    sy = -1.0 / (H / (2.0 * float(focal)))
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+    origins = torch.stack(
+        [sx * ox_oz, sy * oy_oz, 1.0 + 2.0 * near / rays_o[..., 2]], dim=-1)
+    directions = torch.stack(
+        [sx * (rays_d[..., 0] / rays_d[..., 2] - ox_oz),
+         sy * (rays_d[..., 1] / rays_d[..., 2] - oy_oz),
+         -2.0 * near / rays_o[..., 2]], dim=-1)
+
+    dx = torch.sqrt(torch.sum((origins[:-1] - origins[1:]) ** 2, dim=-1))
+    dx = torch.cat([dx, dx[-2:-1, :]], dim=0)
+    dy = torch.sqrt(torch.sum((origins[:, :-1] - origins[:, 1:]) ** 2,
+                              dim=-1))
+    dy = torch.cat([dy, dy[:, -2:-1]], dim=1)
+    radii = (0.5 * (dx + dy)) * 2.0 / math.sqrt(12.0)
+    return origins, directions, radii
 
 
 def switch_t_ndc_to_regular(ndc_depth, rays_o, rays_d):

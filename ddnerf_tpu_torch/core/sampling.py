@@ -1,5 +1,5 @@
-"""Ray-section samplers: stratified first cycle and the DDNeRF
-truncated-Gaussian resampler.
+"""Ray-section samplers: stratified first cycle, mip-NeRF's plain
+inverse-CDF resampler and the DDNeRF truncated-Gaussian resampler.
 
 Counterpart of ``ddnerf_tpu/core/sampling.py``.  The JAX package locates
 CDF intervals with one-hot contractions because gathers are slow on a TPU;
@@ -109,6 +109,64 @@ def interval_index(x, fences, strict: bool = False):
     ``interval_one_hot(strict=True)``, dd_utils.py:43)."""
     inner = fences[..., 1:-1].contiguous()
     return torch.searchsorted(inner, x.contiguous(), right=not strict)
+
+
+@torch.no_grad()
+def sample_pdf(
+    bins,
+    weights,
+    num_samples,
+    *,
+    pdf_padding: bool,
+    det=True,
+    generator: Optional[torch.Generator] = None,
+    jitter: Optional[torch.Tensor] = None,
+):
+    """Inverse-transform resampling of ``num_samples`` fenceposts from the
+    histogram (``bins [N, S+1]``, ``weights [N, S]``) with uniform placement
+    inside a section (reference samplers.py:64-121; JAX
+    ``core/sampling.py::sample_pdf``).
+
+    ``det`` places ``u`` on ``linspace(0, 1)``: the last ``u`` is 1.0 and
+    meets the last fence, where :func:`interval_index` keeps it in section
+    S-1.  Otherwise ``u`` is the grid ``arange(M) / M`` plus ``jitter / (M +
+    1e-5)`` capped at 0.9999, with ``jitter`` uniform [0, 1) draws of shape
+    ``[..., num_samples]`` (drawn from ``generator`` if not given).  Note the
+    grid step 1/M here, 1/(M-1) in :func:`sample_pdf_with_mu_sigma`.
+
+    The four per-sample values are gathered, in float32: a lower-precision
+    fetch can flip ``u - cdf`` negative.  Runs under ``no_grad`` and the
+    result is detached, as ``stop_gradient(t_vals)`` in the JAX pipeline
+    (models/nerf.py:790)."""
+    weights = _blur_and_pad_weights(weights.float(), pdf_padding)
+    bins = bins.float()
+    cdf = _build_cdf(weights)
+    shape = cdf.shape[:-1] + (num_samples,)
+    dev, dt = weights.device, weights.dtype
+
+    if det:
+        u = torch.linspace(0.0, 1.0, num_samples, dtype=dt, device=dev)
+        u = torch.broadcast_to(u, shape)
+    else:
+        s = 1.0 / num_samples
+        u = torch.arange(num_samples, dtype=dt, device=dev) * s
+        if jitter is None:
+            jitter = torch.rand(shape, generator=generator, dtype=dt,
+                                device=dev)
+        u = torch.clamp(u + jitter / ((1.0 / s) + 1e-5), max=0.9999)
+
+    ind = interval_index(u, cdf)
+
+    def take(x):
+        return torch.gather(x, -1, ind)
+
+    bins_g0, bins_g1 = take(bins[..., :-1]), take(bins[..., 1:])
+    cdf_g0, cdf_g1 = take(cdf[..., :-1]), take(cdf[..., 1:])
+    denom = cdf_g1 - cdf_g0
+    t = torch.where(
+        denom > 0, (u - cdf_g0) / torch.where(denom > 0, denom, 1.0), 0.0)
+    t = torch.clamp(t, 0.0, 1.0)
+    return bins_g0 + t * (bins_g1 - bins_g0)
 
 
 @torch.no_grad()

@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 
+from ddnerf_tpu_torch.data.images import read_image
 from ddnerf_tpu_torch.data.synthetic import pose_spherical
 
 
@@ -64,15 +65,13 @@ _SPLITS = ("train", "val", "test")
 def _read_split(basedir: str, split: str, testskip: int):
     """Load one split's frames: (images [n,H,W,4] float in [0,1],
     poses [n,4,4], camera_angle_x)."""
-    import imageio.v2 as imageio
-
     with open(os.path.join(basedir, f"transforms_{split}.json")) as fp:
         meta = json.load(fp)
 
     stride = testskip if (split != "train" and testskip > 0) else 1
     frames = meta["frames"][::stride]
     images = np.stack(
-        [imageio.imread(os.path.join(basedir, f["file_path"] + ".png"))
+        [read_image(os.path.join(basedir, f["file_path"] + ".png"))
          for f in frames]
     ).astype(np.float32) / 255.0
     poses = np.stack(

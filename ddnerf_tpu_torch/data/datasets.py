@@ -219,7 +219,7 @@ def load_train_store(cfg: Config, device):
         raise ValueError(
             f"the ray store is {host_store.nbytes / 1024**3:.2f} GiB, above "
             f"parallel.max_store_gb={cfg.parallel.max_store_gb}: host-side "
-            "ray sampling is not ported yet")
+            "ray sampling is not ported yet (ROADMAP A5)")
     return torch.from_numpy(host_store).to(device), val_ds, cfg
 
 

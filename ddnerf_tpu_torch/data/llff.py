@@ -17,6 +17,7 @@ import numpy as np
 
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.data.blender import pose_spherical_for_real_world_360
+from ddnerf_tpu_torch.data.images import read_image, write_image
 from ddnerf_tpu_torch.data.poses import (
     gen_poses,
     normalize,
@@ -44,24 +45,21 @@ def _minify(basedir: str, factor: int):
     if os.path.exists(outdir):
         return
     import cv2
-    import imageio.v2 as imageio
 
     os.makedirs(outdir)
     for f in _image_files(os.path.join(basedir, "images")):
-        img = imageio.imread(f)
+        img = read_image(f)
         h, w = img.shape[:2]
         resized = cv2.resize(
             img, (int(w / factor), int(h / factor)), interpolation=cv2.INTER_AREA
         )
         name = os.path.splitext(os.path.basename(f))[0] + ".png"
-        imageio.imwrite(os.path.join(outdir, name), resized)
+        write_image(os.path.join(outdir, name), resized)
 
 
 def _load_data(basedir: str, factor=None):
     """poses_bounds.npy + images -> (poses [3,5,N], bds [2,N], imgs
     [H,W,3,N]) (load_llff.py:63-135)."""
-    import imageio.v2 as imageio
-
     if not os.path.exists(os.path.join(basedir, "poses_bounds.npy")):
         gen_poses(basedir)
 
@@ -85,12 +83,12 @@ def _load_data(basedir: str, factor=None):
             f"mismatch between {len(imgfiles)} images and {poses.shape[-1]} poses"
         )
 
-    sh = imageio.imread(imgfiles[0]).shape
+    sh = read_image(imgfiles[0]).shape
     poses[:2, 4, :] = np.array(sh[:2]).reshape(2, 1)
     poses[2, 4, :] = poses[2, 4, :] / factor
 
     imgs = np.stack(
-        [imageio.imread(f)[..., :3] / 255.0 for f in imgfiles], axis=-1
+        [read_image(f)[..., :3] / 255.0 for f in imgfiles], axis=-1
     )
     return poses, bds, imgs
 

@@ -131,3 +131,58 @@ def generate_synthetic_blender(
         np.arange(num_train, n),
     )
     return images, poses, render_poses, [height, width, focal], i_split
+
+
+def write_synthetic_llff(outdir: str, size: int = 64, n: int = 12,
+                         seed: int = 0) -> None:
+    """Write the sphere scene as an on-disk forward-facing capture in the
+    LLFF layout that ``load_llff_data`` reads: ``images/image%03d.png`` and
+    ``poses_bounds.npy``.  ``n`` cameras jittered on a plane at z ~ +4 look
+    down -z at a point near the origin and are traced with the pinhole
+    model of :func:`generate_synthetic_blender`, composited on black.  Each
+    pose is stored in the COLMAP column convention the loader swaps back
+    (``[-u, r, b, t]`` and a fifth column ``[H, W, focal]``) with depth
+    bounds that bracket the scene (z in [-1.1, 1.1])."""
+    import os
+
+    from ddnerf_tpu_torch.data.images import write_image
+
+    h = w = size
+    focal = 0.5 * w / np.tan(0.5 * 0.6911)
+    rng = np.random.default_rng(seed)
+    imgdir = os.path.join(outdir, "images")
+    os.makedirs(imgdir, exist_ok=True)
+
+    ii, jj = np.meshgrid(np.arange(w, dtype=np.float32),
+                         np.arange(h, dtype=np.float32), indexing="xy")
+    dirs_cam = np.stack(
+        [(ii - w * 0.5) / focal, -(jj - h * 0.5) / focal, -np.ones_like(ii)],
+        axis=-1,
+    )
+    rows = []
+    for i in range(n):
+        eye = np.array([rng.uniform(-0.8, 0.8), rng.uniform(-0.6, 0.6),
+                        4.0 + rng.uniform(-0.2, 0.2)], np.float32)
+        target = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2),
+                           0.0], np.float32)
+        back = eye - target
+        back /= np.linalg.norm(back)
+        right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), back)
+        right /= np.linalg.norm(right)
+        up = np.cross(back, right)
+        c2w = np.stack([right, up, back, eye], axis=-1)  # [3, 4], [r u b t]
+
+        rd = np.sum(dirs_cam[..., None, :] * c2w[:3, :3], axis=-1)
+        ro = np.broadcast_to(c2w[:3, -1], rd.shape)
+        rgba = _trace(ro, rd)
+        rgb = rgba[..., :3] * rgba[..., 3:4]
+        write_image(os.path.join(imgdir, f"image{i:03d}.png"),
+                    (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
+
+        stored = np.concatenate(
+            [np.stack([-up, right, back, eye], axis=-1),
+             np.array([[h], [w], [focal]], np.float32)], axis=-1)
+        near, far = eye[2] - 1.5, eye[2] + 1.5
+        rows.append(np.concatenate([stored.ravel(), [near, far]]))
+    np.save(os.path.join(outdir, "poses_bounds.npy"),
+            np.stack(rows).astype(np.float64))

@@ -2,30 +2,43 @@
 
 Counterpart of ``ddnerf_tpu/eval/evaluate.py::eval_model`` (reference
 eval_nerf.py:20-165): reads the config snapshot and a reference-format
-``checkpoint.ckpt`` from a logdir, renders up to ``max_images`` validation
-views, computes PSNR and the two SSIM variants per image for the coarse and
-fine cycles, and writes ``validation/results.txt``.
+checkpoint from a logdir (the newest, a retained step, or a file given by
+path), renders up to ``max_images`` validation views, computes PSNR and the
+two SSIM variants per image for the coarse and fine cycles, writes
+``validation/results.txt`` and, on request, the image dumps
+(``validation/{i}/*.png``), a point cloud per image
+(``validation/ptc_{i}.npy``) and, under
+``train_params.depth_analysis_rays``, the per-ray figures
+(``validation/rays/ray_{j}.png``) with ``validation/ray_dict.pkl``.
 
-LPIPS is reported as unavailable, as the JAX package does without local
-AlexNet weights (its scorer is JAX code).  The point cloud and image dumps
-of the JAX package's eval, and reading its orbax checkpoints, come later.
+LPIPS is not ported yet: ``lpips_weights`` raises.  Orbax checkpoints of
+the JAX package are not read (the port imports no orbax).
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import time
 from collections import defaultdict
+from typing import Optional
 
+import numpy as np
 import torch
 
 from ddnerf_tpu_torch.data.assembly import get_datasets
+from ddnerf_tpu_torch.data.images import write_image
+from ddnerf_tpu_torch.eval.depth_analysis import run_depth_analysis
 from ddnerf_tpu_torch.eval.metrics import calc_ssim, psnr
-from ddnerf_tpu_torch.viz.visualization import write_dicts_to_a_file
+from ddnerf_tpu_torch.viz.visualization import (
+    get_density_distribution_plots,
+    save_validation_images,
+    write_dicts_to_a_file,
+)
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, ScheduleValues
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train.checkpoint import (
-    CHECKPOINT_NAME,
+    checkpoint_path,
     load_config_snapshot,
 )
 from ddnerf_tpu_torch.utils.weights import load_checkpoint
@@ -45,15 +58,13 @@ def resolve_device(name: str) -> torch.device:
 
 
 def load_pipeline(basedir: str, cfg, dev: torch.device,
-                  torch_checkpoint: str | None = None) -> NerfPipeline:
-    """The run's networks on ``dev``, from ``torch_checkpoint`` (default
-    ``basedir/checkpoint.ckpt``)."""
-    ckpt_path = torch_checkpoint or os.path.join(basedir, CHECKPOINT_NAME)
-    if not os.path.isfile(ckpt_path):
-        raise FileNotFoundError(
-            f"no {CHECKPOINT_NAME} at {ckpt_path!r}: the port reads "
-            "reference-format torch checkpoints (pass --torch-checkpoint); "
-            "orbax checkpoints of the JAX package are not readable yet")
+                  torch_checkpoint: Optional[str] = None,
+                  checkpoint_step: Optional[int] = None) -> NerfPipeline:
+    """The run's networks on ``dev``, from ``torch_checkpoint`` if given,
+    else the retained ``checkpoint_step`` of ``basedir``, else its newest
+    (``basedir/checkpoint.ckpt``).  A checkpoint of the other model family
+    (one network where the config needs two, or the reverse) raises."""
+    ckpt_path = torch_checkpoint or checkpoint_path(basedir, checkpoint_step)
     ckpt = load_checkpoint(ckpt_path)
     pipeline = NerfPipeline(cfg, dev)
     pipeline.load_state_dicts(ckpt["coarse"], ckpt["fine"])
@@ -61,15 +72,40 @@ def load_pipeline(basedir: str, cfg, dev: torch.device,
     return pipeline
 
 
+def _write_depth_analysis(cfg, pipeline, val_ds, sched, savedir: str) -> None:
+    """The depth-analysis pass (eval_nerf.py:66-89): one figure per
+    annotated ray and the pickled curves."""
+    ray_plots_dir = os.path.join(savedir, "rays")
+    os.makedirs(ray_plots_dir, exist_ok=True)
+    da_o, da_d, da_r, da_depth, _ = val_ds.load_depth_analysis_rays(cfg)
+    da_out = run_depth_analysis(cfg, pipeline, da_o, da_d, da_r, sched)
+    for j in range(len(da_depth)):
+        img = get_density_distribution_plots(
+            da_out, j, da_depth, cfg.dataset.near, cfg.dataset.far,
+            tb_mode=False)
+        write_image(os.path.join(ray_plots_dir, f"ray_{j}.png"),
+                    img.transpose(1, 2, 0))
+    with open(os.path.join(savedir, "ray_dict.pkl"), "wb") as f:
+        pickle.dump(da_out, f)
+
+
 def eval_model(
     basedir: str,
+    extract_ptc: bool = False,
+    save_images: bool = True,
+    lpips_weights: Optional[str] = None,
     max_images: int = MAX_VALIDATION_IMAGES,
-    torch_checkpoint: str | None = None,
+    torch_checkpoint: Optional[str] = None,
+    checkpoint_step: Optional[int] = None,
     device: str = "cuda",
 ):
-    """Evaluate the run in ``basedir``.  ``torch_checkpoint``: the
-    ``checkpoint.ckpt`` to load (default ``basedir/checkpoint.ckpt``).
-    Returns ``(summary, per_image)`` as the JAX ``eval_model`` does."""
+    """Evaluate the run in ``basedir``.  ``torch_checkpoint``: a checkpoint
+    file to load instead of the logdir's; ``checkpoint_step``: a retained
+    step of the logdir (default: the newest).  ``save_images`` dumps the
+    maps of each image and ``gt.png``; ``extract_ptc`` a point cloud per
+    image.  Returns ``(summary, per_image)`` as the JAX ``eval_model``."""
+    if lpips_weights:
+        raise NotImplementedError("LPIPS: ROADMAP A9")
     dev = resolve_device(device)
     savedir = os.path.join(basedir, "validation")
     os.makedirs(savedir, exist_ok=True)
@@ -77,10 +113,13 @@ def eval_model(
 
     cfg = load_config_snapshot(basedir)
     _, val_ds, cfg = get_datasets(cfg)
-    pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint)
+    pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint,
+                             checkpoint_step)
 
     sched = ScheduleValues.for_eval(cfg)  # eval-time fixup, eval_nerf.py:53-55
     renderer = ImageRenderer(cfg, pipeline)
+    if cfg.train_params.depth_analysis_rays:
+        _write_depth_analysis(cfg, pipeline, val_ds, sched, savedir)
 
     summary = defaultdict(list)
     per_image = {}
@@ -90,10 +129,25 @@ def eval_model(
         [p for p, _ in poses_gts], val_ds.H, val_ds.W, val_ds.focal,
         sched=sched)
     model_time = []
-    for i, (_, gt) in enumerate(poses_gts):
+    for i, (pose, gt) in enumerate(poses_gts):
         t0 = time.perf_counter()
         out = next(outs)  # maps arrive on the host: the device work is done
         model_time.append(time.perf_counter() - t0)
+
+        if extract_ptc:
+            # xyz = rd * depth + ro (eval_nerf.py:113-122), from the same
+            # (possibly NDC-projected) rays the render used.
+            ro, rd, _ = val_ds._bundle(pose)
+            xyz = rd * out[1]["depth"][..., None] + ro
+            rgbs = np.clip(out[1]["rgb"], 0, 1)
+            np.save(os.path.join(savedir, f"ptc_{i}.npy"),
+                    np.concatenate([xyz.reshape(-1, 3), rgbs.reshape(-1, 3)],
+                                   axis=-1))
+        if save_images:
+            img_dir = os.path.join(savedir, str(i))
+            save_validation_images(out, img_dir)
+            write_image(os.path.join(img_dir, "gt.png"),
+                        (np.clip(gt, 0, 1) * 255).astype(np.uint8))
 
         res = {
             "psnr_coarse": psnr(out[0]["rgb"], gt),
@@ -109,7 +163,6 @@ def eval_model(
 
     summary["model_time_sec"] = model_time
     write_dicts_to_a_file(summary, per_image, results_file)
-    print("lpips: unavailable (no LPIPS scorer in the port yet)")
     print(f"avg model time per image: {sum(model_time) / len(model_time):.2f}s"
           f" on {dev}")
     print(f"results written to {results_file}")

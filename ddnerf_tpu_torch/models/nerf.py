@@ -1,11 +1,20 @@
-"""The coarse→fine DDNeRF pipeline on torch tensors.
+"""The coarse→fine pipelines on torch tensors: DDNeRF and mip-NeRF.
 
-Counterpart of ``ddnerf_tpu/models/nerf.py`` (reference DDNerfModel,
-models.py:207-322), ``_render_dd`` in its three modes: stratified sample →
-cast to frustum Gaussians → IPE → coarse DepthMipMLP → composite →
-truncated-Gaussian resample → fine MipMLP → composite, and in ``train`` /
-``validation`` the μ/σ regularizers and the depth-prediction loss
-(``core/dd.py``).  mip-NeRF and NDC come with later slices.
+Counterpart of ``ddnerf_tpu/models/nerf.py``.  ``nerf.type: DDNerfModel``
+(reference models.py:207-322) is ``_render_dd`` in its three modes:
+stratified sample → cast to frustum Gaussians → IPE → coarse DepthMipMLP →
+composite → truncated-Gaussian resample → fine MipMLP → composite, and in
+``train`` / ``validation`` the μ/σ regularizers and the depth-prediction
+loss (``core/dd.py``).  ``nerf.type: GeneralMipNerfModel`` (reference
+models.py:75-114) is ``_render_mipnerf``: ONE shared MipMLP evaluated in
+both cycles, with the plain inverse-CDF resampler
+(``core/sampling.py::sample_pdf``) between them and no depth head, so no
+dp loss and no μ/σ maps.  Rays arrive as the caller made them: world-space
+or NDC-projected (``render/renderer.py``, ``data/datasets.py``).
+
+Random draws come from one ``torch.Generator`` in a fixed order, the order
+of the JAX package's four split keys: the stratified jitter, the density
+noise of cycle 0, the resampler's jitter, the density noise of cycle 1.
 
 The networks run through the fused MLP kernels as ``parallel.pallas_mlp``
 selects, per direction:
@@ -146,10 +155,6 @@ class NerfPipeline:
                 "parallel.ipe_variant='fused' measures the row-major "
                 "assembly and is unreachable under ipe_transposed=true; set "
                 "ipe_transposed: false for that A/B")
-        if not cfg.is_ddnerf():
-            raise NotImplementedError(
-                f"nerf.type={cfg.nerf.type!r}: the port renders DDNerfModel; "
-                "mip-NeRF comes with a later slice")
         policy = "all" if par.use_pallas_mlp else par.pallas_mlp
         if policy not in _POLICIES:
             raise ValueError(f"parallel.pallas_mlp={policy!r}: expected one "
@@ -174,25 +179,53 @@ class NerfPipeline:
                     f"{par.compute_dtype!r}; set pallas_mlp: off for "
                     "float32 compute")
         gen = torch.Generator().manual_seed(seed)
-        self.coarse = DepthMipMLP(hidden_size=cfg.nerf.coarse_hidden_size,
-                                  compute_dtype=cdt, generator=gen)
-        self.fine = MipMLP(hidden_size=cfg.nerf.fine_hidden_size,
-                           compute_dtype=cdt, generator=gen)
-        self.coarse.to(self.device).eval()
-        self.fine.to(self.device).eval()
+        # Static for the life of the pipeline (ddnerf_tpu/models/nerf.py:
+        # 164-175): DDNeRF has a coarse net with the depth head and a fine
+        # net; mip-NeRF one net for both cycles (models.py:28).
+        self.shared_net = not cfg.is_ddnerf()
+        if self.shared_net:
+            self.coarse = MipMLP(hidden_size=cfg.nerf.coarse_hidden_size,
+                                 compute_dtype=cdt, generator=gen)
+            self.fine = None
+        else:
+            self.coarse = DepthMipMLP(hidden_size=cfg.nerf.coarse_hidden_size,
+                                      compute_dtype=cdt, generator=gen)
+            self.fine = MipMLP(hidden_size=cfg.nerf.fine_hidden_size,
+                               compute_dtype=cdt, generator=gen)
+        for net in self.networks():
+            net.to(self.device).eval()
         ds = cfg.dataset
         self._eps_mask_pdf = (ds.type.lower() == "blender"
                               or ds.basedir.endswith("segmented"))
         self._filter_empty = ds.type.lower() == "blender"
 
+    def networks(self):
+        """The pipeline's networks, coarse first: two for DDNeRF, the one
+        shared net for mip-NeRF."""
+        return [self.coarse] if self.shared_net else [self.coarse, self.fine]
+
     def load_state_dicts(self, coarse: Dict[str, torch.Tensor],
-                         fine: Dict[str, torch.Tensor]) -> None:
+                         fine: Optional[Dict[str, torch.Tensor]] = None,
+                         ) -> None:
+        """Load the networks' weights (a checkpoint's ``model_1_state_dict``
+        and ``model_2_state_dict``).  mip-NeRF has one network and takes no
+        ``fine``; DDNeRF needs both."""
+        if self.shared_net != (fine is None):
+            held = ("model_1_state_dict only" if fine is None else
+                    "model_1_state_dict and model_2_state_dict")
+            want = ("one shared network (model_1_state_dict only)"
+                    if self.shared_net else
+                    "two networks (model_1_state_dict and model_2_state_dict)")
+            raise ValueError(
+                f"nerf.type={self.cfg.nerf.type!r} has {want}, but the "
+                f"weights given hold {held}")
         self.coarse.load_state_dict(coarse)
-        self.fine.load_state_dict(fine)
+        if fine is not None:
+            self.fine.load_state_dict(fine)
 
     def parameters(self):
-        """Both networks' parameters, coarse first."""
-        return [*self.coarse.parameters(), *self.fine.parameters()]
+        """Every parameter once, coarse net first."""
+        return [p for net in self.networks() for p in net.parameters()]
 
     # --------------------------------------------------------------- network
 
@@ -231,16 +264,64 @@ class NerfPipeline:
         (``radiance_field_noise_std``); without one there is no noise, as the
         JAX package without an rng key, and ``perturb`` is an error.
 
-        ``mode="train"`` builds the autograd graph into both networks and
-        adds the dp loss and the μ/σ regularizers; ``"validation"`` adds
-        them too, without a graph; ``"render"`` returns the maps only."""
+        ``mode="train"`` builds the autograd graph into the networks and,
+        for DDNeRF, adds the dp loss and the μ/σ regularizers;
+        ``"validation"`` adds them too, without a graph; ``"render"``
+        returns the maps only.  mip-NeRF returns the same maps in every
+        mode."""
         if mode not in _MODES:
             raise ValueError(f"mode={mode!r}: expected one of "
                              f"{' | '.join(_MODES)}")
+        render = self._render_mipnerf if self.shared_net else self._render_dd
         if mode == "train":
-            return self._render_dd(rays, sched, mode, generator)
+            return render(rays, sched, mode, generator)
         with torch.inference_mode():
-            return self._render_dd(rays, sched, mode, generator)
+            return render(rays, sched, mode, generator)
+
+    def _check_generator(self, mc, mode: str, generator) -> None:
+        if mc.perturb and generator is None:
+            raise ValueError(f"nerf.{'train' if mode == 'train' else 'validation'}"
+                             ".perturb draws stratified jitter: pass a "
+                             "torch.Generator")
+
+    def _first_cycle_tvals(self, rays: RayBatch, mc, generator):
+        ds = self.cfg.dataset
+        return sampling.sample_first_cycle(
+            rays.near, rays.far, mc.num_coarse, lindisp=mc.lindisp,
+            perturb=mc.perturb,
+            combined=ds.combined_sampling_method, combined_near=ds.near,
+            combined_split=ds.combined_split, generator=generator)
+
+    def _render_mipnerf(self, rays: RayBatch, sched: ScheduleValues,
+                        mode: str, generator: Optional[torch.Generator]):
+        """GeneralMipNerfModel.predict (models.py:75-114), JAX
+        ``_render_mipnerf`` (models/nerf.py:769-813): the shared net in both
+        cycles, the plain inverse-CDF resampler between them.  In ``train``
+        mode the net appears twice in one autograd graph, and autograd sums
+        the two backward results on each parameter."""
+        cfg = self.cfg
+        mc = cfg.nerf.mode(mode)
+        self._check_generator(mc, mode, generator)
+        ret: Dict[int, Dict[str, torch.Tensor]] = {}
+        t_vals = self._first_cycle_tvals(rays, mc, generator)
+        for i in range(2):
+            if i == 1:
+                # Without a graph: detached, as stop_gradient in JAX.
+                t_vals = sampling.sample_pdf(
+                    t_vals, ret[0]["weights"], mc.num_fine + 1,
+                    pdf_padding=sched.pdf_padding, det=not mc.perturb,
+                    generator=generator)
+            raw = self._run_network(self.coarse, rays, t_vals, mode)
+            out = rendering.volume_render(
+                raw[..., :3], raw[..., 3], t_vals, rays.directions,
+                generator=generator, noise_std=mc.radiance_field_noise_std,
+                white_background=mc.white_background,
+                eps_mask_pdf=self._eps_mask_pdf,
+                analytic_weights_vjp=cfg.parallel.composite_custom_vjp)
+            ret[i] = {"rgb": out.rgb, "disp": out.disp, "acc": out.acc,
+                      "weights": out.weights, "depth": out.depth,
+                      "t_vals": t_vals}
+        return ret
 
     def _render_dd(self, rays: RayBatch, sched: ScheduleValues, mode: str,
                    generator: Optional[torch.Generator]):
@@ -250,10 +331,7 @@ class NerfPipeline:
         mc = cfg.nerf.mode(mode)
         tp = cfg.train_params
         ds = cfg.dataset
-        if mc.perturb and generator is None:
-            raise ValueError(f"nerf.{'train' if mode == 'train' else 'validation'}"
-                             ".perturb draws stratified jitter: pass a "
-                             "torch.Generator")
+        self._check_generator(mc, mode, generator)
         composite_kw = dict(
             generator=generator, noise_std=mc.radiance_field_noise_std,
             white_background=mc.white_background,
@@ -261,11 +339,7 @@ class NerfPipeline:
             analytic_weights_vjp=cfg.parallel.composite_custom_vjp)
 
         # ---- cycle 0: coarse with the depth-distribution head
-        t0 = sampling.sample_first_cycle(
-            rays.near, rays.far, mc.num_coarse, lindisp=mc.lindisp,
-            perturb=mc.perturb,
-            combined=ds.combined_sampling_method, combined_near=ds.near,
-            combined_split=ds.combined_split, generator=generator)
+        t0 = self._first_cycle_tvals(rays, mc, generator)
         raw0 = self._run_network(self.coarse, rays, t0, mode)  # [N, S, 6]
         raw_mus, raw_sigmas = raw0[..., 4], raw0[..., 5]
         mus = torch.sigmoid(raw_mus)

@@ -3,9 +3,9 @@
 ``render_model_video`` writes ``video.avi`` as an uncompressed RIFF AVI of
 24-bit ``DIB `` frames (BI_RGB with a negative height, i.e. top-down rows,
 which FFmpeg-based readers decode; BGR order, rows padded to 4 bytes, an
-``idx1`` index) and each frame as an 8-bit RGB PNG, so the port needs
-neither OpenCV nor imageio.  The readers parse exactly what the writers
-produce; they serve the checks of a rendered video.
+``idx1`` index) and each frame as an 8-bit PNG (grey, RGB or RGBA), so
+the port needs neither OpenCV nor imageio.  The readers parse exactly
+what the writers produce; they serve the checks of a rendered video.
 """
 
 from __future__ import annotations
@@ -161,15 +161,22 @@ def read_avi(path: str) -> Tuple[np.ndarray, int]:
     return out, fps
 
 
+# PNG colour type -> channels, for the 8-bit images the port writes.
+_PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
+
+
 def write_png(path: str, image: np.ndarray) -> None:
-    """Write ``[H, W, 3]`` uint8 RGB as an 8-bit RGB PNG."""
+    """Write uint8 ``[H, W]`` (grey), ``[H, W, 3]`` (RGB) or ``[H, W, 4]``
+    (RGBA) as an 8-bit PNG."""
     image = np.asarray(image)
-    if image.ndim != 3 or image.shape[2] != 3 or image.dtype != np.uint8:
-        raise ValueError(f"image must be uint8 [H, W, 3], got {image.dtype} "
-                         f"{image.shape}")
-    h, w, _ = image.shape
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)  # filter type 0 per row
-    raw[:, 1:] = image.reshape(h, 3 * w)
+    channels = 1 if image.ndim == 2 else image.shape[-1]
+    color = {c: t for t, c in _PNG_CHANNELS.items()}.get(channels)
+    if image.ndim not in (2, 3) or color is None or image.dtype != np.uint8:
+        raise ValueError("image must be uint8 [H, W], [H, W, 3] or "
+                         f"[H, W, 4], got {image.dtype} {image.shape}")
+    h, w = image.shape[:2]
+    raw = np.zeros((h, 1 + channels * w), np.uint8)  # filter type 0 per row
+    raw[:, 1:] = image.reshape(h, channels * w)
 
     def chunk(tag: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + tag + body
@@ -177,14 +184,16 @@ def write_png(path: str, image: np.ndarray) -> None:
 
     with open(path, "wb") as f:
         f.write(_PNG_SIGNATURE
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IHDR",
+                        struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
                 + chunk(b"IEND", b""))
 
 
 def read_png(path: str) -> np.ndarray:
-    """``[H, W, 3]`` uint8 of a PNG written by :func:`write_png` (8-bit RGB,
-    no interlace, filter type 0); each chunk's CRC is checked."""
+    """uint8 ``[H, W]``, ``[H, W, 3]`` or ``[H, W, 4]`` of a PNG written by
+    :func:`write_png` (8 bits, no interlace, filter type 0); each chunk's
+    CRC is checked."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
@@ -202,9 +211,13 @@ def read_png(path: str) -> np.ndarray:
             idat += body
         pos += 12 + size
     w, h, depth, color, _, _, interlace = header
-    if (depth, color, interlace) != (8, 2, 0):
-        raise ValueError(f"{path}: not 8-bit RGB without interlace")
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if depth != 8 or color not in _PNG_CHANNELS or interlace:
+        raise ValueError(f"{path}: not 8-bit grey, RGB or RGBA without "
+                         "interlace")
+    channels = _PNG_CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + channels * w)
     if raw[:, 0].any():
         raise ValueError(f"{path}: row filters other than 0")
-    return raw[:, 1:].reshape(h, w, 3).copy()
+    pixels = raw[:, 1:].reshape(h, w, channels).copy()
+    return pixels[..., 0] if channels == 1 else pixels

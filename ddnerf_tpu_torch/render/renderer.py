@@ -5,14 +5,17 @@ paths (``render_image_from_pose`` / ``render_images_from_poses`` and the
 video frames ``render_video_frame_from_pose`` /
 ``render_video_frames_from_poses``) with ray generation and chunking
 folded in from ``train/step.py::make_eval_step``.  Rays are generated on
-the device from the [4, 4] pose and rendered in chunks of
+the device from the [4, 4] pose, projected to NDC space there when
+``dataset.ndc_rays`` (over the whole image, before chunking: the NDC radii
+are neighbour differences on the pixel grid), and rendered in chunks of
 ``nerf.validation.chunksize``.  Image maps come back as float32 numpy;
 video frames keep only the fine ``rgb`` and ``disp`` and are quantized to
 uint8 on the device, so only the uint8 maps reach the host.
 ``mode="render"`` returns the image maps; ``mode="validation"`` (the
-train loop's validation image) adds the coarse weights and μ/σ maps and
-the scalar ``dp_loss``, averaged over chunks weighted by their ray counts
-(renderer.py:537-543).  The JAX renderer's packed fetch and its one-frame
+train loop's validation image) adds, for DDNeRF, the coarse weights and
+μ/σ maps and the scalar ``dp_loss``, averaged over chunks weighted by
+their ray counts (renderer.py:537-543); mip-NeRF has none of those and
+validates with the image maps alone.  The JAX renderer's packed fetch and its one-frame
 dispatch lookahead serve its host link and are not carried over.
 """
 
@@ -24,11 +27,16 @@ import numpy as np
 import torch
 
 from ddnerf_tpu_torch.config import Config
-from ddnerf_tpu_torch.core.rays import get_ray_bundle
+from ddnerf_tpu_torch.core.rays import (
+    get_ray_bundle,
+    ndc_mipnerf_rays_device,
+)
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch, ScheduleValues
 
-# The maps a render returns (the JAX renderer's DEFAULT_KEYS), and what
-# validation adds (the JAX train loop's extract keys, loop.py:173-175).
+# The maps a render returns (the JAX renderer's DEFAULT_KEYS; a map the
+# model lacks, as mip-NeRF the μ-corrected disparity, is left out), and what
+# DDNeRF's validation adds (the JAX train loop's extract keys,
+# loop.py:181-183).
 MAP_KEYS = ("rgb", "disp", "acc", "depth", "corrected_disp_map")
 VALIDATION_KEYS = MAP_KEYS + ("weights", "mus", "sigmas", "smoothed_sigmas",
                               "dp_loss")
@@ -61,7 +69,8 @@ class ImageRenderer:
         self.cfg = cfg
         self.pipeline = pipeline
         self.mode = mode
-        self.keys = MAP_KEYS if mode == "render" else VALIDATION_KEYS
+        self.keys = (VALIDATION_KEYS if mode == "validation"
+                     and cfg.is_ddnerf() else MAP_KEYS)
         self.chunk = cfg.nerf.validation.chunksize
 
     def render_flat(self, origins, directions, radii,
@@ -95,13 +104,17 @@ class ImageRenderer:
                 for i in parts}
 
     def _render_pose(self, pose, h, w, focal, generator, sched, keys=None):
-        """Rays of the pose, generated on the device, rendered flat.
-        Without a generator, one seeded with 0 is used per image (the JAX
-        renderer's ``PRNGKey(0)``)."""
+        """Rays of the pose, generated (and, under ``dataset.ndc_rays``,
+        NDC-projected: ``ddnerf_tpu/render/renderer.py:350-354``) on the
+        device, rendered flat.  Without a generator, one seeded with 0 is
+        used per image (the JAX renderer's ``PRNGKey(0)``)."""
         dev = self.pipeline.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
         ro, rd, radii = get_ray_bundle(h, w, float(focal), pose, device=dev)
+        if self.cfg.dataset.ndc_rays:
+            ro, rd, radii = ndc_mipnerf_rays_device(h, w, focal, ro, rd)
+            radii = radii[..., None]
         return self.render_flat(ro.reshape(-1, 3), rd.reshape(-1, 3),
                                 radii.reshape(-1, 1), generator, sched, keys)
 

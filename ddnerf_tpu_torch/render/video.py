@@ -2,7 +2,7 @@
 
 Counterpart of ``ddnerf_tpu/render/video.py::render_model_video``
 (reference render_video.py:17-106): reads the config snapshot and
-``checkpoint.ckpt`` of a logdir, renders the dataset's render-pose path and
+a checkpoint of a logdir, renders the dataset's render-pose path and
 writes a side-by-side rgb | disparity video at 24 fps
 (``video/video.avi``, frames ``[H, 2W, 3]``) and, on request, one PNG per
 frame (``video/frame_%04d.png``).  Each frame is rendered on the device
@@ -40,17 +40,20 @@ def side_by_side(rgb: np.ndarray, disp: np.ndarray) -> np.ndarray:
 def render_model_video(basedir: str, save_images: bool = False,
                        fps: int = 24, max_frames: int = 0,
                        torch_checkpoint: str | None = None,
+                       checkpoint_step: int | None = None,
                        device: str = "cuda") -> str:
     """Render the video of the run in ``basedir``: the first ``max_frames``
-    render poses (0: all) at the dataset's resolution.  Returns the path
-    of ``video.avi``."""
+    render poses (0: all) at the dataset's resolution, from the logdir's
+    newest checkpoint, its retained ``checkpoint_step`` or the file
+    ``torch_checkpoint``.  Returns the path of ``video.avi``."""
     dev = resolve_device(device)
     savedir = os.path.join(basedir, "video")
     os.makedirs(savedir, exist_ok=True)
 
     cfg = load_config_snapshot(basedir)
     _, val_ds, cfg = get_datasets(cfg)
-    pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint)
+    pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint,
+                             checkpoint_step)
     sched = ScheduleValues.for_eval(cfg)
     renderer = ImageRenderer(cfg, pipeline, mode="render")
     h, w = val_ds.H, val_ds.W

@@ -1,5 +1,6 @@
 """The train step: schedules, forward (coarse→fine), loss assembly
-(Σ coefⱼ·MSE + dp_coef·dp_loss), backward and the Adam update.
+(Σ coefⱼ·MSE, and + dp_coef·dp_loss for DDNeRF), backward and the Adam
+update.
 
 Counterpart of ``ddnerf_tpu/train/step.py`` (reference
 train_model.py:132-177).  PyTorch runs eagerly, so the step is a plain
@@ -34,19 +35,22 @@ def compute_loss(cfg: Config, pipeline: NerfPipeline, rays: RayBatch,
                  target: torch.Tensor, sched: ScheduleValues,
                  generator: Optional[torch.Generator] = None,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss assembly mirroring train_model.py:156-167.  PSNR is not taken
-    here: under microbatching it comes from the aggregated MSEs."""
+    """Loss assembly mirroring train_model.py:156-167; the dp loss and the
+    μ/σ regularizer metrics only for DDNeRF (``ddnerf_tpu/train/step.py:
+    66-73``).  PSNR is not taken here: under microbatching it comes from
+    the aggregated MSEs."""
     out = pipeline.render_rays(rays, sched, "train", generator)
     loss_coarse = img2mse(out[0]["rgb"], target)
     loss_fine = img2mse(out[1]["rgb"], target)
     coefs = cfg.train_params.loss_coeficients
     loss = coefs[0] * loss_coarse + coefs[1] * loss_fine
     metrics = {"loss_coarse": loss_coarse, "loss_fine": loss_fine}
-    dp_loss = out[1]["dp_loss"]
-    loss = loss + cfg.train_params.dp_coeficient * dp_loss
-    metrics["dp_loss"] = dp_loss
-    for key in ("mus_loss", "sig_loss", "mus_reg", "sig_reg"):
-        metrics[key] = out[0][key]
+    if cfg.is_ddnerf():
+        dp_loss = out[1]["dp_loss"]
+        loss = loss + cfg.train_params.dp_coeficient * dp_loss
+        metrics["dp_loss"] = dp_loss
+        for key in ("mus_loss", "sig_loss", "mus_reg", "sig_reg"):
+            metrics[key] = out[0][key]
     metrics["loss"] = loss
     return loss, metrics
 

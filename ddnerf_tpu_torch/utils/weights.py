@@ -49,6 +49,17 @@ def params_to_state_dict(params: Mapping[str, Mapping[str, Any]]
     return sd
 
 
+def pipeline_state_from_params(params: Mapping[str, Mapping[str, Any]]
+                               ) -> Dict[str, Any]:
+    """A whole JAX model's parameter tree (``NerfPipeline.init_params``:
+    ``{"coarse": …}`` for mip-NeRF, ``{"coarse": …, "fine": …}`` for
+    DDNeRF) -> ``{"coarse": state dict, "fine": state dict | None}``, the
+    keyword arguments of the port's ``NerfPipeline.load_state_dicts``."""
+    fine = params.get("fine")
+    return {"coarse": params_to_state_dict(params["coarse"]),
+            "fine": None if fine is None else params_to_state_dict(fine)}
+
+
 def _host(tree):
     """A copy of a state dict (nested dicts / lists of tensors) on the host."""
     if isinstance(tree, torch.Tensor):

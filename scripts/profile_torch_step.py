@@ -1,9 +1,11 @@
 """Where a train step's time goes in the PyTorch port, on one NVIDIA GPU.
 
     python3 scripts/profile_torch_step.py [--steps 20] [--top 12]
+        [dot.path value ...]
 
 Trains ``configs/synthetic_smoke.yml`` (the full DDNeRF model, 2048 rays per
-step, seeded random weights) through the fused-MLP kernels (``pallas_mlp:
+step, seeded random weights; ``nerf.type GeneralMipNerfModel`` as an
+override profiles the mip-NeRF step) through the fused-MLP kernels (``pallas_mlp:
 auto``) and through the plain version (``off``).  For each: the unprofiled
 ms/step over ``--steps`` steady steps (host clock, ending in a
 synchronise), then 5 steady steps under ``torch.profiler``: device busy time
@@ -42,6 +44,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--top", type=int, default=12)
+    ap.add_argument("opts", nargs="*", default=[],
+                    help="Config overrides as 'dot.path value' pairs.")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
@@ -49,8 +53,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda")
-    store, _, cfg = load_train_store(
-        load_config(os.path.join(REPO, "configs", "synthetic_smoke.yml")), dev)
+    cfg = load_config(os.path.join(REPO, "configs", "synthetic_smoke.yml"))
+    if args.opts:
+        cfg = cfg.merge_from_list(args.opts).resolved()
+        print("overrides: " + " ".join(args.opts), flush=True)
+    store, _, cfg = load_train_store(cfg, dev)
     rays = cfg.nerf.train.num_random_rays
     for name, policy in (("kernel", "auto"), ("plain", "off")):
         c = cfg.replace_at("parallel.pallas_mlp", policy)

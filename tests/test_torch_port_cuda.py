@@ -397,3 +397,110 @@ def test_training_step_runs_both_kernels_twice(device):
     assert fk.LAUNCHES["fused_mlp_bwd"] - before["fused_mlp_bwd"] == 2
     assert torch.isfinite(metrics["loss"]).item()
     assert all(torch.isfinite(p.grad).all() for p in pipe.parameters())
+
+
+def _mipnerf_cfg(**dataset):
+    from ddnerf_tpu_torch.config import Config
+
+    return Config.from_dict({
+        "train_params": {"loss_coeficients": [1.0, 0.1]},
+        "nerf": {"type": "GeneralMipNerfModel",
+                 "train": {"num_coarse": 32, "num_fine": 32,
+                           "num_random_rays": 256, "perturb": False,
+                           "radiance_field_noise_std": 0.0},
+                 "validation": {"num_coarse": 32, "num_fine": 32,
+                                "perturb": False, "chunksize": 4096}},
+        "dataset": dataset,
+        "parallel": {"compute_dtype": "bfloat16", "pallas_mlp": "auto"},
+    }).resolved()
+
+
+def test_mipnerf_step_sums_two_kernel_backwards_on_the_shared_net(
+        device, monkeypatch):
+    """A mip-NeRF train step on the card: the stash forward and the
+    backward launch twice on the one network, both calls read one weight
+    pack (a fresh one after Adam), and the summed gradient of each leaf
+    agrees with the same step whose backward is the plain version (same
+    forward, so the same stash and cotangents)."""
+    from ddnerf_tpu_torch.kernels import reference as ref
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.train.state import TrainState
+    from ddnerf_tpu_torch.train.step import train_step
+
+    cfg = _mipnerf_cfg()
+    rng = torch.Generator().manual_seed(1)
+    rd = torch.randn(256, 3, generator=rng)
+    batch = {"origins": (torch.randn(256, 3, generator=rng) * 0.3).to(device),
+             "directions": (rd / rd.norm(dim=-1, keepdim=True)).to(device),
+             "radii": torch.full((256, 1), 1e-3, device=device),
+             "rgb": torch.rand(256, 3, generator=rng).to(device)}
+    packs = []
+    real_pack = fk.pack_weights
+    monkeypatch.setattr(fk, "pack_weights",
+                        lambda net: packs.append(net) or real_pack(net))
+
+    def step(plain_backward):
+        pipe = NerfPipeline(cfg, device, seed=0)
+        state = TrainState(cfg, pipe)
+        before = dict(fk.LAUNCHES)
+        with monkeypatch.context() as patch:
+            if plain_backward:
+                patch.setattr(fk, "fused_mlp_backward",
+                              ref.fused_mlp_backward_reference)
+            metrics = train_step(cfg, pipe, state, batch)
+            torch.cuda.synchronize()
+        launched = {k: fk.LAUNCHES[k] - before[k] for k in before}
+        return pipe, state, metrics, launched
+
+    pipe, state, metrics, launched = step(False)
+    assert launched == {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 2,
+                        "fused_mlp_bwd": 2, "fused_enc_mlp_fwd": 0}
+    assert packs == [pipe.coarse]  # one pack served both cycles and B2
+    train_step(cfg, pipe, state, batch)
+    assert packs == [pipe.coarse] * 2  # Adam changed the weights: repacked
+    grads = {n: p.grad.clone() for n, p in pipe.coarse.named_parameters()}
+    assert "dp_loss" not in metrics and torch.isfinite(metrics["loss"])
+
+    pipe, state, _, _ = step(False)
+    kernel = {n: p.grad.clone() for n, p in pipe.coarse.named_parameters()}
+    plain_pipe, _, _, launched = step(True)
+    assert launched["fused_mlp_bwd"] == 0 and launched["fused_mlp_fwd_stash"] == 2
+    for name, p in plain_pipe.coarse.named_parameters():
+        rel = ((kernel[name] - p.grad).norm()
+               / p.grad.norm().clamp_min(1e-30)).item()
+        assert rel <= GRAD_NORM_REL_TOL, (name, rel)
+    assert grads.keys() == kernel.keys()
+
+
+def test_ndc_frame_through_kernel_matches_plain(device):
+    """``dataset.ndc_rays``: a forward-facing pose projected on the device
+    and rendered through the forward kernel (both variants) against the
+    plain modules."""
+    import numpy as np
+
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.render.renderer import ImageRenderer
+
+    base = _mipnerf_cfg(type="llff", ndc_rays=True, near=0.0, far=1.0)
+    base = base.replace_at("nerf.type", "DDNerfModel")
+    pose = np.eye(4, dtype=np.float32)[:3]
+    pose[:, 3] = [0.1, -0.05, 0.2]
+    maps = {}
+    for name, policy, variant, kernel in (
+            ("mlp", "auto", "mlp", "fused_mlp_fwd"),
+            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd"),
+            ("plain", "off", "mlp", None)):
+        cfg = base.replace_at("parallel.pallas_mlp", policy).replace_at(
+            "parallel.render_kernel_variant", variant)
+        before = dict(fk.LAUNCHES)
+        maps[name] = ImageRenderer(
+            cfg, NerfPipeline(cfg, device, seed=0)).render_image_from_pose(
+            pose, 48, 40, 50.0)
+        launched = {k: fk.LAUNCHES[k] - before[k] for k in before
+                    if fk.LAUNCHES[k] != before[k]}
+        assert launched == ({kernel: 2} if kernel else {})
+    for name in ("mlp", "ipe2"):
+        for i in (0, 1):
+            assert np.isfinite(maps[name][i]["rgb"]).all()
+            assert abs(maps[name][i]["rgb"] - maps["plain"][i]["rgb"]).max() \
+                < 1e-3

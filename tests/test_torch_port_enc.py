@@ -224,12 +224,11 @@ def test_fused_ipe_variant_without_transpose_constructs():
 @pytest.mark.parametrize("path", sorted(glob.glob(
     os.path.join(REPO, "configs", "*.yml"))), ids=os.path.basename)
 def test_every_shipped_config_constructs(path):
-    """The selectors of every shipped config pass; mip-NeRF configs are
-    refused later, for their model, as before."""
+    """The selectors of every shipped config pass, for both model
+    families: a DDNeRF config builds two networks, a mip-NeRF config one
+    shared network."""
     cfg = load_config(path)
-    if not cfg.is_ddnerf():
-        with pytest.raises(NotImplementedError, match="mip-NeRF"):
-            NerfPipeline(cfg, "cpu")
-        return
     pipe = NerfPipeline(cfg, "cpu")
     assert pipe.render_variant == cfg.parallel.render_kernel_variant
+    assert pipe.shared_net == (not cfg.is_ddnerf())
+    assert len(pipe.networks()) == (2 if cfg.is_ddnerf() else 1)

@@ -2,8 +2,9 @@
 ddnerf_tpu_torch module imports, a tiny image renders, two training steps
 run through the train loop and a video frame of the logdir they write
 renders, on the CPU, in a process where importing jax, flax, optax, orbax
-or ddnerf_tpu fails.  chip_smoke.py refuses to
-report without a GPU."""
+or ddnerf_tpu fails, and so does importing imageio or matplotlib, which
+not every installation of the port has.  chip_smoke.py refuses to report
+without a GPU."""
 
 import os
 import pkgutil
@@ -15,7 +16,8 @@ import sys
 import ddnerf_tpu_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "ddnerf_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "ddnerf_tpu",
+           "imageio", "matplotlib")
 
 _PROGRAM = f"""
 import sys
@@ -56,7 +58,7 @@ with tempfile.TemporaryDirectory() as tmp:
         "parallel.render_kernel_variant", "ipe2"]).resolved()
     state, logdir = train(tcfg, max_iters=2, device="cpu")
     assert state.step == 2
-    assert os.path.isfile(os.path.join(logdir, "checkpoint.ckpt"))
+    assert os.path.isfile(os.path.join(logdir, "checkpoint_2.ckpt"))
     losses = [json.loads(line)["loss"]
               for line in open(os.path.join(logdir, "metrics.jsonl"))]
     assert len(losses) == 4 and all(np.isfinite(losses)), losses
@@ -65,6 +67,21 @@ with tempfile.TemporaryDirectory() as tmp:
     frames, _ = read_avi(render_model_video(logdir, max_frames=1,
                                             device="cpu"))
     assert frames.shape == (1, 64, 128, 3), frames.shape
+    # An on-disk LLFF scene: PNGs written, minified and read without
+    # imageio, NDC rays, a frame rendered from them.
+    from ddnerf_tpu_torch.data.assembly import get_datasets
+    from ddnerf_tpu_torch.data.synthetic import write_synthetic_llff
+    write_synthetic_llff(os.path.join(tmp, "scene"), size=16, n=5, seed=1)
+    lcfg = cfg.merge_from_list([
+        "dataset.type", "llff", "dataset.basedir", os.path.join(tmp, "scene"),
+        "dataset.downsample_factor", "2", "dataset.ndc_rays", "true",
+        "dataset.near", "0", "dataset.far", "1", "dataset.llffhold", "2",
+        "dataset.bd_factor", "0.75"]).resolved()
+    _, val_ds, lcfg = get_datasets(lcfg)
+    rgb, disp = ImageRenderer(lcfg, NerfPipeline(lcfg, "cpu")
+                              ).render_video_frame_from_pose(
+        val_ds.render_poses[0], val_ds.H, val_ds.W, val_ds.focal)
+    assert rgb.shape == (8, 8, 3) and disp.shape == (8, 8)
 leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not leaked, leaked
@@ -84,7 +101,8 @@ def test_port_imports_and_renders_without_jax():
 
 def test_no_port_source_imports_jax():
     pattern = re.compile(
-        r"^\s*(import|from)\s+(jax|flax|optax|orbax|ddnerf_tpu)\b", re.M)
+        r"^\s*(import|from)\s+(jax|flax|optax|orbax|ddnerf_tpu|imageio"
+        r"|matplotlib)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.dirname(ddnerf_tpu_torch.__file__)):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]

@@ -100,11 +100,19 @@ def test_policies_off_and_auto_agree_on_cpu():
 def test_pipeline_rejects_what_it_cannot_render():
     with pytest.raises(ValueError, match="pallas_mlp"):
         NerfPipeline(_cfg(pallas_mlp="sometimes"), "cpu")
-    with pytest.raises(NotImplementedError):
-        NerfPipeline(_cfg().replace_at("nerf.type", "GeneralMipNerfModel"))
     pipe = NerfPipeline(_cfg(), "cpu")
     ro, rd, radii = _rays(4)
     rays = RayBatch.create(*map(torch.tensor, (ro, rd, radii)), 2.0, 6.0)
+    # mip-NeRF is no longer refused: the config renders, through one
+    # shared network, and takes no second network's weights.
+    mip = NerfPipeline(_cfg().replace_at("nerf.type", "GeneralMipNerfModel"))
+    assert mip.shared_net and mip.fine is None
+    out = mip.render_rays(rays, ScheduleValues.for_eval(mip.cfg))
+    assert out[1]["rgb"].shape == (4, 3) and "mus" not in out[0]
+    with pytest.raises(ValueError, match="model_2_state_dict"):
+        mip.load_state_dicts(pipe.coarse.state_dict(), pipe.fine.state_dict())
+    with pytest.raises(ValueError, match="model_1_state_dict only"):
+        pipe.load_state_dicts(pipe.coarse.state_dict())
     with pytest.raises(ValueError, match="mode="):
         pipe.render_rays(rays, ScheduleValues.for_eval(pipe.cfg), "predict")
     perturbed = NerfPipeline(_cfg().replace_at(

@@ -327,8 +327,12 @@ def _port_sources():
     return sorted(os.path.relpath(f, REPO) for f in files)
 
 
+# The JAX package and its frameworks, and the two libraries that not every
+# installation of the port has: image files go through PIL and the standard
+# library (data/images.py), the figures through PIL (viz/visualization.py).
 _IMPORT = re.compile(
-    r"^\s*(?:import|from)\s+(?:ddnerf_tpu|jax|jaxlib|flax|optax|orbax)\b"
+    r"^\s*(?:import|from)\s+(?:ddnerf_tpu|jax|jaxlib|flax|optax|orbax|imageio"
+    r"|matplotlib)\b"
     r"|import_module\(\s*['\"]ddnerf_tpu['\".]"
     r"|__import__\(\s*['\"]ddnerf_tpu['\".]", re.M)
 

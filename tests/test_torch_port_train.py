@@ -205,9 +205,9 @@ def test_train_cli_then_eval_cli_on_cpu(train_config, capsys):
     assert set(launches.values()) == {0}  # CPU: the plain versions ran
     snapshot = Config.from_yaml(os.path.join(logdir, "config.yml"))
     assert snapshot.train_params.dp_coeficient == 0.2  # the CLI override
-    ckpt = load_checkpoint(os.path.join(logdir, "checkpoint.ckpt"))
+    ckpt = load_checkpoint(os.path.join(logdir, "checkpoint_3.ckpt"))
     assert ckpt["step"] == 3
-    raw = torch.load(os.path.join(logdir, "checkpoint.ckpt"),
+    raw = torch.load(os.path.join(logdir, "checkpoint_3.ckpt"),
                      weights_only=True)
     assert raw["optimizer_state_dict"]["state"]  # Adam moments saved
     records = [json.loads(line) for line in
