@@ -25,10 +25,21 @@ Run from the repository root.  Phases, each of which fails the run:
    and x 17 samples), a ragged one, and ragged ones at widths 128 and 64,
    with CUDA-event timings;
 5. training main path: ``python -m ddnerf_tpu_torch.cli.train`` on
-   ``configs/synthetic_smoke.yml`` for 200 iterations: finite losses, a
-   lower mean loss over the last 20 iterations than over the first 20, a
-   validation line, ``config.yml`` and ``checkpoint_200.ckpt``, and two
-   launches of each training kernel per step;
+   ``configs/synthetic_smoke.yml`` for 200 iterations, the step a captured
+   CUDA graph replayed in blocks (the CLI's default on the card; the run
+   must say so): finite losses, a lower mean loss over the last 20
+   iterations than over the first 20, a validation line, ``config.yml`` and
+   ``checkpoint_200.ckpt``, and two launches of each training kernel per
+   step, the replays' counted by what the graph holds;
+5b. the captured step against the eager step: two runs from one seed for 40
+   iterations, bitwise the same metrics, parameters, Adam state and
+   generator state, and both ms/step (DDNeRF and mip-NeRF);
+5c. host-side sampling: the training CLI with ``parallel.max_store_gb 0``
+   (rays sampled on the host, one batch uploaded ahead, the eager step)
+   for 40 iterations: the loss falls, two launches of each training kernel
+   per step;
+5d. ``--profile-steps 5``: a short captured run that must print the
+   profile's digest with device activity and leave the trace file;
 6. serving main path: ``python -m ddnerf_tpu_torch.cli.eval`` on the
    trained logdir; results.txt must hold finite PSNR / SSIM and the render
    must launch the forward kernel;
@@ -67,8 +78,8 @@ The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
-sum over the main paths of phases 5-6b, 9 and 10, each counted from 0 in
-its own process.  Without CUDA, or without the package
+sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9 and 10, each counted
+from 0 in its own process.  Without CUDA, or without the package
 beside this file, the run exits non-zero and prints no result.
 """
 
@@ -126,6 +137,8 @@ WEIGHT_GRAD_BF16_SHARE_MAX = 0.05
 TRAIN_ITERS = 200
 LOSS_WINDOW = 20  # iterations averaged at each end of the training run
 PARITY_STEPS = 20
+GRAPH_STEPS = 40  # captured vs eager, and the host-sampling run
+PROFILE_ITERS, PROFILE_STEPS = 30, 5  # the --profile-steps run
 # Kernel vs plain training, per step: |loss_kernel - loss_plain| /
 # loss_plain.  The two differ in summation order and in the weight
 # gradients (f32 in the kernel, rounded to bf16 by the plain path's cast).
@@ -577,6 +590,9 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
     out, launches, wall = _subprocess(cmd, tag)
     logdir = os.path.join(logroot, run)
     _check_train_output(out, tag)
+    if not re.search(r"^step mode: graph .*blocks of up to \d+", out, re.M):
+        fail(f"{tag}: the CLI did not say that it runs the captured step in "
+             f"blocks")
     for name in ("config.yml", "metrics.jsonl",
                  f"checkpoint_{TRAIN_ITERS}.ckpt"):
         if not os.path.isfile(os.path.join(logdir, name)):
@@ -595,16 +611,16 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
         fail(f"{tag}: the train records must carry dp_loss for DDNeRF only")
     first = statistics.mean(losses[:LOSS_WINDOW])
     last = statistics.mean(losses[-LOSS_WINDOW:])
-    # The loop's own pace, from the records' time stamps (the loop reads
-    # every step's metrics on the host, which ends the step; a record is
-    # stamped before its iteration's validation, and none falls inside).
-    half = TRAIN_ITERS // 2
-    step_ms = (records[-1]["time"] - records[half]["time"]) * 1e3 / (
-        TRAIN_ITERS - 1 - half)
+    # The loop's own pace, from the time stamps of its last two block ends
+    # (a block's records are written when its one copy to the host has
+    # arrived, which ends the block; no validation falls between them).
+    ends = [r for r in records if "rays_per_sec" in r][-2:]
+    step_ms = (ends[1]["time"] - ends[0]["time"]) * 1e3 / (
+        ends[1]["step"] - ends[0]["step"])
     print(f"[{tag}] mean loss of iterations 0-{LOSS_WINDOW - 1}: {first:.5f}, "
           f"of the last {LOSS_WINDOW}: {last:.5f}; {step_ms:.2f} ms/step "
-          f"over the second half of the run; wall {wall:.1f} s, launches "
-          f"{launches}", flush=True)
+          f"over iterations {ends[0]['step'] + 1}-{ends[1]['step']}; wall "
+          f"{wall:.1f} s, launches {launches}", flush=True)
     if not last < first:
         fail(f"{tag}: training did not lower the mean loss")
     for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
@@ -613,6 +629,142 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
                  f"times, expected {2 * TRAIN_ITERS} (two network "
                  f"evaluations per step)")
     return logdir, launches
+
+
+def phase_graph_vs_eager(torch, tag="graph", opts=()):
+    """The captured step against the eager step from one seed
+    (``opts``: config overrides): every metric of every iteration, the
+    parameters, Adam's state and the generator's state must be bitwise
+    equal; returns both ms/step (steady state, no metric read)."""
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.datasets import load_train_store
+    from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.train.state import TrainState
+    from ddnerf_tpu_torch.train.step import CapturedTrainStep, EagerTrainStep
+
+    dev = torch.device("cuda")
+    cfg = load_config(CONFIG)
+    if opts:
+        cfg = cfg.merge_from_list(list(opts)).resolved()
+    store, _, cfg = load_train_store(cfg, dev)
+    head = 8  # the warm-up iterations and the capture lie in these
+    runs, step_ms = {}, {}
+    for mode in ("eager", "graph"):
+        pipe = NerfPipeline(cfg, dev, seed=0)
+        state = TrainState(cfg, pipe)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        if mode == "graph":
+            stepper = CapturedTrainStep(cfg, pipe, state, store, gen,
+                                        max_block=GRAPH_STEPS)
+        else:
+            stepper = EagerTrainStep.from_store(cfg, pipe, state, store, gen)
+        before = dict(LAUNCHES)
+        rows = [stepper.run(head).clone()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows.append(stepper.run(GRAPH_STEPS - head).clone())
+        torch.cuda.synchronize()
+        step_ms[mode] = (time.perf_counter() - t0) * 1e3 / (GRAPH_STEPS - head)
+        launched = {k: LAUNCHES[k] - before[k] for k in before
+                    if LAUNCHES[k] != before[k]}
+        if launched != {"fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
+                        "fused_mlp_bwd": 2 * GRAPH_STEPS}:
+            fail(f"{tag}: {GRAPH_STEPS} {mode} steps counted {launched}")
+        adam = [state.optimizer.state[p][key] for p in pipe.parameters()
+                for key in ("exp_avg", "exp_avg_sq", "step")]
+        runs[mode] = (stepper.names, torch.cat(rows),
+                      [p.detach() for p in pipe.parameters()] + adam
+                      + [gen.get_state(), state.lr])
+    names, rows_e, tensors_e = runs["eager"]
+    _, rows_g, tensors_g = runs["graph"]
+    if not torch.isfinite(rows_e).all().item():
+        fail(f"{tag}: the eager run's metrics are not finite")
+    differ = [names[j] for j in range(len(names))
+              if not torch.equal(rows_e[:, j], rows_g[:, j])]
+    differ += [f"tensor {i}" for i, (a, b) in
+               enumerate(zip(tensors_e, tensors_g)) if not torch.equal(a, b)]
+    loss = rows_g[:, names.index("loss")]
+    print(f"[{tag}] {GRAPH_STEPS} iterations, captured vs eager: "
+          f"{len(names)} metrics per iteration, {len(tensors_e)} state "
+          f"tensors: {'bitwise equal' if not differ else differ}; loss "
+          f"{loss[0].item():.5f} -> {loss[-1].item():.5f}; eager "
+          f"{step_ms['eager']:.2f} ms/step, captured {step_ms['graph']:.2f} "
+          f"ms/step (iterations {head}-{GRAPH_STEPS - 1})", flush=True)
+    if differ:
+        fail(f"{tag}: the captured step differs from the eager step: "
+             f"{differ}")
+    return step_ms
+
+
+def phase_host_sampling(logroot, tag="host-sampling"):
+    """The training CLI with the ray store kept on the host; returns the
+    run's launch counts."""
+    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
+           CONFIG, "--max-iters", str(GRAPH_STEPS),
+           "experiment.logdir", logroot, "experiment.id", "host_sampling",
+           "parallel.max_store_gb", "0", "experiment.print_every", "10",
+           # The full rate from the first step: 40 iterations must show.
+           "optimizer.lr_delay_steps", "0"]
+    out, launches, wall = _subprocess(cmd, tag)
+    _check_train_output(out, tag)
+    if not re.search(r"^step mode: eager, .*rays sampled on the host", out,
+                     re.M):
+        fail(f"{tag}: the CLI did not say that it samples on the host")
+    with open(os.path.join(logroot, "host_sampling", "metrics.jsonl")) as f:
+        records = [r for r in map(json.loads, f) if r["kind"] == "train"]
+    losses = [r["loss"] for r in records]
+    if len(losses) != GRAPH_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"{tag}: {len(losses)} finite train losses, expected "
+             f"{GRAPH_STEPS}")
+    first, last = statistics.mean(losses[:10]), statistics.mean(losses[-10:])
+    step_ms = (records[-1]["time"] - records[20]["time"]) * 1e3 / (
+        GRAPH_STEPS - 21)
+    print(f"[{tag}] mean loss of iterations 0-9: {first:.5f}, of the last 10: "
+          f"{last:.5f}; {step_ms:.2f} ms/step over iterations 21-"
+          f"{GRAPH_STEPS - 1} (a record read per iteration); wall {wall:.1f} "
+          f"s, launches {launches}", flush=True)
+    if not last < first:
+        fail(f"{tag}: training did not lower the mean loss")
+    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+        if launches.get(name) != 2 * GRAPH_STEPS:
+            fail(f"{tag}: launched {name} {launches.get(name)} times, "
+                 f"expected {2 * GRAPH_STEPS}")
+    return launches
+
+
+def phase_profile_steps(logroot, tag="profile-steps"):
+    """``--profile-steps`` through the training CLI under the captured
+    step; returns the run's launch counts."""
+    cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
+           CONFIG, "--max-iters", str(PROFILE_ITERS), "--profile-steps",
+           str(PROFILE_STEPS), "experiment.logdir", logroot,
+           "experiment.id", "profiled", "experiment.print_every", "10"]
+    out, launches, wall = _subprocess(cmd, tag)
+    _check_train_output(out, tag)
+    trace = re.search(r"^\[profile\] trace of \d+ steps: (\S+)$", out, re.M)
+    digest = re.search(r"^\[profile\] per step: device busy (\S+) ms of a "
+                       r"(\S+) ms span .* (\d+) device activities$", out,
+                       re.M)
+    if not trace or not os.path.isfile(trace.group(1)) or \
+            os.path.getsize(trace.group(1)) == 0:
+        fail(f"{tag}: no trace file ({trace.group(1) if trace else None})")
+    if not digest or not float(digest.group(1)) > 0:
+        fail(f"{tag}: the digest shows no device time")
+    steps = PROFILE_ITERS + PROFILE_STEPS  # the profiled steps are steps too
+    if not os.path.isfile(os.path.join(logroot, "profiled",
+                                       f"checkpoint_{steps}.ckpt")):
+        fail(f"{tag}: no checkpoint_{steps}.ckpt: the profiled steps must "
+             f"advance the step counter")
+    print(f"[{tag}] trace {os.path.getsize(trace.group(1))} bytes; per "
+          f"replayed step device busy {digest.group(1)} ms, "
+          f"{digest.group(3)} graph nodes; wall {wall:.1f} s, launches "
+          f"{launches}", flush=True)
+    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+        if launches.get(name) != 2 * steps:
+            fail(f"{tag}: launched {name} {launches.get(name)} times, "
+                 f"expected {2 * steps}")
+    return launches
 
 
 def _decoded_pngs(folder, names):
@@ -1087,6 +1239,8 @@ def main():
     train_err, train_timing = phase_train_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logroot:
         logdir, train_launches = phase_train_main_path(logroot)
+        host_launches = phase_host_sampling(logroot)
+        profile_launches = phase_profile_steps(logroot)
         launches = phase_main_path(logdir)
         video_launches = phase_video_main_path(logdir)
         # The mip-NeRF path: the same three entry points on one shared net.
@@ -1111,6 +1265,8 @@ def main():
         ndc_step_ms = phase_train_parity(torch, "ndc-parity", ndc_scene,
                                          FF_CONFIG)
         phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
+    graph_ms = phase_graph_vs_eager(torch)
+    mip_graph_ms = phase_graph_vs_eager(torch, "mip-graph", MIPNERF)
     step_ms = phase_train_parity(torch)
     frame_s = phase_frame(torch)
     mip_step_ms = phase_train_parity(torch, "mip-parity", MIPNERF)
@@ -1126,7 +1282,10 @@ def main():
           f"mip-NeRF train step kernel {mip_step_ms['kernel']:.2f} ms, plain "
           f"{mip_step_ms['plain']:.2f} ms; NDC train step kernel "
           f"{ndc_step_ms['kernel']:.2f} ms, plain "
-          f"{ndc_step_ms['plain']:.2f} ms; whole run "
+          f"{ndc_step_ms['plain']:.2f} ms; captured vs eager step "
+          f"{graph_ms['graph']:.2f} vs {graph_ms['eager']:.2f} ms (DDNeRF), "
+          f"{mip_graph_ms['graph']:.2f} vs {mip_graph_ms['eager']:.2f} ms "
+          f"(mip-NeRF); whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN_MODULES)
@@ -1134,7 +1293,8 @@ def main():
         fail(f"imported {leaked}")
 
     # Each kernel's launches: the sum over the main paths, and per path.
-    by_path = {"ddnerf": _sum_launches(train_launches, launches,
+    by_path = {"ddnerf": _sum_launches(train_launches, host_launches,
+                                       profile_launches, launches,
                                        video_launches),
                "mipnerf": _sum_launches(mip_train, mip_eval, mip_video),
                "ndc": ndc_launches}

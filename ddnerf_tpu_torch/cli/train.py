@@ -3,6 +3,7 @@
 
     python -m ddnerf_tpu_torch.cli.train --config CONFIG [--max-iters N]
         [--load-checkpoint PATH] [--device cuda|cuda:1|cpu]
+        [--step-mode graph|eager] [--profile-steps N] [--debug-nans]
         [dot.path value ...]
 
 The positional pairs override the config (reference
@@ -10,7 +11,9 @@ CfgNode.merge_from_list), e.g. ``experiment.logdir /tmp/runs
 nerf.train.num_random_rays 1024``.  A logdir that already holds a
 checkpoint is resumed from it; ``--load-checkpoint`` names another logdir
 or checkpoint file to start from.  CUDA asked for and absent is an error,
-never a run on the CPU.
+never a run on the CPU.  On a CUDA device the step is one captured CUDA
+graph replayed per iteration (``--step-mode graph``, the default there);
+``--step-mode eager`` runs it as plain PyTorch calls, as the CPU does.
 """
 
 import argparse
@@ -18,7 +21,8 @@ import json
 
 from ddnerf_tpu_torch.config import load_config
 from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
-from ddnerf_tpu_torch.train.loop import train
+from ddnerf_tpu_torch.train.loop import STEP_MODES, train
+from ddnerf_tpu_torch.utils.debug import nan_debug_mode
 
 
 def main(argv=None):
@@ -33,6 +37,20 @@ def main(argv=None):
                         help="Override experiment.train_iters (0 = use config).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default: cuda).")
+    parser.add_argument("--step-mode", choices=STEP_MODES, default=None,
+                        help="graph: the step as a captured CUDA graph, one "
+                             "replay per iteration (default on a CUDA "
+                             "device); eager: plain PyTorch calls (default "
+                             "on the CPU and with host-side ray sampling).")
+    parser.add_argument("--profile-steps", type=int, default=0,
+                        help="Capture a torch.profiler trace of N steady-"
+                             "state steps into the logdir and print its "
+                             "digest.")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="Enable autograd anomaly detection and a finite "
+                             "check of every step's parameters, loss and "
+                             "gradients: raise at the first NaN (sanitizer "
+                             "mode, slower; runs the eager step).")
     parser.add_argument("opts", nargs="*", default=[],
                         help="Config overrides as 'dot.path value' pairs.")
     args = parser.parse_args(argv)
@@ -40,9 +58,12 @@ def main(argv=None):
     cfg = load_config(args.config)
     if args.opts:
         cfg = cfg.merge_from_list(args.opts).resolved()
-    _, logdir = train(cfg, max_iters=args.max_iters or None,
-                      device=args.device,
-                      load_checkpoint=args.load_checkpoint)
+    with nan_debug_mode(args.debug_nans):
+        _, logdir = train(cfg, max_iters=args.max_iters or None,
+                          device=args.device,
+                          load_checkpoint=args.load_checkpoint,
+                          profile_steps=args.profile_steps,
+                          step_mode=args.step_mode)
     print(f"logdir: {logdir}")
     # Which kernels the run went through (0 = the plain versions ran).
     print("kernel launches: " + json.dumps(LAUNCHES, sort_keys=True))

@@ -9,8 +9,11 @@ aligned; see the JAX docstring for the reference's misaligned
 ``left_tails`` under its filter).  The per-fencepost section values come
 from ``torch.gather`` on the strict interval index where the JAX package
 contracts a one-hot: a gather is exact, as the ``mixed``/``highest``
-one-hot fetch is, and its backward (a scatter-add) gives the gradient of
-the one-hot contraction.
+one-hot fetch is.  Its backward is the one-hot contraction itself
+(:class:`_Take`), a sum in a fixed order: ``torch.gather``'s own backward
+is a scatter-add by float atomics, whose result depends on the order the
+device happens to run them in, and a train step must give the same bits
+whether it runs eagerly or as a replayed CUDA graph.
 """
 
 from __future__ import annotations
@@ -21,6 +24,24 @@ from ddnerf_tpu_torch.core.math import normal_cdf
 from ddnerf_tpu_torch.core.sampling import interval_index
 
 _EPS = 1e-12
+
+
+class _Take(torch.autograd.Function):
+    """``torch.gather(x, -1, ind)`` for ``x [N, S]`` and ``ind [N, M]``
+    whose backward sums each section's cotangents through the one-hot mask
+    ``ind == s`` (``[N, M, S]``, given by the caller, who shares it between
+    the gathers of one index): deterministic, where a scatter-add is not."""
+
+    @staticmethod
+    def forward(ctx, x, ind, mask):
+        ctx.save_for_backward(mask)
+        return torch.gather(x, -1, ind)
+
+    @staticmethod
+    def backward(ctx, g):
+        (mask,) = ctx.saved_tensors
+        return torch.sum(torch.where(mask, g[..., None], 0.0), dim=-2), \
+            None, None
 
 
 def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
@@ -50,7 +71,8 @@ def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
 
     # torch.minimum / maximum split the gradient at a tie as jnp's do
     # (torch.clamp would pass all of it).
-    one, zero = pdf_0.new_tensor(1.0), pdf_0.new_tensor(0.0)
+    # Made on the device (a copy from the host would wait for it).
+    one, zero = pdf_0.new_ones(()), pdf_0.new_zeros(())
     cdf = torch.minimum(torch.cumsum(pdf_0[..., :-1], dim=-1), one)
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf,
                      torch.ones_like(cdf[..., :1])], dim=-1)  # [N, S+1]
@@ -58,8 +80,10 @@ def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
     # The coarse section holding each fine fencepost (strict ">").
     ind = interval_index(t_vals_1, t_vals_0, strict=True)  # [N, M+1]
 
+    mask = ind[..., None] == torch.arange(pdf_0.shape[-1], device=ind.device)
+
     def take(x):
-        return torch.gather(x, -1, ind)
+        return _Take.apply(x, ind, mask)
 
     est_cdf = take(cdf[..., :-1])  # cdf at the section's start fencepost
     mus, sigmas = take(mus_ray), take(sigmas_ray)

@@ -8,6 +8,7 @@ are the S+1 fenceposts of S sections along a ray, per-ray sample axes are
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -104,6 +105,16 @@ def expected_sin(x, x_var):
     return y, y_var
 
 
+@functools.cache
+def _level_scales(min_deg: int, max_deg: int, dtype, device):
+    """``2^l`` for each level, exact, uploaded once per device: a copy from
+    the host at every call would make the caller wait for the device, and
+    cannot be recorded into a CUDA graph."""
+    with torch.inference_mode(False):  # a normal tensor, whoever asks first
+        return torch.tensor([2.0**i for i in range(min_deg, max_deg)],
+                            dtype=dtype, device=device)
+
+
 def integrated_pos_enc(means_covs, min_deg=0, max_deg=16, diag=True,
                        double_angle=True):
     """IPE over degrees ``[min_deg, max_deg)``: ``(means, covs) [..., 3]``
@@ -135,8 +146,7 @@ def integrated_pos_enc(means_covs, min_deg=0, max_deg=16, diag=True,
         sin_half = torch.stack(sin_feats, dim=-2).reshape(shape)
         cos_half = torch.stack(cos_feats, dim=-2).reshape(shape)
         return torch.cat([sin_half, cos_half], dim=-1)
-    scales = torch.tensor([2.0**i for i in range(min_deg, max_deg)],
-                          dtype=x.dtype, device=x.device)
+    scales = _level_scales(min_deg, max_deg, x.dtype, x.device)
     y = (x[..., None, :] * scales[:, None]).reshape(shape)
     y_var = (x_cov_diag[..., None, :] * scales[:, None] ** 2).reshape(shape)
     return expected_sin(

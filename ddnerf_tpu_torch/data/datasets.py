@@ -208,19 +208,76 @@ def load_train_store(cfg: Config, device):
     """Build the datasets of ``cfg`` and move the training ray store to
     ``device`` -> (store ``[n_img, n_pix, 10]``, validation dataset, cfg).
     The returned cfg carries the near/far that pose normalization may have
-    rescaled.  A store above ``parallel.max_store_gb`` is an error: host-side
-    ray sampling is not ported yet."""
+    rescaled.  A store at or above ``parallel.max_store_gb`` stays on the
+    host: the first element is then the :class:`TrainRayDataset` itself,
+    whose ``sample_batch`` the loop draws from
+    (:class:`PrefetchedHostBatches`)."""
     from ddnerf_tpu_torch.data.assembly import get_datasets  # imports this module
 
     train_ds, val_ds, cfg = get_datasets(cfg)
     host_store = train_ds.device_store()
-    limit = cfg.parallel.max_store_gb * 1024**3
-    if host_store.nbytes >= limit:
-        raise ValueError(
-            f"the ray store is {host_store.nbytes / 1024**3:.2f} GiB, above "
-            f"parallel.max_store_gb={cfg.parallel.max_store_gb}: host-side "
-            "ray sampling is not ported yet (ROADMAP A5)")
+    if host_store.nbytes >= cfg.parallel.max_store_gb * 1024**3:
+        return train_ds, val_ds, cfg
     return torch.from_numpy(host_store).to(device), val_ds, cfg
+
+
+class PrefetchedHostBatches:
+    """Ray batches sampled on the host and uploaded one step ahead
+    (``ddnerf_tpu/train/loop.py:134-176``).
+
+    ``take()`` gives the batch of the step about to run; ``prefetch()``,
+    called right after that step was dispatched, samples the next batch and
+    starts its upload (from pinned memory, on a side stream), so both
+    overlap the step on the device.  The host rng is drawn in the order of
+    a synchronous loop, and no more often: the prefetch stops once every one
+    of the ``steps_expected`` steps has its batch (the entry prefetch counts
+    as one).  ``prefetch=False`` samples and uploads inside ``take()``, the
+    synchronous loop itself.  ``draws`` counts the batches sampled."""
+
+    def __init__(self, train_ds: TrainRayDataset, num_rays: int, seed: int,
+                 device, steps_expected: int, prefetch: bool = True):
+        self.train_ds, self.num_rays = train_ds, num_rays
+        self.device = torch.device(device)
+        self.rng = np.random.default_rng(seed)
+        self.steps_expected = steps_expected
+        self.ahead = prefetch
+        self.draws = 0
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._next = self._sample_upload() if prefetch else None
+
+    def _sample_upload(self):
+        """Sample on the host and start the upload -> (rows ``[R, 10]`` on
+        the device, the event that marks them there)."""
+        rows = torch.from_numpy(np.concatenate(
+            self.train_ds.sample_batch(self.rng, self.num_rays), axis=-1))
+        self.draws += 1
+        if self._stream is None:
+            return rows, None
+        with torch.cuda.stream(self._stream):
+            dev_rows = rows.pin_memory().to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        return dev_rows, ready
+
+    def take(self):
+        """The next step's batch ``{origins, directions, radii, rgb}``."""
+        if self._next is None:  # nothing uploaded ahead: sample now
+            if self.draws >= self.steps_expected:
+                raise RuntimeError(
+                    f"batch {self.draws + 1} of {self.steps_expected} asked for")
+            self._next = self._sample_upload()
+        (rows, ready), self._next = self._next, None
+        if ready is not None:
+            main = torch.cuda.current_stream(self.device)
+            main.wait_event(ready)
+            rows.record_stream(main)
+        return {"origins": rows[:, 0:3], "directions": rows[:, 3:6],
+                "radii": rows[:, 6:7], "rgb": rows[:, 7:10]}
+
+    def prefetch(self) -> None:
+        if self.ahead and self.draws < self.steps_expected:
+            self._next = self._sample_upload()
 
 
 def sample_rays_on_device(store: torch.Tensor, generator: torch.Generator,
@@ -235,7 +292,9 @@ def sample_rays_on_device(store: torch.Tensor, generator: torch.Generator,
         img = torch.randint(0, n_img, (), generator=generator, device=dev)
         idx = torch.randint(0, n_pix, (num_rays,), generator=generator,
                             device=dev)
-        rows = store[img, idx]
+        # One flat gather: indexing with the 0-d ``img`` itself would read
+        # it on the host, and the host would wait for the device.
+        rows = store.reshape(n_img * n_pix, -1)[img * n_pix + idx]
     else:
         flat = torch.randint(0, n_img * n_pix, (num_rays,),
                              generator=generator, device=dev)

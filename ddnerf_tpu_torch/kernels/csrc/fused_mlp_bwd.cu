@@ -793,13 +793,6 @@ Layout layout(long long n, int samples, int hidden, const Plan& P) {
   return L;
 }
 
-cudaError_t sm_count(int* sms) {
-  int device = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e != cudaSuccess) return e;
-  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
-}
-
 // A [slabs, rows, cols] bf16 tensor map with boxes of [1, box_rows, 64].
 bool map3(CUtensorMap* map, const void* ptr, long long cols, long long rows,
           long long slabs, int box_rows) {
@@ -822,10 +815,12 @@ template <int H>
 cudaError_t launch_chain(const ChainParams& p, const ChainMaps& maps, int sms,
                          cudaStream_t stream) {
   using S = Shape<H>;
-  cudaError_t e = cudaFuncSetAttribute(
+  // The opt-in to S::SMEM bytes of dynamic shared memory: once per process
+  // and instantiation, not per launch.
+  static const cudaError_t setup = cudaFuncSetAttribute(
       chain_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)S::SMEM);
-  if (e != cudaSuccess) return e;
+  if (setup != cudaSuccess) return setup;
   const long long tiles = (p.n + BM - 1) / BM;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   chain_kernel<H><<<grid, NTHREADS, S::SMEM, stream>>>(p, maps);
@@ -843,10 +838,10 @@ cudaError_t launch_wgrad(const Plan& P, int l, float* part, const WMaps& maps,
   W.nbig = P.big[l];
   W.sbig = P.sbig[l];
   W.part = part;
-  cudaError_t e = cudaFuncSetAttribute(
+  static const cudaError_t setup = cudaFuncSetAttribute(
       wgrad_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)S::SMEM);
-  if (e != cudaSuccess) return e;
+      (int)S::SMEM);  // once per process and instantiation
+  if (setup != cudaSuccess) return setup;
   wgrad_kernel<NT><<<(unsigned)P.ctas[l], NTHREADS, S::SMEM, stream>>>(W, maps);
   return cudaGetLastError();
 }

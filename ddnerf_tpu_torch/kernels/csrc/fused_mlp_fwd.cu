@@ -593,15 +593,15 @@ cudaError_t launch(const Params& p, const bf16* w, const long long* w_off,
   }
   if (!ok) return cudaErrorInvalidValue;
 
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(fused_mlp_fwd_kernel<H, ENC>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)S::SMEM);
-  if (e != cudaSuccess) return e;
+  // The opt-in to S::SMEM bytes of dynamic shared memory: once per process
+  // and instantiation, not per launch.
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      fused_mlp_fwd_kernel<H, ENC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  if (setup != cudaSuccess) return setup;
   const long long tiles = (p.n + BM - 1) / BM;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   fused_mlp_fwd_kernel<H, ENC><<<grid, NTHREADS, S::SMEM, stream>>>(p, maps);

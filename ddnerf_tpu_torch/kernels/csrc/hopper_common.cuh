@@ -398,4 +398,18 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int rank,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The current device's SM count, asked of the runtime once per process.
+inline cudaError_t sm_count(int* sms) {
+  static int count = 0;
+  static const cudaError_t err = [] {
+    int device = 0;
+    const cudaError_t e = cudaGetDevice(&device);
+    if (e != cudaSuccess) return e;
+    return cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                  device);
+  }();
+  *sms = count;
+  return err;
+}
+
 }  // namespace ddnerf

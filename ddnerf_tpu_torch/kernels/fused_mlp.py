@@ -16,6 +16,18 @@ sources say what bounds them and how they are laid out.
 On a CPU tensor each wrapper runs its plain PyTorch version
 (:mod:`ddnerf_tpu_torch.kernels.reference`); on a CUDA tensor it launches
 the kernel or raises.  There is no fallback from one to the other.
+
+Under CUDA-graph capture (``train/step.py::CapturedTrainStep``) a wrapper's
+call records its launches into the graph instead of running them.  Every
+buffer a wrapper allocates then comes from the graph's private pool, and
+the C entry points bake those addresses into the launch nodes: as kernel
+arguments and inside the TMA tensor maps, which are ``__grid_constant__``
+arguments encoded on the host from the addresses.  A replay is therefore
+right as long as everything the graph reads or writes outside its pool
+stays where it was: the parameters, the inputs the caller made outside the
+capture, and the graph object itself, which owns the pool.  The weight pack
+is made inside the graph at every step (:func:`_packed`), since a replay
+runs no Python that could notice a changed parameter.
 """
 
 from __future__ import annotations
@@ -39,6 +51,15 @@ from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
 # the plain version, so a run can show that its main path went through it.
 LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
             "fused_enc_mlp_fwd": 0}
+# Under CUDA-graph capture a wrapper launches nothing: it records its kernel
+# into the graph and counts here.  The graph's owner reads what a capture
+# added and adds that to LAUNCHES at every replay, where the kernels run.
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
+
+
+def _count(name: str) -> None:
+    counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
+    counts[name] += 1
 
 SUPPORTED_HIDDEN = (64, 128, 256)
 DIR_HIDDEN = 128
@@ -154,13 +175,28 @@ def unpack_grads(net, kw: KernelWeights, gw: torch.Tensor,
 
 
 def _packed(net) -> KernelWeights:
-    """``pack_weights`` cached on the module until a parameter changes."""
-    key = tuple((p.data_ptr(), p._version) for _, p in _named_params(net))
+    """``pack_weights`` cached on the module until a parameter changes.
+    Under CUDA-graph capture the key differs from any made outside one, so
+    the first call of a capture packs inside the graph, into the graph's
+    own buffers, and the later calls of the same step share that pack.  A
+    replay changes the parameters without moving their version counters:
+    whoever replays a graph calls :func:`forget_packed` afterwards."""
+    capturing = (net.fc_feat.weight.is_cuda
+                 and torch.cuda.is_current_stream_capturing())
+    key = (capturing,
+           tuple((p.data_ptr(), p._version) for _, p in _named_params(net)))
     cached = getattr(net, "_fused_mlp_pack", None)
     if cached is None or cached[0] != key:
         cached = (key, pack_weights(net))
         net._fused_mlp_pack = cached
     return cached[1]
+
+
+def forget_packed(net) -> None:
+    """Drop ``net``'s cached pack: its parameters were changed where no
+    version counter sees it (a CUDA-graph replay), or the pack lives in a
+    graph's pool and must not be read from outside."""
+    net._fused_mlp_pack = None
 
 
 def _check_net(net, device) -> None:
@@ -257,7 +293,7 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     )
     name = "fused_mlp_fwd_stash" if stash else "fused_mlp_fwd"
     build.check(lib, err, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return (out, acts) if stash else out
 
 
@@ -299,7 +335,7 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_enc_mlp_fwd")
-    LAUNCHES["fused_enc_mlp_fwd"] += 1
+    _count("fused_enc_mlp_fwd")
     return out
 
 
@@ -313,6 +349,12 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     The kernel's TMA tensor maps (weights, stash, workspace slabs) are
     encoded inside the C entry point at every call: the stash and the
     workspace are fresh storage each time, so no map outlives its call.
+    Recorded into a CUDA graph, the maps and the addresses of ``gw``,
+    ``gb``, the padded dirs, the float32 cotangent and the workspace are
+    baked into the launch nodes; all of them, and the stash and the weight
+    pack, are then storage of the graph's pool, which lives as long as the
+    graph does.  What must stay alive and in place beside the graph is what
+    it reads from outside its pool: the network's parameters.
     """
     k = int(samples_per_ray)
     n = _check_rows(ipe, dirs, k)
@@ -359,7 +401,7 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_mlp_bwd")
-    LAUNCHES["fused_mlp_bwd"] += 1
+    _count("fused_mlp_bwd")
     return unpack_grads(net, kw, gw, gb)
 
 

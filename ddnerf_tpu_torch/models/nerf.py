@@ -61,7 +61,7 @@ never run here), and the other layout / compiler knobs of
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -113,9 +113,12 @@ class RayBatch:
 
 
 class ScheduleValues(NamedTuple):
-    """The annealed values the resampler reads (train_model.py:121-142)."""
+    """The annealed values the resampler reads (train_model.py:121-142).
+    ``gaussian_smooth_factor`` is a Python float, or a 0-d device tensor
+    where the step is a captured graph that must read it at every replay;
+    ``pdf_padding`` is a Python branch of the resampler."""
 
-    gaussian_smooth_factor: float
+    gaussian_smooth_factor: Union[float, torch.Tensor]
     pdf_padding: bool
 
     @classmethod

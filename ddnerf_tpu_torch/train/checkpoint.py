@@ -87,10 +87,12 @@ def save_train_checkpoint(logdir: str, pipeline, state,
     the JAX package saves): the networks, the optimizer's state dict under
     ``optimizer_state_dict`` and ``generator``'s state under
     ``generator_state``, as ``checkpoint_{step}.ckpt``; then drop all but
-    the newest ``max_to_keep`` step files.  Returns the file's path."""
+    the newest ``max_to_keep`` step files.  The optimizer's state is written
+    in one layout whether the plain or the ``capturable`` optimizer ran
+    (``TrainState.optimizer_state_dict``).  Returns the file's path."""
     path = step_path(logdir, state.step)
     save_checkpoint(path, pipeline.coarse, pipeline.fine, step=state.step,
-                    extra={OPTIMIZER_KEY: state.optimizer.state_dict(),
+                    extra={OPTIMIZER_KEY: state.optimizer_state_dict(),
                            GENERATOR_KEY: generator.get_state()})
     for old in all_steps(logdir)[:-max(1, int(max_to_keep))]:
         os.remove(step_path(logdir, old))
@@ -101,9 +103,11 @@ def load_train_checkpoint(path: str, pipeline, state,
                           generator: torch.Generator) -> int:
     """Restore a run saved by :func:`save_train_checkpoint` into
     ``pipeline`` (networks), ``state`` (Adam moments and ``step``) and
-    ``generator``.  A file without the optimizer's or the generator's state
-    (a reference checkpoint made for evaluation) cannot resume training:
-    ``ValueError``.  Returns the restored step."""
+    ``generator``, all in place: a step captured into a CUDA graph goes
+    on from the loaded run without a new capture.  A file without the
+    optimizer's or the generator's state (a reference checkpoint made for
+    evaluation) cannot resume training: ``ValueError``.  Returns the
+    restored step."""
     ckpt: Dict[str, Any] = torch.load(path, map_location="cpu",
                                       weights_only=True)
     missing = [k for k in (OPTIMIZER_KEY, GENERATOR_KEY) if k not in ckpt]
@@ -112,7 +116,6 @@ def load_train_checkpoint(path: str, pipeline, state,
                          "be evaluated, not resumed")
     pipeline.load_state_dicts(ckpt["model_1_state_dict"],
                               ckpt.get("model_2_state_dict"))
-    state.optimizer.load_state_dict(ckpt[OPTIMIZER_KEY])
-    state.step = int(ckpt["iter"])
+    state.load_optimizer_state_dict(ckpt[OPTIMIZER_KEY], int(ckpt["iter"]))
     generator.set_state(ckpt[GENERATOR_KEY])
     return state.step

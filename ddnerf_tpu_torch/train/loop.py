@@ -1,18 +1,31 @@
-"""The training loop driver on one device.
+"""The training loop on one device.
 
 Counterpart of ``ddnerf_tpu/train/loop.py`` (reference
-train_model.py:19-264) in its per-iteration form: config snapshot, seeded
-networks, resume from the logdir's newest checkpoint (or from
-``load_checkpoint``), the device-resident ray store, one train step per
-iteration, the ``[TRAIN]`` line at ``print_every`` and at the last
-iteration, train scalars through the ``Documenter`` (``metrics.jsonl``, and
-TensorBoard when tensorboardX is importable) every ``train_scalars_every``
-iterations, a whole-image validation at ``validate_every`` (with the NDC
-depth un-warp and, under ``train_params.depth_analysis_rays``, the
-per-ray depth-analysis figures), and the retained checkpoints at
-``save_every`` and at the end.  Both model families.  Not here: the
-block-mode scalars and the mesh; a ray store above
-``parallel.max_store_gb`` raises (``data/datasets.py``).
+train_model.py:19-264): config snapshot, seeded networks, resume from the
+logdir's newest checkpoint (or from ``load_checkpoint``), then one of the
+JAX loop's two forms over the step (``train/step.py``):
+
+* the block loop, when the ray store is on the device and
+  ``experiment.train_scalars_every >= 1``: blocks that end at the nearest
+  print / validate / save / final iteration, every iteration's scalars
+  stacked on the device and read in ONE copy per block, then the block's
+  records, the ``[TRAIN]`` line, the validation and the checkpoint.  On a
+  CUDA device the step is a captured CUDA graph and a block is that many
+  replays (``step_mode="graph"``, the default there); ``step_mode="eager"``
+  and the CPU run the eager step under the same loop;
+* the per-iteration loop otherwise: ``train_scalars_every < 1``, or a ray
+  store at or above ``parallel.max_store_gb``, which stays on the host and
+  is sampled there with the next batch uploaded while the step runs
+  (``data/datasets.py::PrefetchedHostBatches``; always the eager step).
+
+Train scalars go through the ``Documenter`` (``metrics.jsonl``, and
+TensorBoard when tensorboardX is importable); a whole-image validation runs
+at ``validate_every`` (with the NDC depth un-warp and, under
+``train_params.depth_analysis_rays``, the per-ray depth-analysis figures),
+the retained checkpoints are written at ``save_every`` and at the end.
+``profile_steps`` traces that many steady steps (``utils/profiling.py``);
+inside ``utils/debug.py::nan_debug_mode`` the step is the eager one with a
+finite check of every step.  Both model families.  Not here: the mesh.
 """
 
 from __future__ import annotations
@@ -27,14 +40,25 @@ import torch
 from ddnerf_tpu_torch.viz.documentation import Documenter
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.core.rays import switch_t_ndc_to_regular
-from ddnerf_tpu_torch.data.datasets import load_train_store
+from ddnerf_tpu_torch.data.datasets import (
+    PrefetchedHostBatches,
+    load_train_store,
+)
 from ddnerf_tpu_torch.eval.depth_analysis import run_depth_analysis
 from ddnerf_tpu_torch.eval.evaluate import resolve_device
 from ddnerf_tpu_torch.models.nerf import NerfPipeline
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train import checkpoint as ckpt
 from ddnerf_tpu_torch.train.state import TrainState
-from ddnerf_tpu_torch.train.step import schedule_values, train_step_from_store
+from ddnerf_tpu_torch.train.step import (
+    CapturedTrainStep,
+    EagerTrainStep,
+    schedule_values,
+)
+from ddnerf_tpu_torch.utils.debug import nan_debug_enabled
+from ddnerf_tpu_torch.utils.profiling import summarize, trace
+
+STEP_MODES = ("graph", "eager")
 
 
 def _resume_path(logdir: str, load_checkpoint: str) -> Optional[str]:
@@ -51,18 +75,43 @@ def _resume_path(logdir: str, load_checkpoint: str) -> Optional[str]:
         return None
 
 
+def next_boundary(i: int, print_every: int, validate_every: int,
+                  save_every: int, total: int) -> int:
+    """Last iteration of the block starting at ``i``: the nearest event
+    iteration (print / validate / save / final), so every event still sees
+    the exact post-step state (``ddnerf_tpu/train/loop.py:275-284``)."""
+    ends = [total - 1]
+    for every in (print_every, validate_every, save_every):
+        ends.append(i if i % every == 0 else i + every - i % every)
+    return min(ends)
+
+
 def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
-          load_checkpoint: str = ""):
+          load_checkpoint: str = "", verbose: bool = True,
+          profile_steps: int = 0, step_mode: Optional[str] = None):
     """Train ``cfg`` on ``device`` up to iteration ``max_iters`` (default
     ``experiment.train_iters``).  A logdir that already holds a checkpoint
     is continued from it: networks, Adam state, step, the generator and the
     validation round-robin are restored, and the loop runs the remaining
-    iterations.  Returns (state, logdir)."""
+    iterations.  Returns (state, logdir).
+
+    ``step_mode``: ``"graph"`` (the captured step; the default on a CUDA
+    device with the store resident) or ``"eager"`` (the default on the CPU
+    and with host-side sampling, and forced inside ``nan_debug_mode``).
+    ``"graph"`` where it cannot run raises; it never gives way to eager.
+    ``verbose=False`` silences the ``[TRAIN]`` / ``[VAL]`` lines, not the
+    records.  ``profile_steps`` > 0 traces that many steady steps under
+    ``logdir/plugins/profile/``; ``state.step`` advances by them, as in
+    the JAX loop, and their digest is printed at the end."""
+    if step_mode not in (None, *STEP_MODES):
+        raise ValueError(f"step_mode={step_mode!r}: expected one of "
+                         f"{' | '.join(STEP_MODES)}")
     dev = resolve_device(device)
     logdir = os.path.join(cfg.experiment.logdir, cfg.experiment.id)
     os.makedirs(logdir, exist_ok=True)
     # Dataset build may rescale near/far (pose normalization).
     store, val_ds, cfg = load_train_store(cfg, dev)
+    use_device_store = isinstance(store, torch.Tensor)
     resume = _resume_path(logdir, load_checkpoint)
 
     exp = cfg.experiment
@@ -87,37 +136,145 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
     rays_per_iter = cfg.nerf.train.num_random_rays
     da_rays = (val_ds.load_depth_analysis_rays(cfg)
                if cfg.train_params.depth_analysis_rays else None)
+    scalars_every = exp.train_scalars_every
+    # Device-buffered per-iteration scalars (ddnerf_tpu/train/loop.py:
+    # 198-201): blocks whose scalars stay on the device until the block ends.
+    block_mode = use_device_store and scalars_every >= 1
+
+    # ---- the step
+    debug = nan_debug_enabled()
+    if debug:
+        print("debug-nans: the eager step with a finite check of every "
+              "step (anomaly detection cannot see inside a graph replay)",
+              flush=True)
+        step_mode = "eager"
+    if step_mode is None:
+        step_mode = ("graph" if dev.type == "cuda" and use_device_store
+                     else "eager")
+    if step_mode == "graph" and not (dev.type == "cuda" and use_device_store):
+        raise ValueError(
+            "step_mode='graph' captures the step that draws its rays from "
+            "the device-resident store on a CUDA device; this run is on "
+            f"{dev} with the store "
+            f"{'resident' if use_device_store else 'on the host'}")
+    longest = min(exp.print_every, exp.validate_every, exp.save_every)
+    if use_device_store:
+        if step_mode == "graph":
+            stepper = CapturedTrainStep(
+                cfg, pipeline, state, store, generator,
+                max_block=max(longest if block_mode else 1, profile_steps))
+        else:
+            stepper = EagerTrainStep.from_store(cfg, pipeline, state, store,
+                                                generator, check_finite=debug)
+    else:
+        steps_expected = total - start
+        if profile_steps and start + 2 < total:
+            steps_expected += profile_steps  # the profiled steps draw too
+        batches = PrefetchedHostBatches(store, rays_per_iter, seed, dev,
+                                        max(steps_expected, 0))
+        stepper = EagerTrainStep(cfg, pipeline, state, batches.take,
+                                 generator, after_dispatch=batches.prefetch,
+                                 check_finite=debug)
+    if verbose and start < total:
+        said = [f"step mode: {step_mode}" + (
+            " (one captured CUDA graph per step)" if step_mode == "graph"
+            else "")]
+        said.append(f"blocks of up to {longest} iterations with their "
+                    f"scalars read once per block" if block_mode
+                    else "one iteration at a time")
+        if not use_device_store:
+            said.append("rays sampled on the host one batch ahead")
+        print(", ".join(said), flush=True)
 
     def is_event(i, every):
         return i % every == 0 or i == total - 1
 
+    def train_rate(iters_done):
+        # rays/s since this run's start, first-step set-up included.
+        return iters_done * rays_per_iter / (time.time() - t_start)
+
+    def print_train(i, m, rate):
+        if verbose:
+            print(f"[TRAIN] iter {i} loss {m['loss']:.4f} "
+                  f"psnr {m['psnr_fine']:.2f} lr {m['lr']:.2e} "
+                  f"({rate:,.0f} rays/s)", flush=True)
+
+    def profiled_steps():
+        """``profile_steps`` steps under the profiler, their scalars
+        dropped: the step counter moves on, the iteration does not."""
+        with trace(logdir) as prof:
+            stepper.run(profile_steps)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        return prof
+
+    quiet = {} if verbose else {"verbose": False}
+
+    def events_after(i):
+        if is_event(i, exp.validate_every):
+            _validate(cfg, i, state, renderer, val_ds, doc, da_rays,
+                      **quiet)
+        if i > 0 and is_event(i, exp.save_every):
+            ckpt.save_train_checkpoint(logdir, pipeline, state, generator,
+                                       max_to_keep=exp.max_keep_ckpts)
+
+    prof = None
     doc = Documenter(logdir, primary=True)
     try:
         t_start = time.time()
-        for i in range(start, total):
-            metrics = train_step_from_store(cfg, pipeline, state, store,
-                                            generator)
-            printing = is_event(i, exp.print_every)
-            if printing or (exp.train_scalars_every >= 1
-                            and i % exp.train_scalars_every == 0):
-                m = {k: float(v) for k, v in metrics.items()}
-                extra = None
-                if printing:
-                    # rays/s since this run's start, first-step set-up
-                    # included.
-                    rate = ((i - start + 1) * rays_per_iter
-                            / (time.time() - t_start))
+        if not block_mode:
+            for i in range(start, total):
+                if profile_steps and i == start + 2:  # past the set-up steps
+                    prof = profiled_steps()
+                row = stepper.run(1)[0]
+                if is_event(i, exp.print_every):
+                    m = dict(zip(stepper.names, row.tolist()))
+                    rate = train_rate(i - start + 1)
                     m["rays_per_sec"] = rate
-                    extra = {"train/rays_per_sec": rate}
-                    print(f"[TRAIN] iter {i} loss {m['loss']:.4f} "
-                          f"psnr {m['psnr_fine']:.2f} lr {m['lr']:.2e} "
-                          f"({rate:,.0f} rays/s)", flush=True)
-                doc.write_train_iter(i, m, extra_scalars=extra)
-            if is_event(i, exp.validate_every):
-                _validate(cfg, i, state, renderer, val_ds, doc, da_rays)
-            if i > 0 and is_event(i, exp.save_every):
-                ckpt.save_train_checkpoint(logdir, pipeline, state, generator,
-                                           max_to_keep=exp.max_keep_ckpts)
+                    print_train(i, m, rate)
+                    doc.write_train_iter(
+                        i, m, extra_scalars={"train/rays_per_sec": rate})
+                elif scalars_every >= 1 and i % scalars_every == 0:
+                    # The host-sampling loop honours the density knob too,
+                    # at the cost of a device read per write.
+                    doc.write_train_iter(
+                        i, dict(zip(stepper.names, row.tolist())))
+                events_after(i)
+        else:
+            i = start
+            while i < total:
+                last = next_boundary(i, exp.print_every, exp.validate_every,
+                                     exp.save_every, total)
+                k = last - i + 1
+                # One copy for the whole block, then per-iteration records.
+                mh = stepper.run(k).cpu().numpy()
+                if profile_steps and prof is None and i > start:
+                    prof = profiled_steps()
+                names = stepper.names
+                rate = train_rate(last - start + 1)
+                print_event = is_event(last, exp.print_every)
+                for j in range(k):
+                    it = i + j
+                    # Print events always get a record (per-iteration
+                    # loop parity), even when not divisible by
+                    # train_scalars_every.
+                    if (it % scalars_every == 0 or it == total - 1
+                            or (it == last and print_event)):
+                        rec = dict(zip(names, mh[j].tolist()))
+                        if it == last:
+                            rec["rays_per_sec"] = rate
+                        doc.write_train_iter(
+                            it, rec,
+                            extra_scalars={"train/rays_per_sec": rate}
+                            if it == last else None)
+                if print_event:
+                    print_train(last, dict(zip(names, mh[-1].tolist())), rate)
+                events_after(last)
+                i = last + 1
+        if prof is not None and verbose:
+            print(f"[profile] trace of {profile_steps} steps: "
+                  f"{prof.trace_path}")
+            print(summarize(prof, profile_steps), flush=True)
     finally:
         doc.close()
     return state, logdir
@@ -125,11 +282,11 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
 
 def _validate(cfg: Config, i: int, state: TrainState,
               renderer: ImageRenderer, val_ds, doc: Documenter,
-              da_rays=None) -> None:
+              da_rays=None, verbose: bool = True) -> None:
     """Whole-image validation: metrics, the NDC depth un-warp, for DDNeRF
     the dp loss and the μ/σ histograms, and the depth-analysis figures of
     ``da_rays`` (``load_depth_analysis_rays``'s tuple) when given
-    (loop.py:350-403)."""
+    (loop.py:350-403).  ``verbose=False`` keeps the ``[VAL]`` line back."""
     t_val = time.time()
     sched = schedule_values(cfg, state.step)
     pose, gt = val_ds.get_next_validation_pose()
@@ -160,7 +317,8 @@ def _validate(cfg: Config, i: int, state: TrainState,
             f"psnr {vm['psnr_fine']:.2f} time {time.time() - t_val:.1f}s")
     if "dp_loss" in vm:  # DDNeRF: appended to the JAX package's line
         line += f" dp_loss {vm['dp_loss']:.4f}"
-    print(line, flush=True)
+    if verbose:
+        print(line, flush=True)
 
 
 def validation_metrics(cfg: Config, out, gt):

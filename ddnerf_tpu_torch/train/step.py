@@ -3,23 +3,36 @@
 update.
 
 Counterpart of ``ddnerf_tpu/train/step.py`` (reference
-train_model.py:132-177).  PyTorch runs eagerly, so the step is a plain
-function; the JAX package's ``lax.scan`` blocks of several steps have no
-counterpart here (CUDA graphs are later work).
+train_model.py:132-177).  Two forms of the same step:
+
+* eager, :func:`train_step` / :func:`train_step_from_store`: a plain
+  function, what the CPU and the host-sampling loop run;
+* captured, :class:`CapturedTrainStep`: the whole step from the ray draw to
+  the Adam update recorded once into a ``torch.cuda.CUDAGraph`` and replayed
+  per iteration, the counterpart of ``jax.jit(make_train_step_from_store)``;
+  a run of ``k`` replays that stack their metrics in a device buffer is the
+  counterpart of ``make_stacked_train_step_from_store``'s ``lax.scan`` block.
+
+Both are driven through one interface, ``run(k) -> [k, n_metrics]`` on the
+device with the metric names in ``names`` (:class:`EagerTrainStep` wraps the
+eager form), so the loop reads a block's scalars in one copy.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.core import schedules
 from ddnerf_tpu_torch.core.math import img2mse, mse2psnr
 from ddnerf_tpu_torch.data.datasets import sample_rays_on_device
+from ddnerf_tpu_torch.kernels import fused_mlp
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch, ScheduleValues
 from ddnerf_tpu_torch.train.state import TrainState
+from ddnerf_tpu_torch.utils.debug import assert_finite_tree
 
 Batch = Dict[str, torch.Tensor]  # origins, directions, radii, rgb
 
@@ -55,14 +68,20 @@ def compute_loss(cfg: Config, pipeline: NerfPipeline, rays: RayBatch,
     return loss, metrics
 
 
-def train_step(cfg: Config, pipeline: NerfPipeline, state: TrainState,
-               batch: Batch, generator: Optional[torch.Generator] = None,
+def _microbatches(cfg: Config, num_rays: int) -> int:
+    """Equal chunks the step's gradients accumulate over (1: none)."""
+    mb = cfg.parallel.microbatch_rays
+    return num_rays // mb if mb and num_rays > mb and num_rays % mb == 0 else 1
+
+
+def _gradients(cfg: Config, pipeline: NerfPipeline, batch: Batch,
+               sched: ScheduleValues, generator: Optional[torch.Generator],
                ) -> Dict[str, torch.Tensor]:
-    """One step on ``batch``: gradients (accumulated over equal chunks of
+    """Forward and backward on ``batch``: leaves the gradients in the
+    parameters' ``.grad`` (accumulated over equal chunks of
     ``parallel.microbatch_rays`` rays when it divides the batch: the mean
-    of the chunk means, ``step.py:125-140``), then the Adam update.
-    Returns detached scalar metrics on the device."""
-    sched = schedule_values(cfg, state.step)
+    of the chunk means, ``step.py:125-140``) and returns the detached
+    scalar metrics with the PSNRs."""
     near, far = cfg.dataset.near, cfg.dataset.far
     params = pipeline.parameters()
     for p in params:
@@ -76,10 +95,10 @@ def train_step(cfg: Config, pipeline: NerfPipeline, state: TrainState,
         loss.backward()  # .grad accumulates over chunks
         return {key: v.detach() for key, v in m.items()}
 
-    mb = cfg.parallel.microbatch_rays
     num_rays = batch["origins"].shape[0]
-    if mb and num_rays > mb and num_rays % mb == 0:
-        k = num_rays // mb
+    k = _microbatches(cfg, num_rays)
+    if k > 1:
+        mb = num_rays // k
         sums: Dict[str, torch.Tensor] = {}
         for j in range(k):
             part = {key: v[j * mb:(j + 1) * mb] for key, v in batch.items()}
@@ -93,19 +112,241 @@ def train_step(cfg: Config, pipeline: NerfPipeline, state: TrainState,
         metrics = accumulate(batch)
     metrics["psnr_coarse"] = mse2psnr(metrics["loss_coarse"])
     metrics["psnr_fine"] = mse2psnr(metrics["loss_fine"])
-    metrics["lr"] = torch.tensor(state.apply_gradients())
     return metrics
+
+
+def _named_leaves(pipeline: NerfPipeline, grad: bool):
+    names = ("coarse",) if pipeline.shared_net else ("coarse", "fine")
+    return {name: {n: (p.grad if grad else p.detach())
+                   for n, p in net.named_parameters()}
+            for name, net in zip(names, pipeline.networks())}
+
+
+def train_step(cfg: Config, pipeline: NerfPipeline, state: TrainState,
+               batch: Batch, generator: Optional[torch.Generator] = None,
+               check_finite: bool = False) -> Dict[str, torch.Tensor]:
+    """One step on ``batch``: gradients, then the Adam update at
+    ``lr(state.step)``.  Returns detached scalar metrics on the device,
+    the rate among them.  ``check_finite`` (``--debug-nans``) reads the
+    parameters before the step and the loss and every gradient after the
+    backward, and raises naming the first leaf that is not finite."""
+    if check_finite:
+        assert_finite_tree(_named_leaves(pipeline, grad=False),
+                           f"the parameters before step {state.step}")
+    sched = schedule_values(cfg, state.step)
+    metrics = _gradients(cfg, pipeline, batch, sched, generator)
+    if check_finite:
+        assert_finite_tree({"loss": metrics["loss"],
+                            "grad": _named_leaves(pipeline, grad=True)},
+                           f"step {state.step}")
+    state.apply_gradients()
+    metrics["lr"] = state.lr.clone()
+    return metrics
+
+
+def _draw_batch(cfg: Config, store: torch.Tensor,
+                generator: torch.Generator) -> Batch:
+    ro, rd, radii, rgb = sample_rays_on_device(
+        store, generator, cfg.nerf.train.num_random_rays,
+        cfg.dataset.single_image_mode)
+    return {"origins": ro, "directions": rd, "radii": radii, "rgb": rgb}
 
 
 def train_step_from_store(cfg: Config, pipeline: NerfPipeline,
                           state: TrainState, store: torch.Tensor,
                           generator: torch.Generator,
+                          check_finite: bool = False,
                           ) -> Dict[str, torch.Tensor]:
     """:func:`train_step` on a batch drawn from the device-resident ray
     store ``[n_img, n_pix, 10]`` (step.py:156-172); ``generator`` draws the
     rays, then the jitter and the density noise."""
-    ro, rd, radii, rgb = sample_rays_on_device(
-        store, generator, cfg.nerf.train.num_random_rays,
-        cfg.dataset.single_image_mode)
-    batch = {"origins": ro, "directions": rd, "radii": radii, "rgb": rgb}
-    return train_step(cfg, pipeline, state, batch, generator)
+    return train_step(cfg, pipeline, state, _draw_batch(cfg, store, generator),
+                      generator, check_finite)
+
+
+def _row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return torch.stack([v.float() for v in metrics.values()])
+
+
+class EagerTrainStep:
+    """The eager step behind the block interface: ``run(k)`` takes ``k``
+    steps and returns their metrics stacked ``[k, n_metrics]`` on the
+    device, in the order of ``names``, without a host read.  ``take``
+    gives each step's batch; ``after_dispatch``, when given, runs right
+    after a step was dispatched (the host-sampling loop's prefetch)."""
+
+    mode = "eager"
+
+    def __init__(self, cfg: Config, pipeline: NerfPipeline, state: TrainState,
+                 take: Callable[[], Batch],
+                 generator: Optional[torch.Generator],
+                 after_dispatch: Optional[Callable[[], None]] = None,
+                 check_finite: bool = False):
+        self.cfg, self.pipeline, self.state = cfg, pipeline, state
+        self.take, self.after_dispatch = take, after_dispatch
+        self.generator, self.check_finite = generator, check_finite
+        self.names: List[str] = []
+
+    @classmethod
+    def from_store(cls, cfg: Config, pipeline: NerfPipeline,
+                   state: TrainState, store: torch.Tensor,
+                   generator: torch.Generator, check_finite: bool = False):
+        """Batches drawn from the device-resident ``store``."""
+        return cls(cfg, pipeline, state,
+                   lambda: _draw_batch(cfg, store, generator), generator,
+                   check_finite=check_finite)
+
+    def run(self, k: int) -> torch.Tensor:
+        rows = []
+        for _ in range(k):
+            metrics = train_step(self.cfg, self.pipeline, self.state,
+                                 self.take(), self.generator,
+                                 self.check_finite)
+            if self.after_dispatch is not None:
+                self.after_dispatch()
+            self.names = list(metrics)
+            rows.append(_row(metrics))
+        return torch.stack(rows)
+
+
+class CapturedTrainStep:
+    """:func:`train_step_from_store` as a CUDA graph: one graph holds a
+    whole step (the ray draw from the resident store, both cycles' forward,
+    the loss, the backward, the Adam update and the write of the step's
+    metrics into row ``row`` of a device buffer), and an iteration is one
+    replay.
+
+    What a replay cannot take from Python it reads from device memory that
+    the host fills before a run of replays: the learning rate and the
+    ``gaussian_smooth_factor`` of each step from ``table[row]`` (the values
+    the host schedules compute, in their float32 arithmetic), and ``row``
+    itself, which the graph advances.  ``pdf_padding`` is a Python branch of
+    the resampler that flips once in a run: there is one graph per value,
+    captured when first needed.  The graphs share the parameters, Adam's
+    state (``capturable``, so its step counts are on the device) and the
+    generator, which is registered with each graph so that every replay
+    advances it as the eager step does; each graph owns the ``.grad``
+    tensors its backward writes.
+
+    The first ``WARMUP`` iterations run eagerly on a side stream, as
+    capturing asks, and are iterations like any other: a captured run of N
+    iterations and an eager one see the same sequence, bit for bit.  There
+    is no fallback: a capture that fails raises.
+
+    ``run(k)`` (``k <= max_block``) returns the first ``k`` rows of the
+    buffer, valid until the next ``run``.
+    """
+
+    mode = "graph"
+    WARMUP = 3
+
+    def __init__(self, cfg: Config, pipeline: NerfPipeline, state: TrainState,
+                 store: torch.Tensor, generator: torch.Generator,
+                 max_block: int = 1):
+        if store.device.type != "cuda" or generator.device.type != "cuda":
+            raise ValueError(
+                f"a captured step needs the store and the generator on a "
+                f"CUDA device; got {store.device} and {generator.device}")
+        if _microbatches(cfg, cfg.nerf.train.num_random_rays) > 1:
+            raise NotImplementedError(
+                "parallel.microbatch_rays is not captured: run the "
+                "microbatched step with --step-mode eager (step_mode="
+                "'eager')")
+        self.cfg, self.pipeline, self.state = cfg, pipeline, state
+        self.store, self.generator = store, generator
+        self.max_block = int(max_block)
+        dev = store.device
+        self.names: List[str] = []
+        self.row = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.table = torch.zeros((self.max_block, 2), dtype=torch.float32,
+                                 device=dev)
+        self.buffer: Optional[torch.Tensor] = None  # made at the first step
+        self.warmup_left = self.WARMUP
+        self._side = torch.cuda.Stream(dev)
+        self._graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph,
+                                       Dict[str, int]]] = {}
+
+    # ------------------------------------------------------------ pieces
+
+    def _eager(self, j: int) -> None:
+        """A warm-up iteration, on the side stream, into buffer row ``j``."""
+        main = torch.cuda.current_stream(self.store.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            metrics = train_step_from_store(self.cfg, self.pipeline,
+                                            self.state, self.store,
+                                            self.generator)
+            if self.buffer is None:
+                self.names = list(metrics)
+                self.buffer = torch.zeros(
+                    (self.max_block, len(metrics)), dtype=torch.float32,
+                    device=self.store.device)
+            self.buffer[j] = _row(metrics)
+        main.wait_stream(self._side)
+        self.warmup_left -= 1
+
+    def _capture(self, pdf_padding: bool):
+        """Record one step with this ``pdf_padding`` -> (graph, the fused
+        kernels' launch nodes it holds, by name)."""
+        cfg, pipeline, state = self.cfg, self.pipeline, self.state
+        nets = pipeline.networks()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = dict(fused_mlp.CAPTURED)
+        for net in nets:  # so that the pack is made inside the graph
+            fused_mlp.forget_packed(net)
+        with torch.cuda.graph(graph):
+            lr, smooth = self.table.index_select(0, self.row)[0].unbind(0)
+            state.lr.copy_(lr)
+            sched = ScheduleValues(gaussian_smooth_factor=smooth,
+                                   pdf_padding=pdf_padding)
+            metrics = _gradients(cfg, pipeline,
+                                 _draw_batch(cfg, self.store, self.generator),
+                                 sched, self.generator)
+            state.optimizer.step()
+            metrics["lr"] = state.lr
+            if list(metrics) != self.names:
+                raise RuntimeError(f"the captured step's metrics "
+                                   f"{list(metrics)} are not {self.names}")
+            self.buffer.index_copy_(0, self.row, _row(metrics)[None])
+            self.row.add_(1)
+        for net in nets:  # that pack is the graph's, and is stale outside
+            fused_mlp.forget_packed(net)
+        nodes = {name: n - before[name]
+                 for name, n in fused_mlp.CAPTURED.items() if n != before[name]}
+        return graph, nodes
+
+    # --------------------------------------------------------------- run
+
+    def run(self, k: int) -> torch.Tensor:
+        if not 0 < k <= self.max_block:
+            raise ValueError(f"a block of {k} iterations; this step was "
+                             f"made for 1..{self.max_block}")
+        state = self.state
+        j = 0
+        while j < k and self.warmup_left > 0:
+            self._eager(j)
+            j += 1
+        if j == k:
+            return self.buffer[:k]
+        first = state.step
+        steps = range(first, first + k - j)
+        values = np.zeros((self.max_block, 2), np.float32)
+        values[j:k, 0] = [state.schedule(s) for s in steps]
+        values[j:k, 1] = [schedules.gaussian_smooth_factor(s, self.cfg)
+                          for s in steps]
+        self.table.copy_(torch.from_numpy(values))
+        self.row.fill_(j)
+        for s in steps:
+            pad = schedules.pdf_padding(s, self.cfg)
+            if pad not in self._graphs:
+                self._graphs[pad] = self._capture(pad)
+            graph, nodes = self._graphs[pad]
+            graph.replay()
+            state.step += 1
+            for name, n in nodes.items():
+                fused_mlp.LAUNCHES[name] += n
+        # The replays moved the parameters where no version counter saw it.
+        for net in self.pipeline.networks():
+            fused_mlp.forget_packed(net)
+        return self.buffer[:k]

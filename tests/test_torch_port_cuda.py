@@ -6,7 +6,10 @@ the forward's three modes bit for bit against each other on ragged,
 one-tile and many-round grids and back to back with different weights,
 and the training kernels (stash forward, fused backward) against their
 plain versions at every width, below one tile and above 132 tiles, bitwise
-repeatable (also around a call with other weights), in a train step.  Marked ``cuda``;
+repeatable (also around a call with other weights), in a train step; and
+the train step captured into a CUDA graph against the eager step, bit for
+bit, through the step classes and through the loop with a stop and a
+resume.  Marked ``cuda``;
 without a GPU every test here skips (the decision is made in a fixture,
 at run time).
 
@@ -504,3 +507,204 @@ def test_ndc_frame_through_kernel_matches_plain(device):
             assert np.isfinite(maps[name][i]["rgb"]).all()
             assert abs(maps[name][i]["rgb"] - maps["plain"][i]["rgb"]).max() \
                 < 1e-3
+
+
+# ------------------------------------------------- the captured train step
+
+GRAPH_STEPS = 24  # crosses the pdf_padding flip at 10; smoothing anneals to 16
+
+
+def _graph_cfg(nerf_type, logdir="", **experiment):
+    from ddnerf_tpu_torch.config import Config
+
+    return Config.from_dict({
+        "experiment": {"id": "run", "logdir": str(logdir), "train_iters": 100,
+                       "validate_every": 12, "save_every": 12,
+                       "print_every": 8, **experiment},
+        "train_params": {"max_pdf_pad_iters": 10, "finnish_smooth": 16,
+                         "gaussian_smooth_factor": 3.0, "final_smooth": 1.5},
+        "nerf": {"type": nerf_type, "coarse_hidden_size": 128,
+                 "fine_hidden_size": 128,
+                 # Jitter and density noise on: the step consumes its
+                 # generator in all four places.
+                 "train": {"num_coarse": 16, "num_fine": 16,
+                           "num_random_rays": 512, "perturb": True,
+                           "radiance_field_noise_std": 1.0},
+                 "validation": {"num_coarse": 16, "num_fine": 16,
+                                "perturb": False, "chunksize": 4096}},
+        "dataset": {"type": "blender", "synthetic": True,
+                    "single_image_mode": True},
+        "parallel": {"compute_dtype": "bfloat16", "pallas_mlp": "auto"},
+    }).resolved()
+
+
+def _fresh_run(cfg, device):
+    from ddnerf_tpu_torch.data.datasets import load_train_store
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.train.state import TrainState
+
+    store, _, cfg = load_train_store(cfg, device)
+    pipe = NerfPipeline(cfg, device, seed=0)
+    state = TrainState(cfg, pipe)
+    gen = torch.Generator(device=device).manual_seed(5)
+    return cfg, store, pipe, state, gen
+
+
+def _assert_same_run(a, b):
+    """(pipeline, state, generator) twice: bitwise the same parameters,
+    Adam moments and step counts, step and generator state."""
+    (pipe_a, state_a, gen_a), (pipe_b, state_b, gen_b) = a, b
+    assert state_a.step == state_b.step
+    for pa, pb in zip(pipe_a.parameters(), pipe_b.parameters()):
+        assert torch.equal(pa, pb)
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(state_a.optimizer.state[pa][key],
+                               state_b.optimizer.state[pb][key]), key
+    assert torch.equal(gen_a.get_state(), gen_b.get_state())
+    assert torch.equal(state_a.lr, state_b.lr)
+
+
+@pytest.mark.parametrize("nerf_type", ["DDNerfModel", "GeneralMipNerfModel"])
+def test_captured_step_equals_eager_step_bitwise(device, nerf_type):
+    """24 iterations across the ``pdf_padding`` flip (two graphs) and the
+    smoothing anneal: every metric of every iteration, the parameters,
+    Adam's moments and step counts and the generator's state are bitwise
+    those of the eager step; the launch counters read 2 stash forwards and
+    2 backwards per iteration in both."""
+    from ddnerf_tpu_torch.train.step import CapturedTrainStep, EagerTrainStep
+
+    runs, rows, launched = {}, {}, {}
+    for mode in ("eager", "graph"):
+        cfg, store, pipe, state, gen = _fresh_run(_graph_cfg(nerf_type),
+                                                  device)
+        before = dict(fk.LAUNCHES)
+        if mode == "graph":
+            stepper = CapturedTrainStep(cfg, pipe, state, store, gen,
+                                        max_block=8)
+            rows[mode] = torch.cat([stepper.run(8).clone() for _ in range(3)])
+            assert sorted(stepper._graphs) == [False, True]
+        else:
+            stepper = EagerTrainStep.from_store(cfg, pipe, state, store, gen)
+            rows[mode] = stepper.run(GRAPH_STEPS)
+        torch.cuda.synchronize()
+        launched[mode] = {k: fk.LAUNCHES[k] - before[k] for k in before}
+        runs[mode] = (pipe, state, gen)
+        names = stepper.names
+    assert launched["graph"] == launched["eager"] == {
+        "fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
+        "fused_mlp_bwd": 2 * GRAPH_STEPS, "fused_enc_mlp_fwd": 0}
+    assert ("dp_loss" in names) == (nerf_type == "DDNerfModel")
+    assert torch.isfinite(rows["eager"]).all()
+    for j, name in enumerate(names):
+        assert torch.equal(rows["graph"][:, j], rows["eager"][:, j]), name
+    # The schedules did move under the replays.
+    lr = rows["graph"][:, names.index("lr")]
+    assert len(set(lr.tolist())) == GRAPH_STEPS
+    _assert_same_run(runs["graph"], runs["eager"])
+
+
+def test_captured_step_follows_a_checkpoint_loaded_outside_the_graph(
+        device, tmp_path):
+    """Load a checkpoint into the networks, the optimizer and the generator
+    that two captured graphs hold: the same graphs, not captured again,
+    continue from the loaded run bit for bit (the weight pack is made
+    inside the graph, the state is written in place)."""
+    from ddnerf_tpu_torch.train import checkpoint as ckpt
+    from ddnerf_tpu_torch.train.step import CapturedTrainStep
+
+    cfg, store, pipe, state, gen = _fresh_run(_graph_cfg("DDNerfModel"),
+                                              device)
+    stepper = CapturedTrainStep(cfg, pipe, state, store, gen, max_block=6)
+    stepper.run(6)
+    stepper.run(6)  # past the flip at 10: both graphs exist
+    path = ckpt.save_train_checkpoint(str(tmp_path), pipe, state, gen)
+    want_rows = stepper.run(6).clone()
+    want = [p.detach().clone() for p in pipe.parameters()]
+    graphs = dict(stepper._graphs)
+    assert ckpt.load_train_checkpoint(path, pipe, state, gen) == 12
+    got_rows = stepper.run(6)
+    assert stepper._graphs == graphs and state.step == 18
+    assert torch.equal(got_rows, want_rows)
+    for p, w in zip(pipe.parameters(), want):
+        assert torch.equal(p, w)
+
+
+@pytest.mark.parametrize("nerf_type", ["DDNerfModel", "GeneralMipNerfModel"])
+def test_loop_under_the_graph_resumes_bitwise_and_equals_eager(
+        device, tmp_path, nerf_type, capsys):
+    """The loop on the card: 24 iterations straight under the graph; 12,
+    stop, rerun to 24 under the graph; 24 straight with the eager step.
+    The three final checkpoints (networks, Adam state, generator state,
+    iter) are bitwise equal, and so are the train records."""
+    import json
+    import os
+
+    from ddnerf_tpu_torch.train import checkpoint as ckpt
+    from ddnerf_tpu_torch.train.loop import train
+
+    def records(logdir):
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            return [{k: v for k, v in r.items()
+                     if k not in ("time", "rays_per_sec")}
+                    for r in map(json.loads, f) if r["kind"] == "train"]
+
+    def tree_equal(a, b, path=""):
+        assert type(a) is type(b), path
+        if isinstance(a, dict):
+            assert list(a) == list(b), path
+            for k in a:
+                tree_equal(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), path
+            for i, (x, y) in enumerate(zip(a, b)):
+                tree_equal(x, y, f"{path}[{i}]")
+        elif isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), path
+        else:
+            assert a == b, path
+
+    before = dict(fk.LAUNCHES)
+    _, whole = train(_graph_cfg(nerf_type, tmp_path / "whole"),
+                     max_iters=GRAPH_STEPS, device=device)
+    out = capsys.readouterr().out
+    assert "step mode: graph" in out
+    launched = {k: fk.LAUNCHES[k] - before[k] for k in before}
+    assert launched["fused_mlp_fwd_stash"] == 2 * GRAPH_STEPS
+    assert launched["fused_mlp_bwd"] == 2 * GRAPH_STEPS
+    assert launched["fused_mlp_fwd"] > 0  # the validation renders
+    train(_graph_cfg(nerf_type, tmp_path / "parts"), max_iters=12,
+          device=device)
+    state, parts = train(_graph_cfg(nerf_type, tmp_path / "parts"),
+                         max_iters=GRAPH_STEPS, device=device)
+    assert "at iteration 12" in capsys.readouterr().out
+    assert state.step == GRAPH_STEPS
+    _, eager = train(_graph_cfg(nerf_type, tmp_path / "eager"),
+                     max_iters=GRAPH_STEPS, device=device, step_mode="eager")
+    assert "step mode: eager" in capsys.readouterr().out
+    files = [torch.load(ckpt.checkpoint_path(d), weights_only=True)
+             for d in (whole, parts, eager)]
+    assert files[0]["iter"] == GRAPH_STEPS
+    tree_equal(files[0], files[1])
+    tree_equal(files[0], files[2])
+    assert records(whole) == records(parts) == records(eager)
+    assert [r["step"] for r in records(whole)] == list(range(GRAPH_STEPS))
+    # The file's optimizer state is the plain CPU optimizer's layout.
+    opt = files[0][ckpt.OPTIMIZER_KEY]
+    assert opt["param_groups"][0]["capturable"] is False
+    assert isinstance(opt["param_groups"][0]["lr"], float)
+    assert opt["state"][0]["step"].device.type == "cpu"
+
+
+def test_captured_step_refuses_what_it_cannot_capture(device, tmp_path):
+    """``parallel.microbatch_rays`` under the graph names the eager mode;
+    the CPU cannot capture at all."""
+    from ddnerf_tpu_torch.train.loop import train
+    from ddnerf_tpu_torch.train.step import CapturedTrainStep
+
+    cfg = _graph_cfg("DDNerfModel").replace_at("parallel.microbatch_rays", 128)
+    cfg, store, pipe, state, gen = _fresh_run(cfg, device)
+    with pytest.raises(NotImplementedError, match="--step-mode eager"):
+        CapturedTrainStep(cfg, pipe, state, store, gen)
+    with pytest.raises(ValueError, match="step_mode='graph'"):
+        train(_graph_cfg("DDNerfModel", tmp_path), max_iters=2, device="cpu",
+              step_mode="graph")

@@ -238,10 +238,15 @@ def test_load_train_store_matches_jax_store_and_refuses_above_limit(
     assert (val_ds.H, val_ds.W) == (want_val.H, want_val.W)
     assert (cfg_out.dataset.near, cfg_out.dataset.far) == (
         want_cfg.dataset.near, want_cfg.dataset.far)
+    # At or above parallel.max_store_gb the store stays on the host: the
+    # dataset itself comes back, for the loop to sample on the host.
     limit_gb = 0.5 * want.nbytes / 1024**3
-    with pytest.raises(ValueError, match="max_store_gb"):
-        load_train_store(cfg.replace_at("parallel.max_store_gb", limit_gb),
-                         "cpu")
+    host, _, _ = load_train_store(
+        cfg.replace_at("parallel.max_store_gb", limit_gb), "cpu")
+    assert not isinstance(host, torch.Tensor)
+    np.testing.assert_array_equal(host.device_store(), want)
+    batch = host.sample_batch(np.random.default_rng(0), 8)
+    assert [b.shape for b in batch] == [(8, 3), (8, 3), (8, 1), (8, 3)]
 
 
 def test_train_cli_refuses_cuda_without_a_card(train_config, monkeypatch):
