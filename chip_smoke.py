@@ -72,15 +72,34 @@ Run from the repository root.  Phases, each of which fails the run:
    through both forward kernels against the plain version by PSNR, and on
    that scene and config phase 7 and phase 9's per-leaf gradient check
    (both networks), so that the training kernels are held against their
-   plain versions at this path's shapes and cotangents too.
+   plain versions at this path's shapes and cotangents too;
+11. one rank under NCCL: the training CLI launched by torchrun as one
+   rank, a group of one whose two all-reduces are captured in the step's
+   CUDA graph, for 40 iterations; its records and checkpoint must equal
+   the same command's without torchrun bitwise;
+12. two ranks sharing card 0 under gloo (the eager step): the training
+   loop with host sampling, and 20 steps on batches whose halves hold
+   different numbers of empty rays, each against one process on the same
+   global batches (per-step loss gap, per-leaf parameter gap); the same
+   steps without the dp loss's count all-reduce must fail those gates,
+   ``step_mode='graph'`` under gloo must be refused, and each rank must
+   launch 2 B1s + 2 B2 per step;
+13. eval (with LPIPS) and video on two ranks sharing card 0: results.txt,
+   the image dumps, frames of both forward kernels and an NDC frame must
+   equal what one process wrote in phases 6b, 9 and 10, bitwise, rank 0
+   alone writing and printing;
+14. LPIPS of two rendered images on the card against the CPU's value.
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
-sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9 and 10, each counted
-from 0 in its own process.  Without CUDA, or without the package
-beside this file, the run exits non-zero and prints no result.
+sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12 and 13
+(over every rank), each counted from 0 in its own process.  Every Python
+process a phase starts, every rank included, lists its imports, and none
+may import JAX, the JAX package, imageio or matplotlib.  Without CUDA, or
+without the package beside this file, the run exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -91,6 +110,7 @@ import math
 import os
 import pickle
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -545,22 +565,43 @@ def _sum_launches(*counts):
     return total
 
 
+# Every Python process a phase starts (each rank of a launch too) lists
+# its imports on stderr (PYTHONPROFILEIMPORTTIME); the run fails at the end
+# if one of them imported a forbidden module.
+_IMPORT_LINE = re.compile(r"^import time:\s+\d+ \|\s+\d+ \|\s*(\S+)$", re.M)
+IMPORTS_SEEN = {"processes": 0, "leaked": set()}
+
+
 def _subprocess(cmd, tag, timeout=900):
     """Run ``cmd`` from the repository root in a fresh process (its kernel
-    launch counts start at 0), echo its stdout, fail on a non-zero exit."""
-    env = dict(os.environ)
+    launch counts start at 0), echo its stdout, fail on a non-zero exit or
+    at ``timeout``, when the process and all it started are killed."""
+    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1")
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
-                          text=True, timeout=timeout)
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{tag}: {' '.join(cmd[2:4])} ran past its {timeout} s")
     wall = time.perf_counter() - t0
-    for line in proc.stdout.splitlines():
+    IMPORTS_SEEN["processes"] += stderr.count("import time: self [us]")
+    IMPORTS_SEEN["leaked"].update(
+        m for m in _IMPORT_LINE.findall(stderr)
+        if m.split(".")[0] in FORBIDDEN_MODULES)
+    for line in stdout.splitlines():
         print(f"[{tag}] {line}")
     if proc.returncode != 0:
-        print(proc.stderr[-4000:], file=sys.stderr)
-        fail(f"{' '.join(cmd[2:4])} exited {proc.returncode}")
-    m = re.search(r"^kernel launches: (\{.*\})$", proc.stdout, re.M)
-    return proc.stdout, (json.loads(m.group(1)) if m else {}), wall
+        errors = [ln for ln in stderr.splitlines()
+                  if not ln.startswith("import time:")]
+        print("\n".join(errors)[-4000:], file=sys.stderr)
+        fail(f"{tag}: {' '.join(cmd[2:4])} exited {proc.returncode}")
+    m = re.search(r"^kernel launches: (\{.*\})$", stdout, re.M)
+    return stdout, (json.loads(m.group(1)) if m else {}), wall
 
 
 def _check_train_output(out, tag):
@@ -1220,6 +1261,539 @@ def phase_ndc_main_path(logroot):
     return _sum_launches(*runs), ("dataset.basedir", scene)
 
 
+# ------------------------------------------------------------------------
+# Data parallelism (phases 11-14): torchrun launches, one card.
+
+TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
+NCCL_ITERS = 40  # phase 11's runs
+GLOO_ITERS = 20  # phase 12's runs
+# Phase 12's own batches: the first EMPTY_RAYS[0] rays of a batch (rank
+# 0's half) and EMPTY_RAYS[1] of the second half are shrunk to 1e-12 of
+# their length, so they cross no density and the dp loss's mask drops
+# them: the ranks keep different numbers of rays, which is where a mean
+# of per-rank masked means leaves the global masked mean.
+EMPTY_RAYS = (300, 100)
+# Two ranks against one process on the same batches, per step:
+# |loss_2 - loss_1| / loss_1.  The two differ by the all-reduce's summation
+# order of the two halves' gradients and by the backward kernel's row tiles
+# (1024 rows a rank against 2048), and Adam turns the sign of a gradient
+# element near zero into a whole step: at the config's learning rate
+# (5e-6 at first) that stays small, at 5e-4 it read 9.5e-5 after 20 steps
+# and hid the fault below.  Read 1.7e-7 (the loop: 7.8e-8).
+GLOO_LOSS_GAP_TOL = 1e-5
+# Per leaf, the first step's gradient, ||g_2 - g_1|| / ||g_1||, and the
+# parameters after GLOO_ITERS steps, ||p_2 - p_1|| / ||p_1 - p_0|| (the gap
+# over how far one process moved the leaf).  Read (NVIDIA H100 80GB HBM3,
+# 700 W): at most 1.8e-5 and 3.6e-5; without the count all-reduce 5.3e-4
+# and 1.4e-3, which both limits fail (the loss gap reads 4.0e-7 then: the
+# loss alone cannot see the fault).
+GLOO_GRAD_GAP_TOL = 1e-4
+GLOO_LEAF_GAP_TOL = 3e-4
+GLOO_OPTS = ["nerf.train.perturb", "false",
+             "nerf.train.radiance_field_noise_std", "0"]
+LPIPS_TOL = 1e-5  # the card's LPIPS against the CPU's, float32 both
+LPIPS_SHAPES = [(64, 3, 11, 11), (192, 64, 5, 5), (384, 192, 3, 3),
+                (256, 384, 3, 3), (256, 256, 3, 3)]
+
+
+def _records(logdir, kind="train"):
+    """``metrics.jsonl``'s records of ``kind``, without their clock."""
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return [{k: v for k, v in r.items()
+                 if k not in ("time", "rays_per_sec")}
+                for r in map(json.loads, f) if r["kind"] == kind]
+
+
+def _same_tree(a, b, path=""):
+    """The leaves of two nested checkpoints where they differ (bitwise)."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in _same_tree(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)):
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _same_tree(x, y, f"{path}/{i}")]
+    if isinstance(a, torch.Tensor):
+        return [] if torch.equal(a, b) else [path]
+    return [] if a == b else [path]
+
+
+def _block_ms(records):
+    ends = [r for r in records if "rays_per_sec" in r][-2:]
+    return (ends[1]["time"] - ends[0]["time"]) * 1e3 / (
+        ends[1]["step"] - ends[0]["step"])
+
+
+def phase_nccl_one_rank(logroot, tag="nccl-1"):
+    """The training CLI launched by torchrun as one rank: a group of one
+    on NCCL whose two all-reduces (the dp loss's kept count, the flat
+    gradients and metrics) are captured in the step's CUDA graph, against
+    the same command without torchrun; returns the run's launch counts."""
+    import torch
+
+    cli = ["-m", "ddnerf_tpu_torch.cli.train", "--config", CONFIG,
+           "--max-iters", str(NCCL_ITERS), "experiment.logdir", logroot,
+           "experiment.print_every", "10"]
+    runs = {}
+    for name, launcher in (("single", [sys.executable]),
+                           ("nccl", TORCHRUN + ["--nproc_per_node", "1"])):
+        out, launches, wall = _subprocess(
+            launcher + cli + ["experiment.id", f"one_{name}"], f"{tag}-{name}")
+        runs[name] = (out, launches, wall,
+                      os.path.join(logroot, f"one_{name}"))
+    out, launches = runs["nccl"][0], runs["nccl"][1]
+    if not re.search(r"^1 rank, backend nccl, cuda:0", out,
+                     re.M):
+        fail(f"{tag}: the run did not say that it formed a group of one on "
+             f"NCCL")
+    if not re.search(r"^step mode: graph ", out, re.M):
+        fail(f"{tag}: the step was not captured")
+    held = re.search(r"^\[graph\] each captured step holds (\d+) "
+                     r"all-reduce", out, re.M)
+    if not held or int(held.group(1)) != 2:
+        fail(f"{tag}: the captured step holds "
+             f"{held.group(1) if held else 'no'} all-reduces, expected 2")
+    records = {name: _records(r[3]) for name, r in runs.items()}
+    if len(records["nccl"]) != NCCL_ITERS or \
+            records["nccl"] != records["single"]:
+        fail(f"{tag}: metrics.jsonl under torchrun differs from the single "
+             f"process's")
+    ckpts = {name: torch.load(os.path.join(
+        r[3], f"checkpoint_{NCCL_ITERS}.ckpt"), weights_only=True)
+        for name, r in runs.items()}
+    differ = _same_tree(ckpts["nccl"], ckpts["single"])
+    ms = {name: _block_ms([json.loads(line) for line in
+                           open(os.path.join(r[3], "metrics.jsonl"))])
+          for name, r in runs.items()}
+    print(f"[{tag}] {NCCL_ITERS} iterations, one rank on NCCL vs one "
+          f"process: {len(records['nccl'])} records and checkpoint_"
+          f"{NCCL_ITERS}.ckpt {'bitwise equal' if not differ else differ}; "
+          f"{held.group(1) if held else 'no'} all-reduces per captured "
+          f"step; loop pace "
+          f"{ms['nccl']:.2f} vs {ms['single']:.2f} ms/step; wall "
+          f"{runs['nccl'][2]:.1f} vs {runs['single'][2]:.1f} s", flush=True)
+    if differ:
+        fail(f"{tag}: the checkpoints differ at {differ[:5]}")
+    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+        if launches.get(name) != 2 * NCCL_ITERS:
+            fail(f"{tag}: launched {name} {launches.get(name)} times, "
+                 f"expected {2 * NCCL_ITERS}")
+    return launches, ms
+
+
+_GLOO_PROGRAM = r'''
+"""Phase 12 of chip_smoke.py, on each of two ranks sharing card 0."""
+import json, sys, time
+import numpy as np
+import torch
+from ddnerf_tpu_torch.config import load_config
+from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+from ddnerf_tpu_torch.models.nerf import NerfPipeline
+from ddnerf_tpu_torch.parallel import distributed as pdist
+from ddnerf_tpu_torch.parallel import mesh as pmesh
+from ddnerf_tpu_torch.train.loop import train
+from ddnerf_tpu_torch.train.state import TrainState
+from ddnerf_tpu_torch.train.step import train_step
+
+config, root, iters = sys.argv[1], sys.argv[2], int(sys.argv[3])
+opts = json.loads(sys.argv[4])
+mesh = pmesh.init_group("cuda:0")
+cfg = load_config(config).merge_from_list(
+    opts + ["experiment.logdir", root]).resolved()
+res = {"rank": mesh.rank, "describe": mesh.describe()}
+try:  # a graph cannot hold gloo's collectives
+    train(cfg.replace_at("experiment.id", "gloo_graph"), max_iters=1,
+          device="cuda:0", step_mode="graph", verbose=False)
+    res["graph"] = None
+except ValueError as e:
+    res["graph"] = str(e)
+
+
+def sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def counted(fn):
+    before = dict(LAUNCHES)
+    fn()
+    sync()
+    return {k: LAUNCHES[k] - before[k] for k in before
+            if LAUNCHES[k] != before[k]}
+
+
+# The loop, host sampling: the global batches of the seeded generator.
+res["loop"] = counted(lambda: train(
+    cfg.replace_at("experiment.id", "gloo_loop"), max_iters=iters,
+    device="cuda:0", verbose=mesh.primary))
+batches = np.load(f"{root}/gloo_batches.npy")
+mine = pdist.process_ray_slice(batches.shape[1])
+dev = mesh.device
+for fault in (False, True):
+    mesh.global_dp_count = not fault
+    pipe = NerfPipeline(cfg, dev, seed=0, mesh=mesh)
+    state = TrainState(cfg, pipe)
+    losses = []
+
+    grads = []
+
+    def run():
+        for b in batches:
+            rows = torch.from_numpy(np.ascontiguousarray(b[mine])).to(dev)
+            batch = {"origins": rows[:, 0:3], "directions": rows[:, 3:6],
+                     "radii": rows[:, 6:7], "rgb": rows[:, 7:10]}
+            losses.append(train_step(cfg, pipe, state, batch)["loss"])
+            if not grads:
+                grads.extend(p.grad.detach().cpu() for p in
+                             pipe.parameters())
+
+    sync()
+    t0 = time.perf_counter()
+    launched = counted(run)
+    res[f"steps_{fault}"] = {
+        "launches": launched,
+        "ms": (time.perf_counter() - t0) * 1e3 / len(batches),
+        "losses": torch.stack(losses).tolist()}
+    if mesh.primary:
+        torch.save({"params": [p.detach().cpu() for p in pipe.parameters()],
+                    "grads": grads}, f"{root}/gloo_params_{fault}.pt")
+import sys as _sys
+res["forbidden"] = sorted(m for m in _sys.modules if m.split(".")[0] in
+                          {FORBIDDEN!r})
+with open(f"{root}/gloo_rank{mesh.rank}.json", "w") as f:
+    json.dump(res, f)
+pmesh.destroy_group()
+'''
+
+
+def phase_gloo_two_ranks(torch, logroot, tag="gloo-2"):
+    """Two ranks sharing card 0 under gloo (the eager step): the training
+    loop with host sampling, and GLOO_ITERS steps on batches whose halves
+    hold different numbers of empty rays, each against one process on the
+    same global batches; the same steps without the dp loss's count
+    all-reduce must fail the gate; a captured step under gloo must be
+    refused.  Returns both ranks' launch counts summed, and ms/step."""
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.assembly import get_datasets
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.train.loop import train
+    from ddnerf_tpu_torch.train.state import TrainState
+    from ddnerf_tpu_torch.train.step import train_step
+
+    opts = GLOO_OPTS + ["parallel.max_store_gb", "0",
+                        "experiment.print_every", "10"]
+    cfg = load_config(CONFIG).merge_from_list(
+        opts + ["experiment.logdir", logroot]).resolved()
+    train_ds, _, cfg = get_datasets(cfg)
+    rng = np.random.default_rng(7)
+    half = TRAIN_RAYS // 2
+    batches = []
+    for _ in range(GLOO_ITERS):
+        b = np.concatenate(train_ds.sample_batch(rng, TRAIN_RAYS), axis=-1)
+        b[:EMPTY_RAYS[0], 3:6] *= 1e-12
+        b[half:half + EMPTY_RAYS[1], 3:6] *= 1e-12
+        batches.append(b)
+    np.save(os.path.join(logroot, "gloo_batches.npy"), np.stack(batches))
+    script = os.path.join(logroot, "gloo_ranks.py")
+    with open(script, "w") as f:
+        f.write(_GLOO_PROGRAM.replace("{FORBIDDEN!r}",
+                                      repr(set(FORBIDDEN_MODULES))))
+    out, _, wall = _subprocess(
+        TORCHRUN + ["--nproc_per_node", "2", script, CONFIG, logroot,
+                    str(GLOO_ITERS), json.dumps(opts)], tag, timeout=600)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(logroot, f"gloo_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    if not ranks[0]["describe"].startswith(
+            "2 ranks, backend gloo, cuda:0 shared"):
+        fail(f"{tag}: the group is {ranks[0]['describe']!r}")
+    for r, res in enumerate(ranks):
+        if not (res["graph"] and "gloo" in res["graph"]):
+            fail(f"{tag}: rank {r}: step_mode='graph' under gloo was not "
+                 f"refused ({res['graph']!r})")
+        if res["forbidden"]:
+            fail(f"{tag}: rank {r} imported {res['forbidden']}")
+        want = {"fused_mlp_fwd_stash": 2 * GLOO_ITERS,
+                "fused_mlp_bwd": 2 * GLOO_ITERS}
+        for what in ("steps_False", "steps_True"):
+            if res[what]["launches"] != want:
+                fail(f"{tag}: rank {r} launched {res[what]['launches']} in "
+                     f"{GLOO_ITERS} steps ({what}), expected {want}")
+        if {k: v for k, v in res["loop"].items()
+                if k != "fused_mlp_fwd"} != want:
+            fail(f"{tag}: rank {r}'s loop launched {res['loop']}")
+
+    # One process on the same global batches.
+    t0 = time.perf_counter()
+    train(cfg.replace_at("experiment.id", "gloo_loop_one"),
+          max_iters=GLOO_ITERS, device="cuda", verbose=False)
+    two, one = (_records(os.path.join(logroot, name)) for name in
+                ("gloo_loop", "gloo_loop_one"))
+    loop_gap = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(two, one))
+    dev = torch.device("cuda")
+    pipe = NerfPipeline(cfg, dev, seed=0)
+    start = [p.detach().clone() for p in pipe.parameters()]
+    state = TrainState(cfg, pipe)
+    losses, one_grads = [], None
+    for b in batches:
+        rows = torch.from_numpy(b).to(dev)
+        losses.append(train_step(cfg, pipe, state, {
+            "origins": rows[:, 0:3], "directions": rows[:, 3:6],
+            "radii": rows[:, 6:7], "rgb": rows[:, 7:10]})["loss"])
+        if one_grads is None:
+            one_grads = [p.grad.detach().clone() for p in pipe.parameters()]
+    losses = torch.stack(losses).tolist()
+    one_params = [p.detach() for p in pipe.parameters()]
+    names = [f"{net}.{n}" for net, m in (("coarse", pipe.coarse),
+                                         ("fine", pipe.fine))
+             if m is not None for n, _ in m.named_parameters()]
+
+    def largest(gaps):
+        return " ".join(f"{n}={gaps[n]:.1e}"
+                        for n in sorted(gaps, key=gaps.get)[-4:])
+
+    readings = {}
+    for fault in (False, True):
+        got = ranks[0][f"steps_{fault}"]["losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(got, losses))
+        saved = torch.load(os.path.join(logroot, f"gloo_params_{fault}.pt"))
+        grad = {n: float((g.to(dev) - h).norm() / h.norm())
+                for n, g, h in zip(names, saved["grads"], one_grads)
+                if h.norm() > 0}
+        leaf = {n: float((p.to(dev) - q).norm() / (q - p0).norm())
+                for n, p, q, p0 in zip(names, saved["params"], one_params,
+                                       start) if (q - p0).norm() > 0}
+        readings[fault] = (gap, max(grad.values()), max(leaf.values()))
+        print(f"[{tag}] {'fault: no count all-reduce' if fault else 'the step'}"
+              f": largest loss gap {gap:.3e} (gate {GLOO_LOSS_GAP_TOL:g}); "
+              f"first step's gradient, largest leaf gap "
+              f"{readings[fault][1]:.3e} (gate {GLOO_GRAD_GAP_TOL:g}): "
+              f"{largest(grad)}; parameters after {GLOO_ITERS} steps, "
+              f"largest leaf gap {readings[fault][2]:.3e} (gate "
+              f"{GLOO_LEAF_GAP_TOL:g}): {largest(leaf)}", flush=True)
+    ms = ranks[0]["steps_False"]["ms"]
+    print(f"[{tag}] loop with host sampling, 2 ranks vs 1: largest loss gap "
+          f"{loop_gap:.3e} over {len(two)} iterations; the step on 2 ranks "
+          f"{ms:.2f} ms (rank 0's clock over {GLOO_ITERS} synchronized "
+          f"steps, the first included), empty rays {EMPTY_RAYS}; "
+          f"one-process run {time.perf_counter() - t0:.1f} s; wall "
+          f"{wall:.1f} s", flush=True)
+    tols = (GLOO_LOSS_GAP_TOL, GLOO_GRAD_GAP_TOL, GLOO_LEAF_GAP_TOL)
+    ok = readings[False]
+    if not (len(two) == GLOO_ITERS and loop_gap <= GLOO_LOSS_GAP_TOL
+            and all(r <= t for r, t in zip(ok, tols))):
+        fail(f"{tag}: two ranks disagree with one process: loop gap "
+             f"{loop_gap:.3e}, step {ok}")
+    if all(r <= t for r, t in zip(readings[True], tols)):
+        fail(f"{tag}: the gates do not see the dropped count all-reduce "
+             f"{readings[True]}")
+    total = _sum_launches(*(r[k] for r in ranks
+                            for k in ("loop",)),
+                          *(r[k]["launches"] for r in ranks
+                            for k in ("steps_False",)))
+    return total, ms
+
+
+_RENDER_PROGRAM = r'''
+"""Phase 13 of chip_smoke.py, on each of two ranks sharing card 0."""
+import contextlib, io, json, sys
+import torch
+from ddnerf_tpu_torch.eval.evaluate import eval_model
+from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+from ddnerf_tpu_torch.parallel import mesh as pmesh
+from ddnerf_tpu_torch.render.video import render_model_video
+
+root = sys.argv[1]
+jobs = json.loads(sys.argv[2])
+mesh = pmesh.init_group("cuda:0")
+res = {"launches": {}, "printed": {}}
+for name, kind, kwargs in jobs:
+    before = dict(LAUNCHES)
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        fn = eval_model if kind == "eval" else render_model_video
+        fn(device="cuda:0", **kwargs)
+    res["launches"][name] = {k: LAUNCHES[k] - before[k] for k in before}
+    res["printed"][name] = said.getvalue()
+res["forbidden"] = sorted(m for m in sys.modules if m.split(".")[0] in
+                          {FORBIDDEN!r})
+with open(f"{root}/render_rank{mesh.rank}.json", "w") as f:
+    json.dump(res, f)
+pmesh.destroy_group()
+'''
+
+
+def _sibling(src, dst, ckpt):
+    """A logdir of ``src``'s config snapshot and checkpoint file ``ckpt``."""
+    os.makedirs(dst)
+    for name in ("config.yml", ckpt):
+        os.symlink(os.path.realpath(os.path.join(src, name)),
+                   os.path.join(dst, name))
+    return dst
+
+
+def _write_lpips_weights(path):
+    """A seeded ``.npz`` of AlexNet-LPIPS weights in the schema
+    ``scripts/convert_lpips_weights.py`` writes."""
+    rng = np.random.default_rng(0)
+    w = {}
+    for i, shape in enumerate(LPIPS_SHAPES):
+        fan_in = shape[1] * shape[2] * shape[3]
+        w[f"conv{i}_w"] = (rng.standard_normal(shape)
+                           * math.sqrt(2.0 / fan_in)).astype(np.float32)
+        w[f"conv{i}_b"] = (0.01 * rng.standard_normal(shape[0])
+                           ).astype(np.float32)
+        w[f"lin{i}_w"] = rng.random(shape[0]).astype(np.float32)
+    np.savez(path, **w)
+
+
+def phase_render_two_ranks(logroot, logdir, mip_logdir, ndc_logdir,
+                           tag="render-2"):
+    """Eval (with LPIPS) and video frames on two ranks sharing card 0:
+    each rank renders its share of every chunk, rank 0 writes.  Every
+    artifact must equal what one process wrote in phases 6b, 9 and 10
+    bitwise: results.txt (but for the timings and the LPIPS lines, which
+    one process did not write), the decoded image dumps, the frames of
+    both forward kernels and an NDC frame.  Returns both ranks' launch
+    counts summed, and the LPIPS weights' path."""
+    from ddnerf_tpu_torch.render.media import read_avi, read_png
+
+    weights = os.path.join(logroot, "lpips_alex.npz")
+    _write_lpips_weights(weights)
+    ckpt = f"checkpoint_{TRAIN_ITERS}.ckpt"
+    dirs = {
+        "eval": _sibling(mip_logdir, os.path.join(logroot, "two_eval"), ckpt),
+        "mlp": _sibling(logdir, os.path.join(logroot, "two_mlp"), ckpt),
+        "ipe2": _sibling(logdir + "_ipe2", os.path.join(logroot, "two_ipe2"),
+                         ckpt),
+        "ndc": _sibling(ndc_logdir, os.path.join(logroot, "two_ndc"),
+                        f"checkpoint_{NDC_ITERS[1]}.ckpt"),
+    }
+    frames = 2
+    jobs = [("eval", "eval", {"basedir": dirs["eval"], "max_images": 2,
+                              "save_images": True, "lpips_weights": weights}),
+            ("mlp", "video", {"basedir": dirs["mlp"], "max_frames": frames,
+                              "save_images": True}),
+            ("ipe2", "video", {"basedir": dirs["ipe2"], "max_frames": frames}),
+            ("ndc", "video", {"basedir": dirs["ndc"], "max_frames": 1,
+                              "checkpoint_step": NDC_ITERS[1]})]
+    script = os.path.join(logroot, "render_ranks.py")
+    with open(script, "w") as f:
+        f.write(_RENDER_PROGRAM.replace("{FORBIDDEN!r}",
+                                        repr(set(FORBIDDEN_MODULES))))
+    _, _, wall = _subprocess(TORCHRUN + ["--nproc_per_node", "2", script,
+                                         logroot, json.dumps(jobs)], tag,
+                             timeout=600)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(logroot, f"render_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    differ = []
+    for r, res in enumerate(ranks):
+        if res["forbidden"]:
+            fail(f"{tag}: rank {r} imported {res['forbidden']}")
+        if r and any(res["printed"].values()):
+            fail(f"{tag}: rank {r} printed {res['printed']}")
+
+    def results(path, skip=("model_time", "lpips")):
+        with open(os.path.join(path, "validation", "results.txt")) as f:
+            return [ln for ln in f if not any(k in ln for k in skip)]
+
+    if results(dirs["eval"]) != results(mip_logdir):
+        differ.append("results.txt")
+    with open(os.path.join(dirs["eval"], "validation", "results.txt")) as f:
+        lpips = re.findall(r"^(?:image \d+ , )?(lpips_(?:coarse|fine)):"
+                           r"\s*(\S+)$", f.read(), re.M)
+    if len(lpips) != 2 * 3 or not all(math.isfinite(float(v))
+                                      for _, v in lpips):
+        fail(f"{tag}: results.txt holds the LPIPS lines {lpips}")
+    pngs = 0
+    for i in ("0", "1"):
+        names = sorted(os.listdir(os.path.join(mip_logdir, "validation", i)))
+        if sorted(os.listdir(os.path.join(dirs["eval"], "validation",
+                                          i))) != names:
+            differ.append(f"validation/{i} files")
+        for name in names:
+            pngs += 1
+            if not np.array_equal(
+                    read_png(os.path.join(dirs["eval"], "validation", i,
+                                          name)),
+                    read_png(os.path.join(mip_logdir, "validation", i,
+                                          name))):
+                differ.append(f"validation/{i}/{name}")
+    for name, one, n in (("mlp", logdir, frames),
+                         ("ipe2", logdir + "_ipe2", frames),
+                         ("ndc", ndc_logdir, 1)):
+        got, _ = read_avi(os.path.join(dirs[name], "video", "video.avi"))
+        want, _ = read_avi(os.path.join(one, "video", "video.avi"))
+        if got.shape[0] != n or not np.array_equal(got, want[:n]):
+            differ.append(f"{name} frames")
+    for i in range(frames):
+        png = read_png(os.path.join(dirs["mlp"], "video",
+                                    f"frame_{i:04d}.png"))
+        if not np.array_equal(png, read_png(os.path.join(
+                logdir, "video", f"frame_{i:04d}.png"))):
+            differ.append(f"frame_{i:04d}.png")
+    launches = [res["launches"] for res in ranks]
+    nonzero = [{job: {k: v for k, v in c.items() if v}
+                for job, c in per.items()} for per in launches]
+    print(f"[{tag}] two ranks vs one process: results.txt, {pngs} image "
+          f"dumps, {frames} frames of each forward kernel and an NDC frame "
+          f"{'bitwise equal' if not differ else differ}; LPIPS lines "
+          f"{lpips}; launches per rank {nonzero}; wall {wall:.1f} s",
+          flush=True)
+    if differ:
+        fail(f"{tag}: two ranks rendered other artifacts than one process: "
+             f"{differ}")
+    # Each rank renders its half of every chunk: as many launches as one
+    # process, two per chunk (two networks, or the shared one twice).
+    from ddnerf_tpu_torch.config import Config
+
+    def chunks(path, hw):
+        size = Config.from_yaml(os.path.join(path, "config.yml")
+                                ).nerf.validation.chunksize
+        return -(-hw[0] * hw[1] // size)
+
+    c_mlp, c_mip = chunks(logdir, VIDEO_HW), chunks(mip_logdir, VIDEO_HW)
+    c_ndc = chunks(ndc_logdir, NDC_HW)
+    want = {"eval": {"fused_mlp_fwd": 2 * c_mip * 2},
+            "mlp": {"fused_mlp_fwd": 2 * c_mlp * frames},
+            "ipe2": {"fused_enc_mlp_fwd": 2 * c_mlp * frames},
+            "ndc": {"fused_mlp_fwd": 2 * c_ndc}}
+    for r, got in enumerate(nonzero):
+        if got != want:
+            fail(f"{tag}: rank {r} launched {got}, expected {want}")
+    return _sum_launches(*(c for per in launches for c in per.values())), \
+        weights, dirs["eval"]
+
+
+def phase_lpips_on_card(torch, weights, eval_dir, tag="lpips"):
+    """LPIPS of two rendered images (the fine rgb and the ground truth that
+    phase 13 wrote) on the card, with cuDNN's TF32 off for the metric,
+    against the CPU's value."""
+    from ddnerf_tpu_torch.eval.metrics import Lpips
+    from ddnerf_tpu_torch.render.media import read_png
+
+    folder = os.path.join(eval_dir, "validation", "0")
+    image = read_png(os.path.join(folder, "rgb_fine.png")) / 255.0
+    target = read_png(os.path.join(folder, "gt.png")) / 255.0
+    values = {dev: Lpips(weights, dev)(image[..., :3], target[..., :3])
+              for dev in ("cuda", "cpu")}
+    gap = abs(values["cuda"] - values["cpu"])
+    print(f"[{tag}] {image.shape[:2]} images: card {values['cuda']:.7f}, "
+          f"CPU {values['cpu']:.7f}, gap {gap:.2e} (gate {LPIPS_TOL:g}); "
+          f"cudnn.allow_tf32 is {torch.backends.cudnn.allow_tf32} outside "
+          f"the metric", flush=True)
+    if not (math.isfinite(values["cuda"]) and values["cuda"] > 0
+            and gap <= LPIPS_TOL):
+        fail(f"{tag}: the card's LPIPS {values['cuda']} disagrees with the "
+             f"CPU's {values['cpu']}")
+
+
 def main():
     import torch
 
@@ -1265,6 +1839,12 @@ def main():
         ndc_step_ms = phase_train_parity(torch, "ndc-parity", ndc_scene,
                                          FF_CONFIG)
         phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
+        # Data parallelism: torchrun launches on this one card.
+        nccl_launches, nccl_ms = phase_nccl_one_rank(logroot)
+        render_launches, lpips_weights, eval_dir = phase_render_two_ranks(
+            logroot, logdir, mip_logdir, os.path.join(logroot, "ndc_smoke"))
+        phase_lpips_on_card(torch, lpips_weights, eval_dir)
+        gloo_launches, gloo_ms = phase_gloo_two_ranks(torch, logroot)
     graph_ms = phase_graph_vs_eager(torch)
     mip_graph_ms = phase_graph_vs_eager(torch, "mip-graph", MIPNERF)
     step_ms = phase_train_parity(torch)
@@ -1285,19 +1865,28 @@ def main():
           f"{ndc_step_ms['plain']:.2f} ms; captured vs eager step "
           f"{graph_ms['graph']:.2f} vs {graph_ms['eager']:.2f} ms (DDNeRF), "
           f"{mip_graph_ms['graph']:.2f} vs {mip_graph_ms['eager']:.2f} ms "
-          f"(mip-NeRF); whole run "
+          f"(mip-NeRF); torchrun one rank on NCCL {nccl_ms['nccl']:.2f} vs "
+          f"one process {nccl_ms['single']:.2f} ms/step, two ranks on one "
+          f"card under gloo {gloo_ms:.2f} ms/step; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN_MODULES)
     if leaked:
         fail(f"imported {leaked}")
+    print(f"[modules] {IMPORTS_SEEN['processes']} Python processes started "
+          f"(every rank included) imported "
+          f"{sorted(IMPORTS_SEEN['leaked']) or 'nothing forbidden'}")
+    if IMPORTS_SEEN["leaked"] or not IMPORTS_SEEN["processes"]:
+        fail(f"a subprocess imported {sorted(IMPORTS_SEEN['leaked'])}")
 
     # Each kernel's launches: the sum over the main paths, and per path.
     by_path = {"ddnerf": _sum_launches(train_launches, host_launches,
                                        profile_launches, launches,
                                        video_launches),
                "mipnerf": _sum_launches(mip_train, mip_eval, mip_video),
-               "ndc": ndc_launches}
+               "ndc": ndc_launches,
+               "parallel": _sum_launches(nccl_launches, gloo_launches,
+                                         render_launches)}
     total = _sum_launches(*by_path.values())
     print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
     for path, counts in by_path.items():

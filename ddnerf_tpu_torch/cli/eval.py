@@ -6,14 +6,16 @@ for a logdir holding ``config.yml`` and reference-format checkpoints:
         [--save_images] [--extract_ptc] [--checkpoint STEP]
         [--torch-checkpoint PATH] [--device cuda|cuda:1|cpu]
 
-``--lpips-weights`` is accepted and raises: LPIPS is not ported yet.
+``--lpips-weights W.npz`` (AlexNet-LPIPS weights, e.g. written by
+``scripts/convert_lpips_weights.py``) adds ``lpips_coarse`` / ``lpips_fine``
+to results.txt.  Under ``torchrun --nproc_per_node N`` every rank renders
+its share of each image and rank 0 writes (see ``cli/train.py``).
 """
 
 import argparse
-import json
 
 from ddnerf_tpu_torch.eval.evaluate import MAX_VALIDATION_IMAGES, eval_model
-from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+from ddnerf_tpu_torch.parallel.mesh import launch_report, launched
 
 
 def main(argv=None):
@@ -26,8 +28,8 @@ def main(argv=None):
                         help="Extract a point cloud per validation image "
                              "(validation/ptc_{i}.npy).")
     parser.add_argument("--lpips-weights", type=str, default=None,
-                        help="Local AlexNet-LPIPS weights (.npz); not "
-                             "supported yet, raises.")
+                        help="Local AlexNet-LPIPS weights (.npz); adds "
+                             "lpips_coarse / lpips_fine to results.txt.")
     parser.add_argument("--max-images", type=int,
                         default=MAX_VALIDATION_IMAGES,
                         help="Cap on validation images (reference "
@@ -42,13 +44,16 @@ def main(argv=None):
                         help="torch device; CUDA asked for and absent is an "
                              "error (default: cuda).")
     args = parser.parse_args(argv)
-    eval_model(args.logdir, extract_ptc=args.extract_ptc,
-               save_images=args.save_images,
-               lpips_weights=args.lpips_weights, max_images=args.max_images,
-               torch_checkpoint=args.torch_checkpoint,
-               checkpoint_step=args.checkpoint, device=args.device)
-    # Which kernels the render went through (0 = the plain version ran).
-    print("kernel launches: " + json.dumps(LAUNCHES, sort_keys=True))
+    with launched(args.device) as mesh:
+        eval_model(args.logdir, extract_ptc=args.extract_ptc,
+                   save_images=args.save_images,
+                   lpips_weights=args.lpips_weights,
+                   max_images=args.max_images,
+                   torch_checkpoint=args.torch_checkpoint,
+                   checkpoint_step=args.checkpoint, device=args.device)
+        said = launch_report(mesh)
+    if said:
+        print(said)
 
 
 if __name__ == "__main__":

@@ -6,12 +6,14 @@ reference-format ``checkpoint.ckpt``:
     python -m ddnerf_tpu_torch.cli.render_video --logdir LOGDIR
         [--save_images] [--max-frames N] [--checkpoint STEP]
         [--torch-checkpoint PATH] [--device cuda|cuda:1|cpu]
+
+Under ``torchrun --nproc_per_node N`` every rank renders its share of each
+frame and rank 0 writes (see ``cli/train.py``).
 """
 
 import argparse
-import json
 
-from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+from ddnerf_tpu_torch.parallel.mesh import launch_report, launched
 from ddnerf_tpu_torch.render.video import render_model_video
 
 
@@ -33,13 +35,15 @@ def main(argv=None):
                         help="torch device; CUDA asked for and absent is an "
                              "error (default: cuda).")
     args = parser.parse_args(argv)
-    render_model_video(args.logdir, save_images=args.save_images,
-                       max_frames=args.max_frames,
-                       torch_checkpoint=args.torch_checkpoint,
-                       checkpoint_step=args.checkpoint,
-                       device=args.device)
-    # Which kernels the frames went through (0 = the plain version ran).
-    print("kernel launches: " + json.dumps(LAUNCHES, sort_keys=True))
+    with launched(args.device) as mesh:
+        render_model_video(args.logdir, save_images=args.save_images,
+                           max_frames=args.max_frames,
+                           torch_checkpoint=args.torch_checkpoint,
+                           checkpoint_step=args.checkpoint,
+                           device=args.device)
+        said = launch_report(mesh)
+    if said:
+        print(said)
 
 
 if __name__ == "__main__":

@@ -14,13 +14,21 @@ or checkpoint file to start from.  CUDA asked for and absent is an error,
 never a run on the CPU.  On a CUDA device the step is one captured CUDA
 graph replayed per iteration (``--step-mode graph``, the default there);
 ``--step-mode eager`` runs it as plain PyTorch calls, as the CPU does.
+
+Data parallelism: launched as ``torchrun --nproc_per_node N -m
+ddnerf_tpu_torch.cli.train ...`` (``python -m torch.distributed.run`` is
+the same launcher), every rank trains on its share of each step's rays
+(``parallel/mesh.py``): ``--device cuda`` gives rank ``LOCAL_RANK`` card
+``cuda:LOCAL_RANK`` and the NCCL backend, ``--device cuda:K`` puts every
+rank on card K and ``--device cpu`` on the CPU, both under gloo (the eager
+step).  Rank 0 alone prints and writes.  Several nodes are torchrun's
+multi-node launch (``--nnodes``, ``--rdzv-endpoint``).
 """
 
 import argparse
-import json
 
 from ddnerf_tpu_torch.config import load_config
-from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+from ddnerf_tpu_torch.parallel.mesh import launch_report, launched
 from ddnerf_tpu_torch.train.loop import STEP_MODES, train
 from ddnerf_tpu_torch.utils.debug import nan_debug_mode
 
@@ -58,16 +66,17 @@ def main(argv=None):
     cfg = load_config(args.config)
     if args.opts:
         cfg = cfg.merge_from_list(args.opts).resolved()
-    with nan_debug_mode(args.debug_nans):
+    with launched(args.device) as mesh, nan_debug_mode(args.debug_nans):
         _, logdir = train(cfg, max_iters=args.max_iters or None,
                           device=args.device,
                           load_checkpoint=args.load_checkpoint,
                           profile_steps=args.profile_steps,
                           step_mode=args.step_mode)
-    print(f"logdir: {logdir}")
-    # Which kernels the run went through (0 = the plain versions ran).
-    print("kernel launches: " + json.dumps(LAUNCHES, sort_keys=True))
-    print("Done!")
+        said = launch_report(mesh)
+    if said:
+        print(f"logdir: {logdir}")
+        print(said)
+        print("Done!")
 
 
 if __name__ == "__main__":

@@ -174,8 +174,8 @@ class ParallelConfig:
     # Split each train batch into microbatches of this many rays with
     # gradient accumulation; 0 = no microbatching.
     microbatch_rays: int = 0
-    # Budget of the device-resident ray store; a larger store is an error
-    # (host-side ray sampling is not ported).
+    # Budget of one rank's share of the device-resident ray store; a larger
+    # share stays on the host and is sampled there.
     max_store_gb: float = 6.0
     # Which forward kernel renders: "mlp" = the IPE assembled in torch, then
     # the fused MLP forward; "ipe2" = the forward that computes the IPE
@@ -188,10 +188,13 @@ class ParallelConfig:
     # Hand-derived adjoint for the compositing weights (one reverse cumsum
     # instead of autodiff through the exclusive-cumprod chain).
     composite_custom_vjp: bool = True
-
-    # ---- accepted and ignored (TPU mesh, layouts, block sizes, compiler)
+    # The data-parallel group (parallel/mesh.py): data_axis names its one
+    # axis; num_devices 0 = every rank torchrun launched, 1 = a single
+    # process, N = the world size must be N (a mismatch raises).
     data_axis: str = "data"
     num_devices: int = 0
+
+    # ---- accepted and ignored (TPU layouts, block sizes, compiler)
     donate_state: bool = True
     remat_mlp: bool = False
     remat_ipe: bool = True

@@ -46,7 +46,8 @@ class _Take(torch.autograd.Function):
 
 def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
                      left_tails_0, part_inside_cells_0, *,
-                     filter_empty_rays: bool, variant: str = "kl"):
+                     filter_empty_rays: bool, variant: str = "kl",
+                     mesh=None):
     """KL (or Jensen-Shannon) divergence between the fine weight
     distribution and the coarse truncated-Gaussian depth distribution
     evaluated at the fine fenceposts.
@@ -58,6 +59,13 @@ def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
     truncated Gaussians.  The caller detaches what the JAX pipeline
     stop-gradients.  Returns the mean over (kept rays x fine sections) of
     the divergence, which the caller multiplies by M (models.py:288).
+
+    ``mesh`` (a training step sharded over ranks, ``parallel/mesh.py``):
+    under ``filter_empty_rays`` the mean is over the kept rays of the
+    GLOBAL batch, so the kept count is all-reduced here and each rank's
+    masked sum is scaled by D; the mean of the ranks' values (and of their
+    gradients) is then the global masked mean.  Without a mesh the
+    expression is the single-device one.
     """
     keep = torch.sum(pdf_1, dim=1) > 1e-10  # [N]
 
@@ -112,8 +120,10 @@ def estimate_dp_loss(t_vals_1, t_vals_0, pdf_1, pdf_0, mus_0, sigmas_0,
     per_ray = torch.mean(kl, dim=-1)
 
     if filter_empty_rays:
-        count = torch.clamp(torch.sum(keep), min=1)
-        return torch.sum(torch.where(keep, per_ray, 0.0)) / count
+        kept = torch.sum(torch.where(keep, per_ray, 0.0))
+        if mesh is None:
+            return kept / torch.clamp(torch.sum(keep), min=1)
+        return mesh.masked_mean(kept, torch.sum(keep))
     return torch.mean(per_ray)
 
 

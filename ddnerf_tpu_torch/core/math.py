@@ -207,3 +207,15 @@ def mse2psnr(mse):
     """PSNR of an MSE, floored at 1e-5 (50 dB) as the JAX package."""
     mse = torch.clamp(torch.as_tensor(mse), min=1e-5)
     return -10.0 * torch.log10(mse)
+
+
+def bins_for_percentage(weights, percentage):
+    """Number of bins holding ``percentage`` of each ray's probability mass
+    (reference math_utils.py:169-181): the pdf sorted in descending order,
+    its running sum without the last bin, the bins below ``percentage``,
+    plus one.  ``weights [N, S]`` -> ``[N]`` (an info-concentration
+    diagnostic)."""
+    pdf = weights / torch.sum(weights, dim=1, keepdim=True)
+    info_sorted = torch.flip(torch.sort(pdf, dim=-1).values, dims=(-1,))
+    info_sum = torch.cumsum(info_sorted[..., :-1], dim=-1)
+    return torch.sum(info_sum < percentage, dim=1) + 1

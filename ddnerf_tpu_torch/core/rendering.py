@@ -13,6 +13,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from ddnerf_tpu_torch.core import draws
+
 
 def cumprod_exclusive(x: torch.Tensor) -> torch.Tensor:
     return torch.cat(
@@ -84,6 +86,7 @@ def volume_render(
     mus=None,
     eps_mask_pdf=False,
     analytic_weights_vjp=False,
+    rows: draws.Rows = None,
 ) -> RenderOutput:
     """Composite per-sample radiance into per-ray maps.
 
@@ -96,7 +99,8 @@ def volume_render(
     pdf (blender scenes); ``mus`` switches the depth to the per-section
     expected depth ``t0 + μ (t1 - t0)`` (the DDNeRF μ-corrected depth).
     Differentiable into ``raw_rgb``, ``raw_density`` and ``mus``;
-    ``analytic_weights_vjp`` picks the weights' adjoint.
+    ``analytic_weights_vjp`` picks the weights' adjoint; ``rows``: a
+    sharded render's share of the noise (``core/draws.py``).
     """
     mids = (t_vals[..., 1:] + t_vals[..., :-1]) / 2.0
     dists = t_vals[..., 1:] - t_vals[..., :-1]
@@ -106,8 +110,9 @@ def volume_render(
 
     density = raw_density
     if noise_std > 0.0 and generator is not None:
-        noise = torch.randn(density.shape, generator=generator,
-                            dtype=density.dtype, device=density.device)
+        noise = draws.randn(density.shape, generator=generator,
+                            dtype=density.dtype, device=density.device,
+                            rows=rows)
         density = density + noise * noise_std
 
     sigma_a = F.softplus(density - 1.0)

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from ddnerf_tpu_torch.core import draws
 from ddnerf_tpu_torch.core import math as mmath
 
 
@@ -52,11 +53,13 @@ def sample_first_cycle(
     combined_split=None,
     generator: Optional[torch.Generator] = None,
     t_rand: Optional[torch.Tensor] = None,
+    rows: draws.Rows = None,
 ):
     """Coarse fenceposts ``[N, num_coarse+1]`` between ``near`` / ``far``
     (``[N, 1]``), optionally jittered inside each stratum with the
     endpoints pinned (reference samplers.py:30-62).  The jitter is
-    ``t_rand`` if given, else a uniform draw from ``generator``."""
+    ``t_rand`` if given, else a uniform draw from ``generator`` (``rows``:
+    see ``core/draws.py``)."""
     t = torch.linspace(0.0, 1.0, num_coarse + 1, dtype=near.dtype,
                        device=near.device)
     if lindisp:
@@ -71,8 +74,9 @@ def sample_first_cycle(
         upper = torch.cat([mids, t_vals[..., -1:]], dim=-1)
         lower = torch.cat([t_vals[..., :1], mids], dim=-1)
         if t_rand is None:
-            t_rand = torch.rand(t_vals.shape, generator=generator,
-                                dtype=t_vals.dtype, device=t_vals.device)
+            t_rand = draws.rand(t_vals.shape, generator=generator,
+                                dtype=t_vals.dtype, device=t_vals.device,
+                                rows=rows)
         t_vals = lower + (upper - lower) * t_rand
         t_vals = torch.cat([near, t_vals[..., 1:-1], far], dim=-1)
     return t_vals
@@ -121,6 +125,7 @@ def sample_pdf(
     det=True,
     generator: Optional[torch.Generator] = None,
     jitter: Optional[torch.Tensor] = None,
+    rows: draws.Rows = None,
 ):
     """Inverse-transform resampling of ``num_samples`` fenceposts from the
     histogram (``bins [N, S+1]``, ``weights [N, S]``) with uniform placement
@@ -151,8 +156,8 @@ def sample_pdf(
         s = 1.0 / num_samples
         u = torch.arange(num_samples, dtype=dt, device=dev) * s
         if jitter is None:
-            jitter = torch.rand(shape, generator=generator, dtype=dt,
-                                device=dev)
+            jitter = draws.rand(shape, generator=generator, dtype=dt,
+                                device=dev, rows=rows)
         u = torch.clamp(u + jitter / ((1.0 / s) + 1e-5), max=0.9999)
 
     ind = interval_index(u, cdf)
@@ -185,6 +190,7 @@ def sample_pdf_with_mu_sigma(
     det=True,
     generator: Optional[torch.Generator] = None,
     jitter: Optional[torch.Tensor] = None,
+    rows: draws.Rows = None,
 ):
     """Resample ``num_samples`` fenceposts through each section's
     truncated-Gaussian inverse CDF (reference samplers.py:124-215):
@@ -219,8 +225,8 @@ def sample_pdf_with_mu_sigma(
         s = 1.0 / (num_samples - 1)
         u = torch.arange(num_samples, dtype=dt, device=dev) * s
         if jitter is None:
-            jitter = torch.rand(shape, generator=generator, dtype=dt,
-                                device=dev)
+            jitter = draws.rand(shape, generator=generator, dtype=dt,
+                                device=dev, rows=rows)
         u = torch.clamp(u + jitter / (num_samples + 1e-5), 0.0, 0.9999)
 
     if bins.shape[-1] == 2:  # a single coarse section (samplers.py:185-190)

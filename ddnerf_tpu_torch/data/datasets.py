@@ -12,6 +12,8 @@ serves whole validation images and render poses.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -204,20 +206,28 @@ class ValRayDataset:
         return ro[sel], rd[sel], radii[sel].reshape(-1, 1), depths, rgb
 
 
-def load_train_store(cfg: Config, device):
+def load_train_store(cfg: Config, device, mesh=None):
     """Build the datasets of ``cfg`` and move the training ray store to
     ``device`` -> (store ``[n_img, n_pix, 10]``, validation dataset, cfg).
     The returned cfg carries the near/far that pose normalization may have
-    rescaled.  A store at or above ``parallel.max_store_gb`` stays on the
-    host: the first element is then the :class:`TrainRayDataset` itself,
-    whose ``sample_batch`` the loop draws from
-    (:class:`PrefetchedHostBatches`)."""
+    rescaled.  A store whose share per rank is at or above
+    ``parallel.max_store_gb`` stays on the host
+    (``ddnerf_tpu/train/loop.py:92-96``): the first element is then the
+    :class:`TrainRayDataset` itself, whose ``sample_batch`` the loop draws
+    from (:class:`PrefetchedHostBatches`).  On a data-parallel ``mesh``
+    (``parallel/mesh.py``) the device store is this rank's pixel block
+    (``parallel/distributed.py::build_sharded_store``)."""
     from ddnerf_tpu_torch.data.assembly import get_datasets  # imports this module
 
     train_ds, val_ds, cfg = get_datasets(cfg)
     host_store = train_ds.device_store()
-    if host_store.nbytes >= cfg.parallel.max_store_gb * 1024**3:
+    shards = 1 if mesh is None else mesh.size
+    if host_store.nbytes / shards >= cfg.parallel.max_store_gb * 1024**3:
         return train_ds, val_ds, cfg
+    if shards > 1:
+        from ddnerf_tpu_torch.parallel.distributed import build_sharded_store
+
+        return build_sharded_store(host_store, shards, device), val_ds, cfg
     return torch.from_numpy(host_store).to(device), val_ds, cfg
 
 
@@ -232,11 +242,17 @@ class PrefetchedHostBatches:
     a synchronous loop, and no more often: the prefetch stops once every one
     of the ``steps_expected`` steps has its batch (the entry prefetch counts
     as one).  ``prefetch=False`` samples and uploads inside ``take()``, the
-    synchronous loop itself.  ``draws`` counts the batches sampled."""
+    synchronous loop itself.  ``draws`` counts the batches sampled.
+
+    ``rows``: the part of each sampled batch this process uploads.  On a
+    data-parallel group every rank draws the whole global batch from the
+    same seeded generator, as the JAX loop does, and takes its
+    ``process_ray_slice`` (``parallel/distributed.py``)."""
 
     def __init__(self, train_ds: TrainRayDataset, num_rays: int, seed: int,
-                 device, steps_expected: int, prefetch: bool = True):
-        self.train_ds, self.num_rays = train_ds, num_rays
+                 device, steps_expected: int, prefetch: bool = True,
+                 rows: Optional[slice] = None):
+        self.train_ds, self.num_rays, self.rows = train_ds, num_rays, rows
         self.device = torch.device(device)
         self.rng = np.random.default_rng(seed)
         self.steps_expected = steps_expected
@@ -249,8 +265,11 @@ class PrefetchedHostBatches:
     def _sample_upload(self):
         """Sample on the host and start the upload -> (rows ``[R, 10]`` on
         the device, the event that marks them there)."""
-        rows = torch.from_numpy(np.concatenate(
-            self.train_ds.sample_batch(self.rng, self.num_rays), axis=-1))
+        batch = np.concatenate(
+            self.train_ds.sample_batch(self.rng, self.num_rays), axis=-1)
+        if self.rows is not None:
+            batch = np.ascontiguousarray(batch[self.rows])
+        rows = torch.from_numpy(batch)
         self.draws += 1
         if self._stream is None:
             return rows, None

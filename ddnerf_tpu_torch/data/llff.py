@@ -12,6 +12,8 @@ forward-facing, spherical for 360).
 from __future__ import annotations
 
 import os
+import shutil
+import tempfile
 
 import numpy as np
 
@@ -40,13 +42,16 @@ def _image_files(d):
 
 def _minify(basedir: str, factor: int):
     """Downsampled image cache ``images_{factor}/`` (load_llff.py:8-60),
-    built with cv2 INTER_AREA (no ImageMagick dependency)."""
+    built with cv2 INTER_AREA (no ImageMagick dependency).  It is written
+    to a directory of this process's own and renamed into place, so that
+    the ranks of a data-parallel run, which all load the scene, neither
+    collide nor read a cache another rank is still writing."""
     outdir = os.path.join(basedir, f"images_{factor}")
     if os.path.exists(outdir):
         return
     import cv2
 
-    os.makedirs(outdir)
+    tmp = tempfile.mkdtemp(prefix=f".images_{factor}.", dir=basedir)
     for f in _image_files(os.path.join(basedir, "images")):
         img = read_image(f)
         h, w = img.shape[:2]
@@ -54,7 +59,11 @@ def _minify(basedir: str, factor: int):
             img, (int(w / factor), int(h / factor)), interpolation=cv2.INTER_AREA
         )
         name = os.path.splitext(os.path.basename(f))[0] + ".png"
-        write_image(os.path.join(outdir, name), resized)
+        write_image(os.path.join(tmp, name), resized)
+    try:
+        os.rename(tmp, outdir)
+    except OSError:  # another process's cache is in place: keep that one
+        shutil.rmtree(tmp)
 
 
 def _load_data(basedir: str, factor=None):

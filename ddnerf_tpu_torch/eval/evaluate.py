@@ -10,9 +10,14 @@ two SSIM variants per image for the coarse and fine cycles, writes
 (``validation/ptc_{i}.npy``) and, under
 ``train_params.depth_analysis_rays``, the per-ray figures
 (``validation/rays/ray_{j}.png``) with ``validation/ray_dict.pkl``.
+``lpips_weights`` (a local AlexNet-LPIPS ``.npz``, ``eval/lpips_net.py``)
+adds ``lpips_coarse`` / ``lpips_fine``; a missing or unreadable file omits
+them with a warning.
 
-LPIPS is not ported yet: ``lpips_weights`` raises.  Orbax checkpoints of
-the JAX package are not read (the port imports no orbax).
+Under ``torchrun`` with more than one rank every rank renders its share of
+each image (``render/renderer.py``) and rank 0 alone computes the metrics,
+prints and writes, as the JAX package's process 0 does.  Orbax checkpoints
+of the JAX package are not read (the port imports no orbax).
 """
 
 from __future__ import annotations
@@ -29,13 +34,14 @@ import torch
 from ddnerf_tpu_torch.data.assembly import get_datasets
 from ddnerf_tpu_torch.data.images import write_image
 from ddnerf_tpu_torch.eval.depth_analysis import run_depth_analysis
-from ddnerf_tpu_torch.eval.metrics import calc_ssim, psnr
+from ddnerf_tpu_torch.eval.metrics import Lpips, calc_ssim, psnr
 from ddnerf_tpu_torch.viz.visualization import (
     get_density_distribution_plots,
     save_validation_images,
     write_dicts_to_a_file,
 )
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, ScheduleValues
+from ddnerf_tpu_torch.parallel.mesh import maybe_mesh
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train.checkpoint import (
     checkpoint_path,
@@ -59,16 +65,19 @@ def resolve_device(name: str) -> torch.device:
 
 def load_pipeline(basedir: str, cfg, dev: torch.device,
                   torch_checkpoint: Optional[str] = None,
-                  checkpoint_step: Optional[int] = None) -> NerfPipeline:
+                  checkpoint_step: Optional[int] = None,
+                  mesh=None) -> NerfPipeline:
     """The run's networks on ``dev``, from ``torch_checkpoint`` if given,
     else the retained ``checkpoint_step`` of ``basedir``, else its newest
     (``basedir/checkpoint.ckpt``).  A checkpoint of the other model family
-    (one network where the config needs two, or the reverse) raises."""
+    (one network where the config needs two, or the reverse) raises.
+    ``mesh``: this rank's data-parallel group, or None."""
     ckpt_path = torch_checkpoint or checkpoint_path(basedir, checkpoint_step)
     ckpt = load_checkpoint(ckpt_path)
-    pipeline = NerfPipeline(cfg, dev)
+    pipeline = NerfPipeline(cfg, dev, mesh=mesh)
     pipeline.load_state_dicts(ckpt["coarse"], ckpt["fine"])
-    print(f"loaded {ckpt_path} (iter {ckpt['step']}) on {dev}")
+    if mesh is None or mesh.primary:
+        print(f"loaded {ckpt_path} (iter {ckpt['step']}) on {dev}")
     return pipeline
 
 
@@ -103,23 +112,27 @@ def eval_model(
     file to load instead of the logdir's; ``checkpoint_step``: a retained
     step of the logdir (default: the newest).  ``save_images`` dumps the
     maps of each image and ``gt.png``; ``extract_ptc`` a point cloud per
-    image.  Returns ``(summary, per_image)`` as the JAX ``eval_model``."""
-    if lpips_weights:
-        raise NotImplementedError("LPIPS: ROADMAP A9")
-    dev = resolve_device(device)
+    image; ``lpips_weights`` the LPIPS metrics.  Returns ``(summary,
+    per_image)`` as the JAX ``eval_model`` (on rank 0; empty on the other
+    ranks of a group)."""
     savedir = os.path.join(basedir, "validation")
-    os.makedirs(savedir, exist_ok=True)
     results_file = os.path.join(savedir, "results.txt")
-
     cfg = load_config_snapshot(basedir)
+    mesh = maybe_mesh(cfg, device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.primary
+    if primary:
+        os.makedirs(savedir, exist_ok=True)
+
     _, val_ds, cfg = get_datasets(cfg)
     pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint,
-                             checkpoint_step)
+                             checkpoint_step, mesh)
 
     sched = ScheduleValues.for_eval(cfg)  # eval-time fixup, eval_nerf.py:53-55
     renderer = ImageRenderer(cfg, pipeline)
-    if cfg.train_params.depth_analysis_rays:
+    if cfg.train_params.depth_analysis_rays and primary:
         _write_depth_analysis(cfg, pipeline, val_ds, sched, savedir)
+    lpips = Lpips(lpips_weights if primary else None, dev)
 
     summary = defaultdict(list)
     per_image = {}
@@ -133,6 +146,8 @@ def eval_model(
         t0 = time.perf_counter()
         out = next(outs)  # maps arrive on the host: the device work is done
         model_time.append(time.perf_counter() - t0)
+        if not primary:
+            continue
 
         if extract_ptc:
             # xyz = rd * depth + ro (eval_nerf.py:113-122), from the same
@@ -156,11 +171,16 @@ def eval_model(
         res["ssim_v1_coarse"], res["ssim_v2_coarse"] = calc_ssim(
             out[0]["rgb"], gt)
         res["ssim_v1_fine"], res["ssim_v2_fine"] = calc_ssim(out[1]["rgb"], gt)
+        if lpips.available:
+            res["lpips_coarse"] = lpips(out[0]["rgb"], gt)
+            res["lpips_fine"] = lpips(out[1]["rgb"], gt)
         per_image[i] = res
         for k, v in res.items():
             summary[k].append(v)
         print(f"image {i}: " + " ".join(f"{k}={v:.4f}" for k, v in res.items()))
 
+    if not primary:
+        return {}, {}
     summary["model_time_sec"] = model_time
     write_dicts_to_a_file(summary, per_image, results_file)
     print(f"avg model time per image: {sum(model_time) / len(model_time):.2f}s"

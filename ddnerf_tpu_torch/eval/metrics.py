@@ -1,5 +1,5 @@
-"""Evaluation metrics: PSNR and SSIM (numpy).  The port's copy of
-``ddnerf_tpu/eval/metrics.py``, without its LPIPS scorer (not ported).
+"""Evaluation metrics: PSNR and SSIM (numpy), and the LPIPS scorer.  The
+port's copy of ``ddnerf_tpu/eval/metrics.py``.
 
 Replaces the reference's metric stack (eval_nerf.py:128-160,
 validation_utils/validation.py:7-16) without the skimage/lpips dependencies:
@@ -9,12 +9,15 @@ validation_utils/validation.py:7-16) without the skimage/lpips dependencies:
   matching ``skimage.metrics.structural_similarity`` defaults (7x7 uniform
   window, K1=0.01, K2=0.03).  The reference computes it twice through two
   skimage API generations (validation.py:14-15) that are numerically the same
-  algorithm with different ``data_range`` handling; both variants are exposed.
+  algorithm with different ``data_range`` handling; both variants are exposed;
+* LPIPS — :class:`Lpips` over ``eval/lpips_net.py`` with local weights.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+import zipfile
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -104,3 +107,39 @@ def calc_ssim(image: np.ndarray, target: np.ndarray) -> Tuple[float, float]:
         data_range=float(image_gray.max() - image_gray.min()),
     )
     return v1, v2
+
+
+class Lpips:
+    """AlexNet-LPIPS scorer on ``device``; requires local weights.
+
+    ``weights_path`` is an ``.npz`` with AlexNet conv kernels and the LPIPS
+    linear weights (``eval/lpips_net.py``).  Without a path, ``available``
+    is False and ``__call__`` returns None: eval then omits the metric from
+    results.txt (the reference hard-depends on downloading AlexNet,
+    eval_nerf.py:92).  A path that cannot be read does the same with one
+    warning, where the JAX class is silent."""
+
+    def __init__(self, weights_path: Optional[str] = None, device="cpu"):
+        self.available = False
+        self._weights = None
+        if weights_path is None:
+            return
+        from ddnerf_tpu_torch.eval.lpips_net import load_weights
+
+        try:
+            self._weights = load_weights(weights_path, device)
+        except (OSError, ValueError, zipfile.BadZipFile) as e:
+            warnings.warn(f"LPIPS weights {weights_path!r} unreadable "
+                          f"({type(e).__name__}: {e}): lpips_coarse / "
+                          "lpips_fine are left out of results.txt",
+                          stacklevel=2)
+            return
+        self.available = True
+
+    def __call__(self, image: np.ndarray, target: np.ndarray
+                 ) -> Optional[float]:
+        if not self.available:
+            return None
+        from ddnerf_tpu_torch.eval.lpips_net import lpips_distance
+
+        return float(lpips_distance(self._weights, image, target))

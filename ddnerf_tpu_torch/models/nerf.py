@@ -55,13 +55,16 @@ Config switches that only shape TPU programs are accepted and ignored:
 ``ipe_variant`` (once checked), ``fetch_dtype``, ``fetch_precision``,
 ``skip_resampler_sort`` (the resampler's sort is the identity and is
 never run here), and the other layout / compiler knobs of
-``ParallelConfig``.
+``ParallelConfig``.  ``num_devices`` and ``data_axis`` are not among them:
+they are the data-parallel group's (``parallel/mesh.py``), and a pipeline
+made with that group's ``mesh`` takes the dp loss over the global batch in
+its training renders.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, NamedTuple, Optional, Union
+from typing import Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -87,7 +90,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 @dataclass
 class RayBatch:
     """A bundle of rays (the reference's packed ``[ro, rd, radius, near,
-    far, viewdirs]`` layout, models.py:144-162)."""
+    far, viewdirs]`` layout, models.py:144-162).  ``rows``: where the
+    bundle is one rank's share of a sharded render's chunk, which rows of
+    the chunk it holds (``core/draws.py``); None otherwise."""
 
     origins: torch.Tensor  # [N, 3]
     directions: torch.Tensor  # [N, 3]
@@ -95,9 +100,11 @@ class RayBatch:
     viewdirs: torch.Tensor  # [N, 3]
     near: torch.Tensor  # [N, 1]
     far: torch.Tensor  # [N, 1]
+    rows: Optional[Tuple[int, int, int]] = None
 
     @classmethod
-    def create(cls, origins, directions, radii, near: float, far: float):
+    def create(cls, origins, directions, radii, near: float, far: float,
+               rows: Optional[Tuple[int, int, int]] = None):
         origins = origins.reshape(-1, 3)
         directions = directions.reshape(-1, 3)
         ones = torch.ones_like(directions[:, :1])
@@ -109,6 +116,7 @@ class RayBatch:
                                                     keepdim=True),
             near=near * ones,
             far=far * ones,
+            rows=rows,
         )
 
 
@@ -139,10 +147,12 @@ class NerfPipeline:
 
     Weights are drawn from ``torch.Generator().manual_seed(seed)`` (torch's
     ``nn.Linear`` init) unless a checkpoint is loaded with
-    :meth:`load_state_dicts`.
+    :meth:`load_state_dicts`.  ``mesh``: the data-parallel group this
+    pipeline's rank belongs to (``parallel/mesh.py``), or None; the train
+    step and the renderer read it from here.
     """
 
-    def __init__(self, cfg: Config, device="cpu", seed: int = 0):
+    def __init__(self, cfg: Config, device="cpu", seed: int = 0, mesh=None):
         par = cfg.parallel
         # The render selectors, checked as ddnerf_tpu/models/nerf.py:137-156.
         if par.render_kernel_variant not in _RENDER_VARIANTS:
@@ -167,6 +177,7 @@ class NerfPipeline:
                              f"expected {' | '.join(_DTYPES)}")
         self.cfg = cfg
         self.device = torch.device(device)
+        self.mesh = mesh
         self.use_kernel = policy in _KERNEL_POLICIES
         self.use_train_kernel = policy in _TRAIN_KERNEL_POLICIES
         self.render_variant = par.render_kernel_variant
@@ -293,7 +304,8 @@ class NerfPipeline:
             rays.near, rays.far, mc.num_coarse, lindisp=mc.lindisp,
             perturb=mc.perturb,
             combined=ds.combined_sampling_method, combined_near=ds.near,
-            combined_split=ds.combined_split, generator=generator)
+            combined_split=ds.combined_split, generator=generator,
+            rows=rays.rows)
 
     def _render_mipnerf(self, rays: RayBatch, sched: ScheduleValues,
                         mode: str, generator: Optional[torch.Generator]):
@@ -313,14 +325,15 @@ class NerfPipeline:
                 t_vals = sampling.sample_pdf(
                     t_vals, ret[0]["weights"], mc.num_fine + 1,
                     pdf_padding=sched.pdf_padding, det=not mc.perturb,
-                    generator=generator)
+                    generator=generator, rows=rays.rows)
             raw = self._run_network(self.coarse, rays, t_vals, mode)
             out = rendering.volume_render(
                 raw[..., :3], raw[..., 3], t_vals, rays.directions,
                 generator=generator, noise_std=mc.radiance_field_noise_std,
                 white_background=mc.white_background,
                 eps_mask_pdf=self._eps_mask_pdf,
-                analytic_weights_vjp=cfg.parallel.composite_custom_vjp)
+                analytic_weights_vjp=cfg.parallel.composite_custom_vjp,
+                rows=rays.rows)
             ret[i] = {"rgb": out.rgb, "disp": out.disp, "acc": out.acc,
                       "weights": out.weights, "depth": out.depth,
                       "t_vals": t_vals}
@@ -339,7 +352,8 @@ class NerfPipeline:
             generator=generator, noise_std=mc.radiance_field_noise_std,
             white_background=mc.white_background,
             eps_mask_pdf=self._eps_mask_pdf,
-            analytic_weights_vjp=cfg.parallel.composite_custom_vjp)
+            analytic_weights_vjp=cfg.parallel.composite_custom_vjp,
+            rows=rays.rows)
 
         # ---- cycle 0: coarse with the depth-distribution head
         t0 = self._first_cycle_tvals(rays, mc, generator)
@@ -363,7 +377,7 @@ class NerfPipeline:
             s_left_tail, mc.num_fine + 1, near=ds.near, far=ds.far,
             pdf_padding=sched.pdf_padding,
             det=not mc.perturb,
-            generator=generator)
+            generator=generator, rows=rays.rows)
         raw1 = self._run_network(self.fine, rays, t1, mode)  # [N, M, 4]
         out1 = rendering.volume_render(raw1[..., :3], raw1[..., 3], t1,
                                        rays.directions, **composite_kw)
@@ -391,6 +405,7 @@ class NerfPipeline:
             left_tail.detach(), part_inside.detach(),
             filter_empty_rays=self._filter_empty,
             variant=tp.dp_loss_variant,
+            mesh=self.mesh if mode == "train" else None,
         ) * (t1.shape[-1] - 1)
         ret0.update(mus=mus, sigmas=sigmas, smoothed_sigmas=smoothed_sigmas,
                     mus_loss=mus_loss, sig_loss=sig_loss, mus_reg=mus_reg,

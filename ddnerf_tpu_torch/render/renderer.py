@@ -17,6 +17,20 @@ train loop's validation image) adds, for DDNeRF, the coarse weights and
 their ray counts (renderer.py:537-543); mip-NeRF has none of those and
 validates with the image maps alone.  The JAX renderer's packed fetch and its one-frame
 dispatch lookahead serve its host link and are not carried over.
+
+On a data-parallel group (``pipeline.mesh``, ``parallel/mesh.py``) each
+chunk's rays are split over the ranks, as the JAX renderer shards each
+chunk over its mesh (renderer.py:316-411, 486-505): rank r renders rows
+``[r·p, (r+1)·p)`` of a chunk of ``c`` rays, ``p = ceil(c / D)``, its share
+padded with the chunk's last ray to ``p`` rows.  The chunks are the
+single-device ones, and every random draw is made for the whole chunk and
+sliced (``core/draws.py``), so a ray meets the same draws on any number of
+ranks.  Every rank generates (and NDC-projects) the whole image's rays,
+and one all-gather at the end gives every rank the whole maps, which are
+then what a single device returns; a video frame is quantized after it, so
+the disparity is normalized by the whole frame's range.  A scalar (the
+validation dp loss) is the chunks' values weighted by each rank's real
+rays, summed over the ranks.
 """
 
 from __future__ import annotations
@@ -84,6 +98,10 @@ class ImageRenderer:
         if sched is None:
             sched = ScheduleValues.for_eval(self.cfg)
         keys = self.keys if keys is None else keys
+        mesh = self.pipeline.mesh
+        if mesh is not None and mesh.sharded:
+            return self._render_flat_sharded(origins, directions, radii,
+                                             generator, sched, keys)
         ds = self.cfg.dataset
         n = origins.shape[0]
         parts: Dict[int, Dict[str, list]] = {0: {}, 1: {}}
@@ -102,6 +120,72 @@ class ImageRenderer:
                         else torch.cat(v))
                     for k, v in parts[i].items()}
                 for i in parts}
+
+    def _render_flat_sharded(self, origins, directions, radii, generator,
+                             sched: ScheduleValues, keys: Sequence[str],
+                             ) -> Dict[int, Dict[str, torch.Tensor]]:
+        """:meth:`render_flat` on a mesh: this rank's share of every chunk,
+        then one all-gather of the packed maps (see the module
+        docstring)."""
+        mesh = self.pipeline.mesh
+        ds = self.cfg.dataset
+        n, dev = origins.shape[0], origins.device
+        maps: Dict[Tuple[int, str], list] = {}
+        sums: Dict[Tuple[int, str], torch.Tensor] = {}
+        owner = np.empty(n, np.int64)  # the rank that renders each ray
+        at = np.empty(n, np.int64)  # and its row in that rank's buffer
+        local = 0
+        for start in range(0, n, self.chunk):
+            stop = min(start + self.chunk, n)
+            p = -(-(stop - start) // mesh.size)
+            lo = min(start + mesh.rank * p, stop)
+            hi = min(lo + p, stop)
+            rows = torch.arange(lo, lo + p, device=dev).clamp_(max=stop - 1)
+            rays = RayBatch.create(
+                origins[rows], directions[rows], radii[rows], ds.near,
+                ds.far, rows=(lo - start, hi - start, stop - start))
+            out = self.pipeline.render_rays(rays, sched, self.mode, generator)
+            k = np.arange(stop - start)
+            owner[start:stop], at[start:stop] = k // p, local + k % p
+            for i in (0, 1):
+                for key in keys:
+                    v = out[i].get(key)
+                    if v is None:
+                        continue
+                    if v.dim() == 0:  # weighted by this rank's real rays
+                        w = v.float() * (hi - lo)
+                        sums[(i, key)] = (sums[(i, key)] + w
+                                          if (i, key) in sums else w)
+                    else:
+                        maps.setdefault((i, key), []).append(v)
+            local += p
+        src = torch.from_numpy(owner * local + at).to(dev)
+        return self._gather(mesh, maps, sums, src, n)
+
+    @staticmethod
+    def _gather(mesh, maps, sums, src: torch.Tensor, n: int,
+                ) -> Dict[int, Dict[str, torch.Tensor]]:
+        """This rank's map rows (``maps``: per (cycle, key) the chunks'
+        ``[p, ...]`` pieces) and weighted scalar sums -> every rank's whole
+        ``[n, ...]`` maps, in ray order, and the scalars' means over the
+        ``n`` rays: one all-gather of every map packed as float32 columns
+        (exact: the maps are float32), one all-reduce of the scalars."""
+        out: Dict[int, Dict[str, torch.Tensor]] = {0: {}, 1: {}}
+        parts = {key: torch.cat(v) for key, v in maps.items()}
+        if parts:
+            packed = torch.cat([v.reshape(v.shape[0], -1).float()
+                                for v in parts.values()], dim=1)
+            whole = mesh.all_gather(packed)
+            whole = whole.reshape(-1, packed.shape[1])[src]
+            widths = [v[0].numel() for v in parts.values()]
+            for (i, key), v, col in zip(parts, parts.values(),
+                                        whole.split(widths, dim=1)):
+                out[i][key] = col.reshape(n, *v.shape[1:]).to(v.dtype)
+        if sums:
+            total = mesh.all_reduce(torch.stack(list(sums.values()))) / n
+            for (i, key), v in zip(sums, total.unbind(0)):
+                out[i][key] = v
+        return out
 
     def _render_pose(self, pose, h, w, focal, generator, sched, keys=None):
         """Rays of the pose, generated (and, under ``dataset.ndc_rays``,

@@ -13,6 +13,10 @@ The files are written by :mod:`ddnerf_tpu_torch.render.media`, with the
 standard library, on every machine: an uncompressed AVI of 24-bit DIB
 frames where the JAX package writes DIVX through OpenCV, and PNGs where it
 uses imageio.
+
+Under ``torchrun`` with more than one rank every rank renders its share of
+each frame, the whole frame is quantized after the gather, and rank 0 alone
+writes the files and prints (``ddnerf_tpu/render/video.py:28-30,54,83``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import numpy as np
 from ddnerf_tpu_torch.data.assembly import get_datasets
 from ddnerf_tpu_torch.eval.evaluate import load_pipeline, resolve_device
 from ddnerf_tpu_torch.models.nerf import ScheduleValues
+from ddnerf_tpu_torch.parallel.mesh import maybe_mesh
 from ddnerf_tpu_torch.render.media import AviWriter, write_png
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
@@ -46,14 +51,17 @@ def render_model_video(basedir: str, save_images: bool = False,
     render poses (0: all) at the dataset's resolution, from the logdir's
     newest checkpoint, its retained ``checkpoint_step`` or the file
     ``torch_checkpoint``.  Returns the path of ``video.avi``."""
-    dev = resolve_device(device)
     savedir = os.path.join(basedir, "video")
-    os.makedirs(savedir, exist_ok=True)
-
     cfg = load_config_snapshot(basedir)
+    mesh = maybe_mesh(cfg, device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.primary
+    if primary:
+        os.makedirs(savedir, exist_ok=True)
+
     _, val_ds, cfg = get_datasets(cfg)
     pipeline = load_pipeline(basedir, cfg, dev, torch_checkpoint,
-                             checkpoint_step)
+                             checkpoint_step, mesh)
     sched = ScheduleValues.for_eval(cfg)
     renderer = ImageRenderer(cfg, pipeline, mode="render")
     h, w = val_ds.H, val_ds.W
@@ -65,6 +73,10 @@ def render_model_video(basedir: str, save_images: bool = False,
     frames = renderer.render_video_frames_from_poses(
         val_ds.render_poses[:n], h, w, val_ds.focal, sched=sched)
     times = []
+    if not primary:  # render this rank's shares; rank 0 writes
+        for _ in frames:
+            pass
+        return path
     with AviWriter(path, 2 * w, h, fps) as writer:
         for idx in range(n):
             t0 = time.perf_counter()

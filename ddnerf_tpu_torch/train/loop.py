@@ -1,4 +1,5 @@
-"""The training loop on one device.
+"""The training loop, on one device or on every rank of a data-parallel
+group.
 
 Counterpart of ``ddnerf_tpu/train/loop.py`` (reference
 train_model.py:19-264): config snapshot, seeded networks, resume from the
@@ -25,7 +26,18 @@ at ``validate_every`` (with the NDC depth un-warp and, under
 the retained checkpoints are written at ``save_every`` and at the end.
 ``profile_steps`` traces that many steady steps (``utils/profiling.py``);
 inside ``utils/debug.py::nan_debug_mode`` the step is the eager one with a
-finite check of every step.  Both model families.  Not here: the mesh.
+finite check of every step.  Both model families.
+
+Under ``torchrun`` with more than one rank (``parallel/mesh.py``) every rank
+runs this loop on its share of each step's rays, as the JAX loop runs on a
+mesh (``ddnerf_tpu/train/loop.py:63-146``): the device store is this rank's
+pixel block, sampled by :class:`~ddnerf_tpu_torch.parallel.mesh.
+ShardedStoreSampler`; the host-sampling path draws the whole global batch
+from the seeded generator on every rank and takes this rank's slice; the
+validation image is rendered sharded.  The step is the captured one under
+NCCL and the eager one under gloo.  Rank 0 alone prints and writes (the
+records, the snapshot, the checkpoints with every rank's generator state,
+the profile), and the rays/s line counts the effective global batch.
 """
 
 from __future__ import annotations
@@ -47,6 +59,8 @@ from ddnerf_tpu_torch.data.datasets import (
 from ddnerf_tpu_torch.eval.depth_analysis import run_depth_analysis
 from ddnerf_tpu_torch.eval.evaluate import resolve_device
 from ddnerf_tpu_torch.models.nerf import NerfPipeline
+from ddnerf_tpu_torch.parallel import mesh as pmesh
+from ddnerf_tpu_torch.parallel.distributed import process_ray_slice
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train import checkpoint as ckpt
 from ddnerf_tpu_torch.train.state import TrainState
@@ -98,7 +112,8 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
     ``step_mode``: ``"graph"`` (the captured step; the default on a CUDA
     device with the store resident) or ``"eager"`` (the default on the CPU
     and with host-side sampling, and forced inside ``nan_debug_mode``).
-    ``"graph"`` where it cannot run raises; it never gives way to eager.
+    ``"graph"`` where it cannot run raises; it never gives way to eager,
+    and that includes a gloo group, whose collectives no graph can hold.
     ``verbose=False`` silences the ``[TRAIN]`` / ``[VAL]`` lines, not the
     records.  ``profile_steps`` > 0 traces that many steady steps under
     ``logdir/plugins/profile/``; ``state.step`` advances by them, as in
@@ -106,34 +121,51 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
     if step_mode not in (None, *STEP_MODES):
         raise ValueError(f"step_mode={step_mode!r}: expected one of "
                          f"{' | '.join(STEP_MODES)}")
-    dev = resolve_device(device)
+    mesh = pmesh.maybe_mesh(cfg, device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    primary = mesh is None or mesh.primary
+    verbose = verbose and primary
     logdir = os.path.join(cfg.experiment.logdir, cfg.experiment.id)
     os.makedirs(logdir, exist_ok=True)
     # Dataset build may rescale near/far (pose normalization).
-    store, val_ds, cfg = load_train_store(cfg, dev)
+    store, val_ds, cfg = load_train_store(cfg, dev, mesh)
     use_device_store = isinstance(store, torch.Tensor)
     resume = _resume_path(logdir, load_checkpoint)
 
     exp = cfg.experiment
     seed = exp.randomseed
-    pipeline = NerfPipeline(cfg, dev, seed=seed)
+    pipeline = NerfPipeline(cfg, dev, seed=seed, mesh=mesh)
     state = TrainState(cfg, pipeline)
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    sampler = image_generator = None
+    sharded = mesh is not None and mesh.sharded
+    if not sharded:
+        generator = torch.Generator(device=dev).manual_seed(seed)
+    elif use_device_store:
+        sampler = pmesh.ShardedStoreSampler(
+            mesh, store, cfg.nerf.train.num_random_rays,
+            cfg.dataset.single_image_mode, seed)
+        generator, image_generator = sampler.generator, sampler.image_generator
+    else:
+        generator = torch.Generator(device=dev).manual_seed(
+            pmesh.rank_seed(seed, mesh.rank))
     if resume is not None:
-        step = ckpt.load_train_checkpoint(resume, pipeline, state, generator)
+        step = ckpt.load_train_checkpoint(resume, pipeline, state, generator,
+                                          mesh, image_generator)
         # Round-robin parity on resume (train_model.py:81).
         val_ds.current_idx = (step // exp.validate_every) % len(val_ds)
-        print(f"resumed from {resume} at iteration {step}", flush=True)
+        if primary:
+            print(f"resumed from {resume} at iteration {step}", flush=True)
     # Only now: a checkpoint this config cannot continue has raised above
     # and left the snapshot that eval reads as it was.
-    ckpt.save_config_snapshot(cfg, logdir)
+    if primary:
+        ckpt.save_config_snapshot(cfg, logdir)
     renderer = ImageRenderer(cfg, pipeline, mode="validation")
     total = max_iters or exp.train_iters
     start = state.step
-    if start >= total:
+    if start >= total and primary:
         print(f"nothing to train: iteration {start} is at or past the last "
               f"({total})", flush=True)
-    rays_per_iter = cfg.nerf.train.num_random_rays
+    rays_per_iter = pmesh.effective_train_rays(cfg, mesh)
     da_rays = (val_ds.load_depth_analysis_rays(cfg)
                if cfg.train_params.depth_analysis_rays else None)
     scalars_every = exp.train_scalars_every
@@ -143,14 +175,22 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
 
     # ---- the step
     debug = nan_debug_enabled()
-    if debug:
+    if debug and primary:
         print("debug-nans: the eager step with a finite check of every "
               "step (anomaly detection cannot see inside a graph replay)",
               flush=True)
+    if debug:
         step_mode = "eager"
+    nccl_or_none = mesh is None or mesh.backend == "nccl"
     if step_mode is None:
         step_mode = ("graph" if dev.type == "cuda" and use_device_store
-                     else "eager")
+                     and nccl_or_none else "eager")
+    if step_mode == "graph" and not nccl_or_none:
+        raise ValueError(
+            f"step_mode='graph' captures the step's collectives, which a "
+            f"{mesh.backend} group cannot hold ({mesh.describe()}): use "
+            f"--step-mode eager, or one card per rank (--device cuda) for "
+            f"NCCL")
     if step_mode == "graph" and not (dev.type == "cuda" and use_device_store):
         raise ValueError(
             "step_mode='graph' captures the step that draws its rays from "
@@ -162,16 +202,22 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
         if step_mode == "graph":
             stepper = CapturedTrainStep(
                 cfg, pipeline, state, store, generator,
-                max_block=max(longest if block_mode else 1, profile_steps))
+                max_block=max(longest if block_mode else 1, profile_steps),
+                sampler=sampler)
         else:
             stepper = EagerTrainStep.from_store(cfg, pipeline, state, store,
-                                                generator, check_finite=debug)
+                                                generator, check_finite=debug,
+                                                sampler=sampler)
     else:
         steps_expected = total - start
         if profile_steps and start + 2 < total:
             steps_expected += profile_steps  # the profiled steps draw too
-        batches = PrefetchedHostBatches(store, rays_per_iter, seed, dev,
-                                        max(steps_expected, 0))
+        if sharded:
+            pmesh.warn_indivisible(cfg.nerf.train.num_random_rays, mesh.size)
+        # On a mesh every rank draws the global batch and keeps its slice.
+        batches = PrefetchedHostBatches(
+            store, rays_per_iter, seed, dev, max(steps_expected, 0),
+            rows=process_ray_slice(rays_per_iter) if sharded else None)
         stepper = EagerTrainStep(cfg, pipeline, state, batches.take,
                                  generator, after_dispatch=batches.prefetch,
                                  check_finite=debug)
@@ -184,6 +230,10 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
                     else "one iteration at a time")
         if not use_device_store:
             said.append("rays sampled on the host one batch ahead")
+        if mesh is not None:
+            said.append(f"{rays_per_iter} rays per step over {mesh.size} "
+                        f"rank(s) of axis {cfg.parallel.data_axis!r}, "
+                        f"gradients all-reduced")
         print(", ".join(said), flush=True)
 
     def is_event(i, every):
@@ -199,10 +249,15 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
                   f"psnr {m['psnr_fine']:.2f} lr {m['lr']:.2e} "
                   f"({rate:,.0f} rays/s)", flush=True)
 
+    profiled = False
+
     def profiled_steps():
-        """``profile_steps`` steps under the profiler, their scalars
-        dropped: the step counter moves on, the iteration does not."""
-        with trace(logdir) as prof:
+        """``profile_steps`` steps under the profiler (rank 0's only),
+        their scalars dropped: the step counter moves on, the iteration
+        does not."""
+        nonlocal profiled
+        profiled = True
+        with trace(logdir, enable=primary) as prof:
             stepper.run(profile_steps)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
@@ -216,10 +271,12 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
                       **quiet)
         if i > 0 and is_event(i, exp.save_every):
             ckpt.save_train_checkpoint(logdir, pipeline, state, generator,
-                                       max_to_keep=exp.max_keep_ckpts)
+                                       max_to_keep=exp.max_keep_ckpts,
+                                       mesh=mesh,
+                                       image_generator=image_generator)
 
     prof = None
-    doc = Documenter(logdir, primary=True)
+    doc = Documenter(logdir, primary=primary)
     try:
         t_start = time.time()
         if not block_mode:
@@ -248,7 +305,7 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
                 k = last - i + 1
                 # One copy for the whole block, then per-iteration records.
                 mh = stepper.run(k).cpu().numpy()
-                if profile_steps and prof is None and i > start:
+                if profile_steps and not profiled and i > start:
                     prof = profiled_steps()
                 names = stepper.names
                 rate = train_rate(last - start + 1)
@@ -275,6 +332,9 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
             print(f"[profile] trace of {profile_steps} steps: "
                   f"{prof.trace_path}")
             print(summarize(prof, profile_steps), flush=True)
+        if mesh is not None and step_mode == "graph" and verbose:
+            print(f"[graph] each captured step holds {stepper.collectives} "
+                  f"all-reduce(s) over the {mesh.size} rank(s)", flush=True)
     finally:
         doc.close()
     return state, logdir
@@ -286,12 +346,17 @@ def _validate(cfg: Config, i: int, state: TrainState,
     """Whole-image validation: metrics, the NDC depth un-warp, for DDNeRF
     the dp loss and the μ/σ histograms, and the depth-analysis figures of
     ``da_rays`` (``load_depth_analysis_rays``'s tuple) when given
-    (loop.py:350-403).  ``verbose=False`` keeps the ``[VAL]`` line back."""
+    (loop.py:350-403).  ``verbose=False`` keeps the ``[VAL]`` line back.
+    On a mesh every rank renders its share of the image, and rank 0 alone
+    goes on to the metrics, the figures and the records."""
     t_val = time.time()
     sched = schedule_values(cfg, state.step)
     pose, gt = val_ds.get_next_validation_pose()
     out = renderer.render_image_from_pose(
         pose, val_ds.H, val_ds.W, val_ds.focal, sched=sched)
+    mesh = renderer.pipeline.mesh
+    if mesh is not None and not mesh.primary:
+        return
     vm = validation_metrics(cfg, out, gt)
     if cfg.dataset.ndc_rays:
         ro_reg, rd_reg, _ = val_ds.get_current_regular_validation_rays(

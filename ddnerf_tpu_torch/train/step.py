@@ -16,6 +16,13 @@ train_model.py:132-177).  Two forms of the same step:
 Both are driven through one interface, ``run(k) -> [k, n_metrics]`` on the
 device with the metric names in ``names`` (:class:`EagerTrainStep` wraps the
 eager form), so the loop reads a block's scalars in one copy.
+
+On a data-parallel group (``pipeline.mesh``, ``parallel/mesh.py``) each rank
+runs the same step on its share of the rays; the gradients and the scalar
+metrics are averaged over the ranks in one all-reduce after the backward,
+and the dp loss divides by the global kept count.  NCCL's collectives are
+captured with the rest of the step; gloo's cannot be, so a gloo group runs
+the eager step.
 """
 
 from __future__ import annotations
@@ -84,6 +91,7 @@ def _gradients(cfg: Config, pipeline: NerfPipeline, batch: Batch,
     scalar metrics with the PSNRs."""
     near, far = cfg.dataset.near, cfg.dataset.far
     params = pipeline.parameters()
+    mesh = pipeline.mesh
     for p in params:
         p.grad = None
 
@@ -110,6 +118,8 @@ def _gradients(cfg: Config, pipeline: NerfPipeline, batch: Batch,
         metrics = {key: v / k for key, v in sums.items()}
     else:
         metrics = accumulate(batch)
+    if mesh is not None:  # the global batch's gradients and metrics
+        metrics = mesh.average(params, metrics)
     metrics["psnr_coarse"] = mse2psnr(metrics["loss_coarse"])
     metrics["psnr_fine"] = mse2psnr(metrics["loss_fine"])
     return metrics
@@ -190,10 +200,14 @@ class EagerTrainStep:
     @classmethod
     def from_store(cls, cfg: Config, pipeline: NerfPipeline,
                    state: TrainState, store: torch.Tensor,
-                   generator: torch.Generator, check_finite: bool = False):
-        """Batches drawn from the device-resident ``store``."""
-        return cls(cfg, pipeline, state,
-                   lambda: _draw_batch(cfg, store, generator), generator,
+                   generator: torch.Generator, check_finite: bool = False,
+                   sampler=None):
+        """Batches drawn from the device-resident ``store``, or by
+        ``sampler`` (a rank's :class:`~ddnerf_tpu_torch.parallel.mesh.
+        ShardedStoreSampler`) when given."""
+        take = (sampler.draw if sampler is not None
+                else lambda: _draw_batch(cfg, store, generator))
+        return cls(cfg, pipeline, state, take, generator,
                    check_finite=check_finite)
 
     def run(self, k: int) -> torch.Tensor:
@@ -235,6 +249,15 @@ class CapturedTrainStep:
 
     ``run(k)`` (``k <= max_block``) returns the first ``k`` rows of the
     buffer, valid until the next ``run``.
+
+    ``sampler`` (a rank's :class:`~ddnerf_tpu_torch.parallel.mesh.
+    ShardedStoreSampler`, whose ``store`` and ``generator`` are then the
+    ones passed) draws the batch in place of the whole-store draw, and each
+    of its generators is registered.  On a data-parallel group the step's
+    all-reduces are recorded too (``collectives`` counts those of one
+    replay); the communicator exists by then, because the warm-up
+    iterations ran them.  A gloo group's collectives cannot be captured:
+    such a step raises.
     """
 
     mode = "graph"
@@ -242,7 +265,13 @@ class CapturedTrainStep:
 
     def __init__(self, cfg: Config, pipeline: NerfPipeline, state: TrainState,
                  store: torch.Tensor, generator: torch.Generator,
-                 max_block: int = 1):
+                 max_block: int = 1, sampler=None):
+        mesh = pipeline.mesh
+        if mesh is not None and mesh.backend != "nccl":
+            raise ValueError(
+                f"a captured step cannot hold the collectives of a "
+                f"{mesh.backend} group ({mesh.describe()}): run it with "
+                f"--step-mode eager (step_mode='eager')")
         if store.device.type != "cuda" or generator.device.type != "cuda":
             raise ValueError(
                 f"a captured step needs the store and the generator on a "
@@ -254,6 +283,12 @@ class CapturedTrainStep:
                 "'eager')")
         self.cfg, self.pipeline, self.state = cfg, pipeline, state
         self.store, self.generator = store, generator
+        if sampler is not None:
+            self._draw, self._generators = sampler.draw, sampler.generators
+        else:
+            self._draw = lambda: _draw_batch(cfg, store, generator)
+            self._generators = [generator]
+        self.collectives = 0
         self.max_block = int(max_block)
         dev = store.device
         self.names: List[str] = []
@@ -273,9 +308,8 @@ class CapturedTrainStep:
         main = torch.cuda.current_stream(self.store.device)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            metrics = train_step_from_store(self.cfg, self.pipeline,
-                                            self.state, self.store,
-                                            self.generator)
+            metrics = train_step(self.cfg, self.pipeline, self.state,
+                                 self._draw(), self.generator)
             if self.buffer is None:
                 self.names = list(metrics)
                 self.buffer = torch.zeros(
@@ -291,8 +325,11 @@ class CapturedTrainStep:
         cfg, pipeline, state = self.cfg, self.pipeline, self.state
         nets = pipeline.networks()
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.generator)
+        for gen in self._generators:
+            graph.register_generator_state(gen)
         before = dict(fused_mlp.CAPTURED)
+        mesh = pipeline.mesh
+        collectives = mesh.collectives if mesh is not None else 0
         for net in nets:  # so that the pack is made inside the graph
             fused_mlp.forget_packed(net)
         with torch.cuda.graph(graph):
@@ -300,9 +337,8 @@ class CapturedTrainStep:
             state.lr.copy_(lr)
             sched = ScheduleValues(gaussian_smooth_factor=smooth,
                                    pdf_padding=pdf_padding)
-            metrics = _gradients(cfg, pipeline,
-                                 _draw_batch(cfg, self.store, self.generator),
-                                 sched, self.generator)
+            metrics = _gradients(cfg, pipeline, self._draw(), sched,
+                                 self.generator)
             state.optimizer.step()
             metrics["lr"] = state.lr
             if list(metrics) != self.names:
@@ -312,6 +348,8 @@ class CapturedTrainStep:
             self.row.add_(1)
         for net in nets:  # that pack is the graph's, and is stale outside
             fused_mlp.forget_packed(net)
+        if mesh is not None:
+            self.collectives = mesh.collectives - collectives
         nodes = {name: n - before[name]
                  for name, n in fused_mlp.CAPTURED.items() if n != before[name]}
         return graph, nodes

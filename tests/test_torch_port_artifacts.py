@@ -314,8 +314,8 @@ def test_eval_artifacts_match_jax_eval(logdirs):
 
 def test_eval_cli_flags(logdirs, tmp_path, capsys):
     """Without ``--save_images`` / ``--extract_ptc`` the CLI writes neither
-    (the JAX CLI's defaults); ``--checkpoint`` of an absent step and
-    ``--lpips-weights`` raise."""
+    (the JAX CLI's defaults); ``--checkpoint`` of an absent step raises;
+    ``--lpips-weights`` of an unreadable file warns and leaves LPIPS out."""
     run = str(tmp_path / "run")
     shutil.copytree(logdirs["port"], run, ignore=shutil.ignore_patterns(
         "validation"))
@@ -325,7 +325,10 @@ def test_eval_cli_flags(logdirs, tmp_path, capsys):
     with pytest.raises(FileNotFoundError, match=r"step 3 .*available: \[\]"):
         eval_cli.main(["--logdir", run, "--checkpoint", "3", "--device",
                        "cpu"])
-    with pytest.raises(NotImplementedError, match="LPIPS: ROADMAP A9"):
+    with pytest.warns(UserWarning, match="alex.npz.* unreadable"):
         eval_cli.main(["--logdir", run, "--lpips-weights", "alex.npz",
-                       "--device", "cpu"])
+                       "--max-images", "1", "--device", "cpu"])
+    with open(os.path.join(run, "validation", "results.txt")) as f:
+        text = f.read()
+    assert "psnr_fine" in text and "lpips" not in text
     capsys.readouterr()

@@ -1,10 +1,11 @@
 """The port runs without JAX and without the JAX package: every
-ddnerf_tpu_torch module imports, a tiny image renders, two training steps
-run through the train loop and a video frame of the logdir they write
-renders, on the CPU, in a process where importing jax, flax, optax, orbax
-or ddnerf_tpu fails, and so does importing imageio or matplotlib, which
-not every installation of the port has.  chip_smoke.py refuses to report
-without a GPU."""
+ddnerf_tpu_torch module imports (the data-parallel modules and LPIPS among
+them), a tiny image renders, two training steps run through the train loop
+and a video frame of the logdir they write renders, LPIPS scores two images
+on weights written here, on the CPU, in a process where importing jax,
+flax, optax, orbax or ddnerf_tpu fails, and so does importing imageio or
+matplotlib, which not every installation of the port has.  chip_smoke.py
+refuses to report without a GPU."""
 
 import os
 import pkgutil
@@ -29,6 +30,10 @@ mods = [m.name for m in pkgutil.walk_packages(ddnerf_tpu_torch.__path__,
                                               "ddnerf_tpu_torch.")]
 for name in mods:
     importlib.import_module(name)
+assert {{"ddnerf_tpu_torch.parallel.mesh",
+         "ddnerf_tpu_torch.parallel.distributed",
+         "ddnerf_tpu_torch.eval.lpips_net",
+         "ddnerf_tpu_torch.core.draws"}} <= set(mods), mods
 
 import numpy as np
 from ddnerf_tpu_torch.config import Config
@@ -82,6 +87,20 @@ with tempfile.TemporaryDirectory() as tmp:
                               ).render_video_frame_from_pose(
         val_ds.render_poses[0], val_ds.H, val_ds.W, val_ds.focal)
     assert rgb.shape == (8, 8, 3) and disp.shape == (8, 8)
+    from ddnerf_tpu_torch.eval.metrics import Lpips
+    from ddnerf_tpu_torch.parallel.mesh import maybe_mesh
+    rng = np.random.default_rng(0)
+    shapes = [(64, 3, 11, 11), (192, 64, 5, 5), (384, 192, 3, 3),
+              (256, 384, 3, 3), (256, 256, 3, 3)]
+    w = {{}}
+    for i, sh in enumerate(shapes):
+        w[f"conv{{i}}_w"] = 0.05 * rng.standard_normal(sh).astype(np.float32)
+        w[f"conv{{i}}_b"] = np.zeros(sh[0], np.float32)
+        w[f"lin{{i}}_w"] = rng.random(sh[0]).astype(np.float32)
+    np.savez(os.path.join(tmp, "alex.npz"), **w)
+    img = rng.random((32, 32, 3)).astype(np.float32)
+    assert Lpips(os.path.join(tmp, "alex.npz"))(img, img[::-1]) > 0
+    assert maybe_mesh(cfg, "cpu") is None  # one process: no group
 leaked = [m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
           and sys.modules[m] is not None]
 assert not leaked, leaked
