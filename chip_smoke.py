@@ -75,8 +75,8 @@ Run from the repository root.  Phases, each of which fails the run:
    plain versions at this path's shapes and cotangents too;
 11. one rank under NCCL: the training CLI launched by torchrun as one
    rank, a group of one whose two all-reduces are captured in the step's
-   CUDA graph, for 40 iterations; its records and checkpoint must equal
-   the same command's without torchrun bitwise;
+   CUDA graph, for phase 5's 200 iterations; its records and checkpoint
+   must equal phase 5's run (the same command without torchrun) bitwise;
 12. two ranks sharing card 0 under gloo (the eager step): the training
    loop with host sampling, and 20 steps on batches whose halves hold
    different numbers of empty rays, each against one process on the same
@@ -88,28 +88,46 @@ Run from the repository root.  Phases, each of which fails the run:
    the image dumps, frames of both forward kernels and an NDC frame must
    equal what one process wrote in phases 6b, 9 and 10, bitwise, rank 0
    alone writing and printing;
-14. LPIPS of two rendered images on the card against the CPU's value.
+14. LPIPS of two rendered images on the card against the CPU's value;
+15. real-360 main path (``configs/real360_dd.yml`` and, shorter,
+   ``configs/real360_mipnerf.yml``): a ring of cameras written to disk in
+   the LLFF layout, trained by the CLI at full width under the captured
+   step (the snapshot must hold near / far after ``normalize_poses``),
+   evaluated on one image, frames of the spherical video path through B1
+   (``mlp``) and through B3 (``ipe2``), and a frame of each forward kernel
+   against the plain version by PSNR;
+16. the dress rehearsals, ``scripts/dress_rehearsal_torch.sh`` and its
+   ``--llff``: the dataset writer, then 3,000 iterations of
+   ``configs/blender_dd.yml`` / ``configs/ff_dd.yml`` at 400 x 400 through
+   the train, eval and video CLIs; ``psnr_fine`` must reach the JAX
+   package's gates (19.0 and 27.0), and the SSIMs, the loop's ms/step and
+   each CLI's wall are printed.
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
-sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12 and 13
-(over every rank), each counted from 0 in its own process.  Every Python
-process a phase starts, every rank included, lists its imports, and none
-may import JAX, the JAX package, imageio or matplotlib.  Without CUDA, or
+sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15
+and 16 (over every rank), each counted from 0.  The single-process CLI
+runs of phases 5-10 and 15 are calls of each CLI's ``main`` in one worker
+process, one after another, every count set to 0 before each call; the
+rehearsals and the torchrun launches are processes of their own.  Every
+Python process a phase starts, every rank included, lists its imports, and
+none may import JAX, the JAX package, imageio or matplotlib.  Without CUDA, or
 without the package beside this file, the run exits non-zero and prints no
 result.
 """
 
 from __future__ import annotations
 
+import atexit
 import importlib.util
 import json
 import math
 import os
 import pickle
 import re
+import select
 import signal
 import statistics
 import subprocess
@@ -572,11 +590,12 @@ _IMPORT_LINE = re.compile(r"^import time:\s+\d+ \|\s+\d+ \|\s*(\S+)$", re.M)
 IMPORTS_SEEN = {"processes": 0, "leaked": set()}
 
 
-def _subprocess(cmd, tag, timeout=900):
+def _subprocess(cmd, tag, timeout=900, env=None):
     """Run ``cmd`` from the repository root in a fresh process (its kernel
-    launch counts start at 0), echo its stdout, fail on a non-zero exit or
-    at ``timeout``, when the process and all it started are killed."""
-    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1")
+    launch counts start at 0; ``env``: variables to add), echo its stdout,
+    fail on a non-zero exit or at ``timeout``, when the process and all it
+    started are killed."""
+    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1", **(env or {}))
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
@@ -589,10 +608,7 @@ def _subprocess(cmd, tag, timeout=900):
         proc.communicate()
         fail(f"{tag}: {' '.join(cmd[2:4])} ran past its {timeout} s")
     wall = time.perf_counter() - t0
-    IMPORTS_SEEN["processes"] += stderr.count("import time: self [us]")
-    IMPORTS_SEEN["leaked"].update(
-        m for m in _IMPORT_LINE.findall(stderr)
-        if m.split(".")[0] in FORBIDDEN_MODULES)
+    _audit_imports(stderr)
     for line in stdout.splitlines():
         print(f"[{tag}] {line}")
     if proc.returncode != 0:
@@ -602,6 +618,106 @@ def _subprocess(cmd, tag, timeout=900):
         fail(f"{tag}: {' '.join(cmd[2:4])} exited {proc.returncode}")
     m = re.search(r"^kernel launches: (\{.*\})$", stdout, re.M)
     return stdout, (json.loads(m.group(1)) if m else {}), wall
+
+
+def _audit_imports(stderr):
+    """Add the processes and forbidden imports that ``stderr`` (written
+    under PYTHONPROFILEIMPORTTIME) lists to the run's audit."""
+    IMPORTS_SEEN["processes"] += stderr.count("import time: self [us]")
+    IMPORTS_SEEN["leaked"].update(
+        m for m in _IMPORT_LINE.findall(stderr)
+        if m.split(".")[0] in FORBIDDEN_MODULES)
+
+
+# The CLIs of the single-process main paths run one after another in one
+# Python process, each a call of its module's ``main(argv)`` (what
+# ``python -m`` runs) with every launch count set to 0 just before it: a
+# process of its own for each would pay its set-up, about 12 s, each time.
+# The worker answers each request with one JSON line on a copy of its
+# stdout; what the CLI prints is captured, and any other write to fd 1
+# goes to its stderr.
+_CLI_WORKER = r"""
+import contextlib, importlib, io, json, os, sys, time, traceback
+replies = os.fdopen(os.dup(1), "w")
+os.dup2(2, 1)
+from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+for request in sys.stdin:
+    module, argv = json.loads(request)
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+    out, error, t0 = io.StringIO(), None, time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(module).main(argv)
+    except BaseException:
+        error = traceback.format_exc()
+    replies.write(json.dumps({"out": out.getvalue(), "error": error,
+                              "wall": time.perf_counter() - t0}) + "\n")
+    replies.flush()
+"""
+CLI_WORKER = {"proc": None, "stderr": None}
+
+
+def _kill_cli_worker():
+    proc = CLI_WORKER["proc"]
+    if proc is not None and proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def _cli(cmd, tag, timeout=900):
+    """Run ``cmd``, ``[python, -m, ddnerf_tpu_torch.cli.X, *argv]``, in the
+    CLI worker (started on first use) and echo what it printed; fail if it
+    raised or ran past ``timeout``.  Returns (stdout, launch counts, wall
+    of the call) as :func:`_subprocess` does."""
+    if CLI_WORKER["proc"] is None:
+        env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1")
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        CLI_WORKER["stderr"] = tempfile.TemporaryFile("w+")
+        CLI_WORKER["proc"] = subprocess.Popen(
+            [sys.executable, "-c", _CLI_WORKER], cwd=REPO, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=CLI_WORKER["stderr"], text=True, start_new_session=True)
+        atexit.register(_kill_cli_worker)
+    proc = CLI_WORKER["proc"]
+    proc.stdin.write(json.dumps([cmd[2], cmd[3:]]) + "\n")
+    proc.stdin.flush()
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline() if ready else ""
+    if not line:
+        _kill_cli_worker()
+        CLI_WORKER["stderr"].seek(0)
+        errors = [ln for ln in CLI_WORKER["stderr"].read().splitlines()
+                  if not ln.startswith("import time:")]
+        print("\n".join(errors)[-4000:], file=sys.stderr)
+        fail(f"{tag}: {cmd[2]} " + ("ended the CLI worker" if ready else
+                                    f"ran past its {timeout} s"))
+    reply = json.loads(line)
+    for out_line in reply["out"].splitlines():
+        print(f"[{tag}] {out_line}")
+    if reply["error"]:
+        print(reply["error"][-4000:], file=sys.stderr)
+        fail(f"{tag}: {' '.join(cmd[2:4])} raised")
+    m = re.search(r"^kernel launches: (\{.*\})$", reply["out"], re.M)
+    return reply["out"], (json.loads(m.group(1)) if m else {}), reply["wall"]
+
+
+def _close_cli_worker():
+    """End the CLI worker (its card memory is freed for the later phases)
+    and add its imports to the audit."""
+    proc = CLI_WORKER["proc"]
+    if proc is None:
+        return
+    proc.stdin.close()
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        _kill_cli_worker()
+    CLI_WORKER["stderr"].seek(0)
+    _audit_imports(CLI_WORKER["stderr"].read())
+    CLI_WORKER["proc"] = None
+    if proc.returncode != 0:
+        fail(f"the CLI worker exited {proc.returncode}")
 
 
 def _check_train_output(out, tag):
@@ -628,7 +744,7 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
            CONFIG, "--max-iters", str(TRAIN_ITERS),
            "experiment.logdir", logroot, "experiment.id", run, *opts]
-    out, launches, wall = _subprocess(cmd, tag)
+    out, launches, wall = _cli(cmd, tag)
     logdir = os.path.join(logroot, run)
     _check_train_output(out, tag)
     if not re.search(r"^step mode: graph .*blocks of up to \d+", out, re.M):
@@ -747,7 +863,7 @@ def phase_host_sampling(logroot, tag="host-sampling"):
            "parallel.max_store_gb", "0", "experiment.print_every", "10",
            # The full rate from the first step: 40 iterations must show.
            "optimizer.lr_delay_steps", "0"]
-    out, launches, wall = _subprocess(cmd, tag)
+    out, launches, wall = _cli(cmd, tag)
     _check_train_output(out, tag)
     if not re.search(r"^step mode: eager, .*rays sampled on the host", out,
                      re.M):
@@ -781,7 +897,7 @@ def phase_profile_steps(logroot, tag="profile-steps"):
            CONFIG, "--max-iters", str(PROFILE_ITERS), "--profile-steps",
            str(PROFILE_STEPS), "experiment.logdir", logroot,
            "experiment.id", "profiled", "experiment.print_every", "10"]
-    out, launches, wall = _subprocess(cmd, tag)
+    out, launches, wall = _cli(cmd, tag)
     _check_train_output(out, tag)
     trace = re.search(r"^\[profile\] trace of \d+ steps: (\S+)$", out, re.M)
     digest = re.search(r"^\[profile\] per step: device busy (\S+) ms of a "
@@ -826,7 +942,7 @@ def phase_main_path(logdir, tag="eval", flags=(), images=2):
     """The eval CLI on the trained logdir; returns its launch counts."""
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.eval",
            "--logdir", logdir, "--max-images", str(images), *flags]
-    _, launches, wall = _subprocess(cmd, tag)
+    _, launches, wall = _cli(cmd, tag)
     results = os.path.join(logdir, "validation", "results.txt")
     if not os.path.isfile(results):
         fail(f"{tag}: eval wrote no validation/results.txt")
@@ -844,9 +960,11 @@ def phase_main_path(logdir, tag="eval", flags=(), images=2):
     return launches
 
 
-def phase_video_main_path(logdir, tag="video"):
+def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
+                          hw=VIDEO_HW, step=TRAIN_ITERS):
     """The video CLI on an ``ipe2`` sibling of the trained logdir and on
-    the logdir itself (``mlp``); returns both runs' launch counts summed."""
+    the logdir itself (``mlp``), ``frames_wanted`` frames of ``hw`` from
+    ``checkpoint_{step}.ckpt``; returns both runs' launch counts summed."""
     from ddnerf_tpu_torch.config import Config
     from ddnerf_tpu_torch.render.media import read_avi, read_png
 
@@ -859,34 +977,34 @@ def phase_video_main_path(logdir, tag="video"):
     with open(os.path.join(sibling, "config.yml"), "w") as f:
         f.write(cfg.replace_at("parallel.render_kernel_variant",
                                "ipe2").dump())
-    newest = f"checkpoint_{TRAIN_ITERS}.ckpt"
+    newest = f"checkpoint_{step}.ckpt"
     os.symlink(os.path.join(logdir, newest), os.path.join(sibling, newest))
-    h, w = VIDEO_HW
+    h, w = hw
     chunks = -(-h * w // cfg.nerf.validation.chunksize)
-    expected = 2 * chunks * VIDEO_FRAMES  # two networks per chunk
+    expected = 2 * chunks * frames_wanted  # two networks per chunk
     runs = {}
     for variant, path, kernel, other in (
             ("ipe2", sibling, "fused_enc_mlp_fwd", "fused_mlp_fwd"),
             ("mlp", logdir, "fused_mlp_fwd", "fused_enc_mlp_fwd")):
         cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
-               "--logdir", path, "--max-frames", str(VIDEO_FRAMES),
+               "--logdir", path, "--max-frames", str(frames_wanted),
                "--save_images"]
-        out, launches, wall = _subprocess(cmd, f"{tag}-{variant}")
+        out, launches, wall = _cli(cmd, f"{tag}-{variant}")
         avi = os.path.join(path, "video", "video.avi")
         if not os.path.isfile(avi) or os.path.getsize(avi) == 0:
             fail(f"video ({variant}) wrote no video.avi")
         frames, fps = read_avi(avi)
-        if frames.shape != (VIDEO_FRAMES, h, 2 * w, 3) or fps != 24:
+        if frames.shape != (frames_wanted, h, 2 * w, 3) or fps != 24:
             fail(f"video.avi ({variant}) holds {frames.shape} at {fps} fps, "
-                 f"expected {(VIDEO_FRAMES, h, 2 * w, 3)} at 24")
-        for i in range(VIDEO_FRAMES):
+                 f"expected {(frames_wanted, h, 2 * w, 3)} at 24")
+        for i in range(frames_wanted):
             png = read_png(os.path.join(path, "video", f"frame_{i:04d}.png"))
             if not np.array_equal(png, frames[i]):
                 fail(f"frame_{i:04d}.png ({variant}) differs from the video")
         if frames.std() == 0:
             fail(f"video ({variant}) frames are constant")
         avg = re.search(r"^avg render time per frame: (\S+)s", out, re.M)
-        print(f"[{tag}-{variant}] {VIDEO_FRAMES} frames of "
+        print(f"[{tag}-{variant}] {frames_wanted} frames of "
               f"{frames.shape[1:]} in video.avi ({os.path.getsize(avi)} "
               f"bytes) and as PNGs; avg frame {avg.group(1) if avg else '?'} "
               f"s, wall {wall:.1f} s, launches {launches}", flush=True)
@@ -1120,17 +1238,51 @@ def phase_step_gradients(torch, tag, opts, config=CONFIG):
              f"disagrees with the plain backward: {bad}")
 
 
+def _frame_vs_plain(cfg, tag, what):
+    """A frame of the path's first render pose (its validation image's
+    size) from seeded weights, through both forward kernels and the plain
+    version: each kernel frame within ``FRAME_PSNR_MIN`` of the plain one,
+    and each render launching its kernel alone, twice."""
+    from ddnerf_tpu_torch.data.assembly import get_datasets
+    from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.render.renderer import ImageRenderer
+
+    _, val_ds, cfg = get_datasets(cfg)
+    pose = val_ds.render_poses[0]
+    rgbs = {}
+    for name, policy, variant, kernel in (
+            ("plain", "off", "mlp", None), ("kernel", "auto", "mlp",
+                                            "fused_mlp_fwd"),
+            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd")):
+        c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
+            "parallel.render_kernel_variant", variant)
+        renderer = ImageRenderer(c, NerfPipeline(c, "cuda", seed=0))
+        for key in LAUNCHES:
+            LAUNCHES[key] = 0
+        rgbs[name] = renderer.render_image_from_pose(
+            pose, val_ds.H, val_ds.W, val_ds.focal)[1]["rgb"]
+        launched = {k: v for k, v in LAUNCHES.items() if v}
+        if launched != ({kernel: 2} if kernel else {}):
+            fail(f"{tag}: the {name} frame launched {launched}")
+    for name in ("kernel", "ipe2"):
+        mse = float(np.mean((rgbs[name] - rgbs["plain"]) ** 2))
+        frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
+        print(f"[{tag}] {val_ds.H} x {val_ds.W} {what} rgb PSNR {name} vs "
+              f"plain {frame_psnr:.2f} dB (gate {FRAME_PSNR_MIN:g})",
+              flush=True)
+        if not (frame_psnr >= FRAME_PSNR_MIN
+                and np.isfinite(rgbs[name]).all()):
+            fail(f"{tag}: the {name} frame disagrees with the plain version")
+
+
 def phase_ndc_main_path(logroot):
     """The NDC path through the CLIs on an on-disk LLFF scene, with a stop
     and a rerun; returns the launch counts of its runs, summed, and the
     config overrides that name the scene."""
     from ddnerf_tpu_torch.config import load_config
-    from ddnerf_tpu_torch.data.assembly import get_datasets
     from ddnerf_tpu_torch.data.synthetic import write_synthetic_llff
-    from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
-    from ddnerf_tpu_torch.models.nerf import NerfPipeline
     from ddnerf_tpu_torch.render.media import read_avi
-    from ddnerf_tpu_torch.render.renderer import ImageRenderer
     from ddnerf_tpu_torch.train.checkpoint import all_steps
 
     t0 = time.perf_counter()
@@ -1156,7 +1308,7 @@ def phase_ndc_main_path(logroot):
         # logdir's checkpoint, not start over.
         cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
                FF_CONFIG, "--max-iters", str(iters), *opts]
-        out, launches, wall = _subprocess(cmd, f"ndc-train-{attempt}")
+        out, launches, wall = _cli(cmd, f"ndc-train-{attempt}")
         printed = _check_train_output(out, f"ndc-train-{attempt}")
         resumed = re.search(r"^resumed from .* at iteration (\d+)$", out, re.M)
         at = int(resumed.group(1)) if resumed else None
@@ -1213,7 +1365,7 @@ def phase_ndc_main_path(logroot):
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
            "--logdir", logdir, "--max-frames", "1", "--save_images",
            "--checkpoint", str(NDC_ITERS[1])]
-    out, launches, wall = _subprocess(cmd, "ndc-video")
+    out, launches, wall = _cli(cmd, "ndc-video")
     frames, _ = read_avi(os.path.join(logdir, "video", "video.avi"))
     _decoded_pngs(os.path.join(logdir, "video"), ["frame_0000.png"])
     avg = re.search(r"^avg render time per frame: (\S+)s", out, re.M)
@@ -1233,39 +1385,121 @@ def phase_ndc_main_path(logroot):
 
     # An NDC frame of seeded weights through both forward kernels against
     # the plain version: the rays are projected on the card.
-    _, val_ds, cfg = get_datasets(cfg)
-    pose = val_ds.render_poses[0]
-    rgbs = {}
-    for name, policy, variant, kernel in (
-            ("plain", "off", "mlp", None), ("kernel", "auto", "mlp",
-                                            "fused_mlp_fwd"),
-            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd")):
-        c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
-            "parallel.render_kernel_variant", variant)
-        renderer = ImageRenderer(c, NerfPipeline(c, "cuda", seed=0))
-        for key in LAUNCHES:
-            LAUNCHES[key] = 0
-        rgbs[name] = renderer.render_image_from_pose(
-            pose, val_ds.H, val_ds.W, val_ds.focal)[1]["rgb"]
-        launched = {k: v for k, v in LAUNCHES.items() if v}
-        if launched != ({kernel: 2} if kernel else {}):
-            fail(f"ndc {name} frame launched {launched}")
-    for name in ("kernel", "ipe2"):
-        mse = float(np.mean((rgbs[name] - rgbs["plain"]) ** 2))
-        frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
-        print(f"[ndc-frame] {h} x {w} NDC rgb PSNR {name} vs plain "
-              f"{frame_psnr:.2f} dB (gate {FRAME_PSNR_MIN:g})", flush=True)
-        if not (frame_psnr >= FRAME_PSNR_MIN
-                and np.isfinite(rgbs[name]).all()):
-            fail(f"ndc {name} frame disagrees with the plain version")
+    _frame_vs_plain(cfg, "ndc-frame", "NDC")
     return _sum_launches(*runs), ("dataset.basedir", scene)
+
+
+# ------------------------------------------------------------------------
+# The real-360 path (phase 15) and the dress rehearsals (phase 16).
+REAL360_CONFIGS = {"dd": os.path.join(REPO, "configs", "real360_dd.yml"),
+                   "mipnerf": os.path.join(REPO, "configs",
+                                           "real360_mipnerf.yml")}
+# The ring scene: 10 views of 200 x 200, which the configs'
+# downsample_factor 4 minifies to 50 x 50; llffhold 8 holds out 2.
+REAL360_SCENE_SIZE, REAL360_SCENE_VIEWS = 200, 10
+REAL360_HW = (50, 50)
+# (training iterations, video frames per kernel) of each family's run.
+REAL360_RUNS = {"dd": (40, 2), "mipnerf": (20, 1)}
+# The configs' near 1 / far 14 after normalize_factor 5.
+REAL360_NEAR_FAR = (0.2, 2.8)
+# psnr_fine gates of scripts/dress_rehearsal_torch.sh at its default shape
+# (400 x 400, 12 views, 3,000 iterations), the JAX package's own gates.
+REHEARSALS = {"rehearsal-blender": ((), 19.0, 3000),
+              "rehearsal-llff": (("--llff",), 27.0, 3000)}
+
+
+def phase_real360_main_path(logroot):
+    """The real-360 path of both families through the CLIs on a ring of
+    cameras written to disk: the captured step for each run's iterations
+    at full width, the config's near / far after ``normalize_poses`` in
+    the snapshot, eval of one image, frames of the spherical path through
+    B1 (``mlp``) and B3 (``ipe2``), and a frame kernel vs plain; returns
+    the launch counts of the runs, summed."""
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.synthetic import write_synthetic_real360
+    from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+
+    t0 = time.perf_counter()
+    scene = os.path.join(logroot, "real360_scene")
+    write_synthetic_real360(scene, size=REAL360_SCENE_SIZE,
+                            n=REAL360_SCENE_VIEWS, seed=0)
+    print(f"[real360] wrote {REAL360_SCENE_VIEWS} views of "
+          f"{REAL360_SCENE_SIZE}^2 on a ring in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = []
+    for family, config in REAL360_CONFIGS.items():
+        iters, frames = REAL360_RUNS[family]
+        tag, run = f"real360-{family}", f"real360_{family}"
+        cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
+               config, "--max-iters", str(iters), "dataset.basedir", scene,
+               "experiment.logdir", logroot, "experiment.id", run,
+               "experiment.validate_every", str(iters // 2),
+               "experiment.save_every", str(iters),
+               "experiment.print_every", "10"]
+        out, launches, wall = _cli(cmd, f"{tag}-train")
+        _check_train_output(out, f"{tag}-train")
+        if not re.search(r"^step mode: graph ", out, re.M):
+            fail(f"{tag}: the CLI did not run the captured step")
+        logdir = os.path.join(logroot, run)
+        snap = load_config_snapshot(logdir).dataset
+        near_far = (snap.near, snap.far)
+        print(f"[{tag}] {iters} iterations, wall {wall:.1f} s, near / far "
+              f"{near_far}, launches {launches}", flush=True)
+        if not np.allclose(near_far, REAL360_NEAR_FAR):
+            fail(f"{tag}: the snapshot holds near / far {near_far}, "
+                 f"expected {REAL360_NEAR_FAR} (normalize_poses)")
+        for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+            if launches.get(name) != 2 * iters:
+                fail(f"{tag}: training launched {name} {launches.get(name)} "
+                     f"times, expected {2 * iters}")
+        if launches.get("fused_mlp_fwd", 0) <= 0:
+            fail(f"{tag}: validation did not launch fused_mlp_fwd")
+        runs += [launches,
+                 phase_main_path(logdir, f"{tag}-eval", images=1),
+                 phase_video_main_path(logdir, f"{tag}-video", frames,
+                                       REAL360_HW, iters)]
+        cfg = load_config(config).merge_from_list(
+            ["dataset.basedir", scene]).resolved()
+        _frame_vs_plain(cfg, f"{tag}-frame", "spherical-path")
+    return _sum_launches(*runs)
+
+
+def phase_rehearsal(logroot, tag):
+    """``scripts/dress_rehearsal_torch.sh`` at its default shape: the
+    dataset writer, the three CLIs and the script's own PSNR gate, held
+    here too; returns the launch counts of its CLIs, summed."""
+    flags, gate, iters = REHEARSALS[tag]
+    out, _, wall = _subprocess(
+        ["bash", os.path.join(REPO, "scripts", "dress_rehearsal_torch.sh"),
+         *flags], tag, timeout=600,
+        env={"DRESS_WORKDIR": os.path.join(logroot, tag)})
+    launches = _sum_launches(*map(json.loads, re.findall(
+        r"^kernel launches: (\{.*\})$", out, re.M)))
+    summary = re.search(r"^eval psnr_fine=(\S+) ssim_v1_fine=(\S+) "
+                        r"ssim_v2_fine=(\S+) .* loop (\S+) ms/step; wall "
+                        r"train (\S+) s, eval (\S+) s, video (\S+) s$",
+                        out, re.M)
+    if not summary or "DRESS REHEARSAL PASSED" not in out:
+        fail(f"{tag}: the rehearsal printed no summary or did not pass")
+    psnr = float(summary.group(1))
+    print(f"[{tag}] psnr_fine {psnr} (gate {gate}), ssim_v1_fine "
+          f"{summary.group(2)}, ssim_v2_fine {summary.group(3)}; loop "
+          f"{summary.group(4)} ms/step; CLI walls train {summary.group(5)} "
+          f"s, eval {summary.group(6)} s, video {summary.group(7)} s; whole "
+          f"script {wall:.1f} s; launches {launches}", flush=True)
+    if not psnr >= gate:
+        fail(f"{tag}: psnr_fine {psnr} below the gate {gate}")
+    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+        if launches.get(name) != 2 * iters:
+            fail(f"{tag}: launched {name} {launches.get(name)} times, "
+                 f"expected {2 * iters}")
+    return launches
 
 
 # ------------------------------------------------------------------------
 # Data parallelism (phases 11-14): torchrun launches, one card.
 
 TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone"]
-NCCL_ITERS = 40  # phase 11's runs
 GLOO_ITERS = 20  # phase 12's runs
 # Phase 12's own batches: the first EMPTY_RAYS[0] rays of a batch (rank
 # 0's half) and EMPTY_RAYS[1] of the second half are shrunk to 1e-12 of
@@ -1326,24 +1560,21 @@ def _block_ms(records):
         ends[1]["step"] - ends[0]["step"])
 
 
-def phase_nccl_one_rank(logroot, tag="nccl-1"):
+def phase_nccl_one_rank(logroot, single_logdir, tag="nccl-1"):
     """The training CLI launched by torchrun as one rank: a group of one
     on NCCL whose two all-reduces (the dp loss's kept count, the flat
     gradients and metrics) are captured in the step's CUDA graph, against
-    the same command without torchrun; returns the run's launch counts."""
+    the same command without torchrun, phase 5's run in ``single_logdir``;
+    returns the run's launch counts."""
     import torch
 
-    cli = ["-m", "ddnerf_tpu_torch.cli.train", "--config", CONFIG,
-           "--max-iters", str(NCCL_ITERS), "experiment.logdir", logroot,
-           "experiment.print_every", "10"]
-    runs = {}
-    for name, launcher in (("single", [sys.executable]),
-                           ("nccl", TORCHRUN + ["--nproc_per_node", "1"])):
-        out, launches, wall = _subprocess(
-            launcher + cli + ["experiment.id", f"one_{name}"], f"{tag}-{name}")
-        runs[name] = (out, launches, wall,
-                      os.path.join(logroot, f"one_{name}"))
-    out, launches = runs["nccl"][0], runs["nccl"][1]
+    logdir = os.path.join(logroot, "one_nccl")
+    out, launches, wall = _subprocess(
+        TORCHRUN + ["--nproc_per_node", "1", "-m",
+                    "ddnerf_tpu_torch.cli.train", "--config", CONFIG,
+                    "--max-iters", str(TRAIN_ITERS), "experiment.logdir",
+                    logroot, "experiment.id", "one_nccl"], f"{tag}-nccl")
+    runs = {"single": single_logdir, "nccl": logdir}
     if not re.search(r"^1 rank, backend nccl, cuda:0", out,
                      re.M):
         fail(f"{tag}: the run did not say that it formed a group of one on "
@@ -1355,31 +1586,32 @@ def phase_nccl_one_rank(logroot, tag="nccl-1"):
     if not held or int(held.group(1)) != 2:
         fail(f"{tag}: the captured step holds "
              f"{held.group(1) if held else 'no'} all-reduces, expected 2")
-    records = {name: _records(r[3]) for name, r in runs.items()}
-    if len(records["nccl"]) != NCCL_ITERS or \
+    records = {name: _records(path) for name, path in runs.items()}
+    if len(records["nccl"]) != TRAIN_ITERS or \
             records["nccl"] != records["single"]:
         fail(f"{tag}: metrics.jsonl under torchrun differs from the single "
              f"process's")
     ckpts = {name: torch.load(os.path.join(
-        r[3], f"checkpoint_{NCCL_ITERS}.ckpt"), weights_only=True)
-        for name, r in runs.items()}
+        path, f"checkpoint_{TRAIN_ITERS}.ckpt"), weights_only=True)
+        for name, path in runs.items()}
     differ = _same_tree(ckpts["nccl"], ckpts["single"])
     ms = {name: _block_ms([json.loads(line) for line in
-                           open(os.path.join(r[3], "metrics.jsonl"))])
-          for name, r in runs.items()}
-    print(f"[{tag}] {NCCL_ITERS} iterations, one rank on NCCL vs one "
-          f"process: {len(records['nccl'])} records and checkpoint_"
-          f"{NCCL_ITERS}.ckpt {'bitwise equal' if not differ else differ}; "
+                           open(os.path.join(path, "metrics.jsonl"))])
+          for name, path in runs.items()}
+    print(f"[{tag}] {TRAIN_ITERS} iterations, one rank on NCCL vs one "
+          f"process (phase 5): {len(records['nccl'])} records and "
+          f"checkpoint_{TRAIN_ITERS}.ckpt "
+          f"{'bitwise equal' if not differ else differ}; "
           f"{held.group(1) if held else 'no'} all-reduces per captured "
           f"step; loop pace "
           f"{ms['nccl']:.2f} vs {ms['single']:.2f} ms/step; wall "
-          f"{runs['nccl'][2]:.1f} vs {runs['single'][2]:.1f} s", flush=True)
+          f"{wall:.1f} s", flush=True)
     if differ:
         fail(f"{tag}: the checkpoints differ at {differ[:5]}")
     for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
-        if launches.get(name) != 2 * NCCL_ITERS:
+        if launches.get(name) != 2 * TRAIN_ITERS:
             fail(f"{tag}: launched {name} {launches.get(name)} times, "
-                 f"expected {2 * NCCL_ITERS}")
+                 f"expected {2 * TRAIN_ITERS}")
     return launches, ms
 
 
@@ -1839,8 +2071,12 @@ def main():
         ndc_step_ms = phase_train_parity(torch, "ndc-parity", ndc_scene,
                                          FF_CONFIG)
         phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
+        real360_launches = phase_real360_main_path(logroot)
+        _close_cli_worker()
+        rehearsal_launches = {tag: phase_rehearsal(logroot, tag)
+                              for tag in REHEARSALS}
         # Data parallelism: torchrun launches on this one card.
-        nccl_launches, nccl_ms = phase_nccl_one_rank(logroot)
+        nccl_launches, nccl_ms = phase_nccl_one_rank(logroot, logdir)
         render_launches, lpips_weights, eval_dir = phase_render_two_ranks(
             logroot, logdir, mip_logdir, os.path.join(logroot, "ndc_smoke"))
         phase_lpips_on_card(torch, lpips_weights, eval_dir)
@@ -1886,12 +2122,15 @@ def main():
                "mipnerf": _sum_launches(mip_train, mip_eval, mip_video),
                "ndc": ndc_launches,
                "parallel": _sum_launches(nccl_launches, gloo_launches,
-                                         render_launches)}
+                                         render_launches),
+               "real360": real360_launches, **rehearsal_launches}
     total = _sum_launches(*by_path.values())
     print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
     for path, counts in by_path.items():
-        # The NDC path films through B1 alone (the config's variant).
-        expected = [k for k in total if not (path == "ndc"
+        # The NDC path and the rehearsals film through B1 alone (their
+        # configs' variant).
+        b1_only = path == "ndc" or path in REHEARSALS
+        expected = [k for k in total if not (b1_only
                                              and k == "fused_enc_mlp_fwd")]
         idle = [k for k in expected if counts.get(k, 0) <= 0]
         if idle:

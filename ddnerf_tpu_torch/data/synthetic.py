@@ -137,22 +137,80 @@ def write_synthetic_llff(outdir: str, size: int = 64, n: int = 12,
                          seed: int = 0) -> None:
     """Write the sphere scene as an on-disk forward-facing capture in the
     LLFF layout that ``load_llff_data`` reads: ``images/image%03d.png`` and
-    ``poses_bounds.npy``.  ``n`` cameras jittered on a plane at z ~ +4 look
-    down -z at a point near the origin and are traced with the pinhole
-    model of :func:`generate_synthetic_blender`, composited on black.  Each
-    pose is stored in the COLMAP column convention the loader swaps back
-    (``[-u, r, b, t]`` and a fifth column ``[H, W, focal]``) with depth
-    bounds that bracket the scene (z in [-1.1, 1.1])."""
+    ``poses_bounds.npy`` (:func:`_write_llff_capture`).  ``n`` cameras
+    jittered on a plane at z ~ +4 look down -z at a point near the origin,
+    with depth bounds that bracket the scene (z in [-1.1, 1.1])."""
+    rng = np.random.default_rng(seed)
+    cameras = []
+    for _ in range(n):
+        eye = np.array([rng.uniform(-0.8, 0.8), rng.uniform(-0.6, 0.6),
+                        4.0 + rng.uniform(-0.2, 0.2)], np.float32)
+        target = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2),
+                           0.0], np.float32)
+        c2w = _look_from(eye, eye - target, np.array([0.0, 1.0, 0.0],
+                                                     np.float32))
+        cameras.append((c2w, eye[2] - 1.5, eye[2] + 1.5))
+    _write_llff_capture(outdir, size, cameras)
+
+
+# The 360-degree capture's ring of cameras: its radius around the origin
+# and its elevation above the equator.
+RING_RADIUS, RING_ELEVATION_DEG = 4.0, 25.0
+
+
+def write_synthetic_real360(outdir: str, size: int = 64, n: int = 12,
+                            seed: int = 0) -> None:
+    """Write the sphere scene as an on-disk 360-degree capture in the LLFF
+    layout that ``load_llff_data`` reads for ``dataset.type: real360``
+    (:func:`_write_llff_capture`).  ``n`` cameras on a ring of
+    :data:`RING_RADIUS` around the origin at :data:`RING_ELEVATION_DEG`
+    above the equator look at the origin.  Their azimuths are evenly spaced and jittered by up to 5
+    degrees, as the blender scene's are: on an exactly even ring the
+    cameras' horizontal axes cancel, and the horizontal axes of the
+    loader's average pose (``poses_avg``: the cross product of the summed
+    up and back axes) would be set by rounding noise, so that another order
+    of summation would turn the recentred scene about the vertical.  Each
+    image's depth bounds bracket the scene (radius 1.1 around the origin),
+    which near 1 / far 14 of ``configs/real360_*.yml`` hold as well."""
+    rng = np.random.default_rng(seed)
+    thetas = np.deg2rad(np.linspace(0.0, 360.0, n, endpoint=False)
+                        + rng.uniform(-5.0, 5.0, n))
+    phi = np.deg2rad(RING_ELEVATION_DEG)
+    cameras = []
+    for theta in thetas:
+        eye = (RING_RADIUS * np.array([np.cos(phi) * np.cos(theta),
+                                  np.cos(phi) * np.sin(theta),
+                                  np.sin(phi)])).astype(np.float32)
+        c2w = _look_from(eye, eye, np.array([0.0, 0.0, 1.0], np.float32))
+        cameras.append((c2w, RING_RADIUS - 1.5, RING_RADIUS + 1.5))
+    _write_llff_capture(outdir, size, cameras)
+
+
+def _look_from(eye, back, world_up):
+    """A camera at ``eye`` whose back axis is along ``back``, its right
+    axis level with ``world_up``: c2w ``[3, 4]`` as ``[r u b t]``."""
+    back = back / np.linalg.norm(back)
+    right = np.cross(world_up, back)
+    right /= np.linalg.norm(right)
+    up = np.cross(back, right)
+    return np.stack([right, up, back, eye], axis=-1)
+
+
+def _write_llff_capture(outdir: str, size: int, cameras) -> None:
+    """Trace one ``size`` x ``size`` image per camera of ``cameras``
+    (``[(c2w [3, 4] as [r u b t], near, far)]``) with the pinhole model of
+    :func:`generate_synthetic_blender`, composited on black, into
+    ``outdir/images/image%03d.png``, and write ``poses_bounds.npy``: each
+    pose in the COLMAP column convention the loader swaps back (``[-u, r,
+    b, t]`` and a fifth column ``[H, W, focal]``), then the depth bounds."""
     import os
 
     from ddnerf_tpu_torch.data.images import write_image
 
     h = w = size
     focal = 0.5 * w / np.tan(0.5 * 0.6911)
-    rng = np.random.default_rng(seed)
     imgdir = os.path.join(outdir, "images")
     os.makedirs(imgdir, exist_ok=True)
-
     ii, jj = np.meshgrid(np.arange(w, dtype=np.float32),
                          np.arange(h, dtype=np.float32), indexing="xy")
     dirs_cam = np.stack(
@@ -160,29 +218,17 @@ def write_synthetic_llff(outdir: str, size: int = 64, n: int = 12,
         axis=-1,
     )
     rows = []
-    for i in range(n):
-        eye = np.array([rng.uniform(-0.8, 0.8), rng.uniform(-0.6, 0.6),
-                        4.0 + rng.uniform(-0.2, 0.2)], np.float32)
-        target = np.array([rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2),
-                           0.0], np.float32)
-        back = eye - target
-        back /= np.linalg.norm(back)
-        right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), back)
-        right /= np.linalg.norm(right)
-        up = np.cross(back, right)
-        c2w = np.stack([right, up, back, eye], axis=-1)  # [3, 4], [r u b t]
-
+    for i, (c2w, near, far) in enumerate(cameras):
         rd = np.sum(dirs_cam[..., None, :] * c2w[:3, :3], axis=-1)
         ro = np.broadcast_to(c2w[:3, -1], rd.shape)
         rgba = _trace(ro, rd)
         rgb = rgba[..., :3] * rgba[..., 3:4]
         write_image(os.path.join(imgdir, f"image{i:03d}.png"),
                     (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
-
+        right, up, back, eye = c2w.T
         stored = np.concatenate(
             [np.stack([-up, right, back, eye], axis=-1),
              np.array([[h], [w], [focal]], np.float32)], axis=-1)
-        near, far = eye[2] - 1.5, eye[2] + 1.5
         rows.append(np.concatenate([stored.ravel(), [near, far]]))
     np.save(os.path.join(outdir, "poses_bounds.npy"),
             np.stack(rows).astype(np.float64))

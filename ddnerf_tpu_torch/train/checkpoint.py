@@ -14,7 +14,11 @@ data-parallel group of several ranks (``parallel/mesh.py``) saves from rank
 0 alone, with every rank's generator state (gathered) and the world size;
 it resumes only at that world size.  A single process (or a group of one)
 writes the layout it always wrote.  Orbax checkpoints of the JAX package
-are not read here (the port imports no orbax).
+are not read here (the port imports no orbax): ``scripts/orbax_to_ckpt.py``
+converts one into this layout where JAX is installed.  A JAX run's random
+key has no counterpart among the generator's states, so a converted file
+carries :data:`GENERATOR_SEED_KEY` in place of ``generator_state``, and the
+run it resumes draws from a generator seeded anew (:func:`converted_seed`).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import os
 import re
 from typing import Any, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from ddnerf_tpu_torch.config import Config
@@ -35,6 +40,9 @@ GENERATOR_KEY = "generator_state"
 GENERATORS_KEY = "generator_states"  # every rank's, in rank order
 IMAGE_GENERATOR_KEY = "image_generator_state"  # single-image mode's
 WORLD_KEY = "world_size"
+# Written instead of GENERATOR_KEY by a conversion from a JAX run: why the
+# file holds no generator state.
+GENERATOR_SEED_KEY = "generator_seeded_on_resume"
 _STEP_FILE = re.compile(r"^checkpoint_(\d+)\.ckpt$")
 
 
@@ -122,6 +130,14 @@ def save_train_checkpoint(logdir: str, pipeline, state,
     return path
 
 
+def converted_seed(randomseed: int, step: int) -> int:
+    """The seed of the generator a converted run resumes with: a function
+    of ``experiment.randomseed`` and the step, so that two resumes of one
+    file draw the same rays."""
+    words = np.random.SeedSequence([int(randomseed), int(step)])
+    return int(words.generate_state(1, np.uint64)[0]) >> 1
+
+
 def load_train_checkpoint(path: str, pipeline, state,
                           generator: torch.Generator, mesh=None,
                           image_generator: Optional[torch.Generator] = None,
@@ -129,15 +145,21 @@ def load_train_checkpoint(path: str, pipeline, state,
     """Restore a run saved by :func:`save_train_checkpoint` into
     ``pipeline`` (networks), ``state`` (Adam moments and ``step``) and
     ``generator``, all in place: a step captured into a CUDA graph goes
-    on from the loaded run without a new capture.  A file without the
-    optimizer's or the generator's state (a reference checkpoint made for
-    evaluation) cannot resume training: ``ValueError``.  So does a file
-    written at another world size than this run's (``mesh``: every rank
-    loads the same file and takes its own generator state).  Returns the
-    restored step."""
+    on from the loaded run without a new capture.  A file converted from a
+    JAX run (:data:`GENERATOR_SEED_KEY` instead of a generator state) seeds
+    ``generator`` with :func:`converted_seed` of the pipeline's
+    ``experiment.randomseed`` and the step, and says so; it holds no world
+    size, so it resumes in a single process (or a group of one) only.  A
+    file without the optimizer's state, or without both the generator's
+    state and that marker (a reference checkpoint made for evaluation),
+    cannot resume training: ``ValueError``.  So does a file written at another world size
+    than this run's (``mesh``: every rank loads the same file and takes its
+    own generator state).  Returns the restored step."""
     ckpt: Dict[str, Any] = torch.load(path, map_location="cpu",
                                       weights_only=True)
-    missing = [k for k in (OPTIMIZER_KEY, GENERATOR_KEY) if k not in ckpt]
+    seeded = GENERATOR_KEY not in ckpt and GENERATOR_SEED_KEY in ckpt
+    needed = (OPTIMIZER_KEY,) if seeded else (OPTIMIZER_KEY, GENERATOR_KEY)
+    missing = [k for k in needed if k not in ckpt]
     if missing:
         raise ValueError(f"{path!r} holds no {' / '.join(missing)}: it can "
                          "be evaluated, not resumed")
@@ -150,7 +172,15 @@ def load_train_checkpoint(path: str, pipeline, state,
     pipeline.load_state_dicts(ckpt["model_1_state_dict"],
                               ckpt.get("model_2_state_dict"))
     state.load_optimizer_state_dict(ckpt[OPTIMIZER_KEY], int(ckpt["iter"]))
-    if here == 1:
+    if seeded:
+        seed = converted_seed(pipeline.cfg.experiment.randomseed, state.step)
+        generator.manual_seed(seed)
+        print(f"{path!r} holds no generator state "
+              f"({ckpt[GENERATOR_SEED_KEY]}): the generator is seeded "
+              f"with {seed}, from experiment.randomseed "
+              f"{pipeline.cfg.experiment.randomseed} and step "
+              f"{state.step}", flush=True)
+    elif here == 1:
         generator.set_state(ckpt[GENERATOR_KEY])
     else:
         generator.set_state(ckpt[GENERATORS_KEY][mesh.rank])
