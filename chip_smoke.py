@@ -7,7 +7,8 @@ Run from the repository root.  Phases, each of which fails the run:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile the CUDA kernels from ``ddnerf_tpu_torch/kernels/csrc``
    and print ptxas' registers, spill bytes and advisories for each: at
-   widths 128 and 256 there must be no spill and no advisory;
+   every width from 128 up (128, 192, 256, 384, 512) and in the small
+   kernels there must be no spill and no advisory;
 3. forward kernel vs plain: the fused MLP forward (render mode) against
    its plain PyTorch version for DepthMipMLP and MipMLP at width 256 on one
    production chunk (16384 rays x 32 samples) and on ragged shapes, with
@@ -19,8 +20,9 @@ Run from the repository root.  Phases, each of which fails the run:
    the forward plus the torch IPE assembly;
 4. training kernels vs plain: the stash forward (outputs bit-identical to
    render mode, activation slabs within the forward tolerances) and the
-   fused backward (every gradient within its norm-relative tolerance,
-   bitwise repeatable) against their plain versions at the training shape
+   fused backward (every gradient within its norm-relative tolerance and
+   every stage within its limits, :func:`b2_stage_readings`, bitwise
+   repeatable) against their plain versions at the training shape
    (2048 rays x 32 samples), the NDC path's training shapes (2048 rays x 16
    and x 17 samples), a ragged one, and ragged ones at widths 128 and 64,
    with CUDA-event timings;
@@ -101,15 +103,30 @@ Run from the repository root.  Phases, each of which fails the run:
    ``configs/blender_dd.yml`` / ``configs/ff_dd.yml`` at 400 x 400 through
    the train, eval and video CLIs; ``psnr_fine`` must reach the JAX
    package's gates (19.0 and 27.0), and the SSIMs, the loop's ms/step and
-   each CLI's wall are printed.
+   each CLI's wall are printed;
+17. network widths: B1, B3, B1s and B2 at widths 96 and 320 (run
+   zero-padded at 128 and 384), 192 and 512 (the N-split plan), both heads,
+   on a ragged row count, against their plain versions under the gates of
+   phases 3, 3b and 4 (B2 in both ``kernel_per_ray_dirs`` settings, stage
+   by stage at every width, its end result on the random data against the
+   plain version at 96, 192 and 320 and against the plain version
+   accumulating in float64 at 512, see :data:`B2_FLOAT64_WIDTHS`, and on
+   exact-integer data at every width), and each width's kernel times
+   beside their bounds; then the smoke config
+   with ``nerf.coarse_hidden_size 192 nerf.fine_hidden_size 512``: 100
+   iterations of the training CLI under the captured step (2 B1s + 2 B2 per
+   iteration), eval of one image, one video frame through B1 and one
+   through B3, that run's eval image and video frame through B1 and B3
+   against the plain version by PSNR, 20 captured iterations against 20
+   eager ones bit for bit, and 20 steps kernel vs plain.
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
-sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15
-and 16 (over every rank), each counted from 0.  The single-process CLI
-runs of phases 5-10 and 15 are calls of each CLI's ``main`` in one worker
+sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15,
+16 and 17 (over every rank), each counted from 0.  The single-process CLI
+runs of phases 5-10, 15 and 17 are calls of each CLI's ``main`` in one worker
 process, one after another, every count set to 0 before each call; the
 rehearsals and the torchrun launches are processes of their own.  Every
 Python process a phase starts, every rank included, lists its imports, and
@@ -168,6 +185,20 @@ TRAIN_RAYS = 2048
 # rounding, read >= 1.47e-3 on every trunk leaf and >= 4.8e-4 after it.
 GRAD_NORM_REL_TOL_TRUNK = 1e-3  # layers_xyz.*
 GRAD_NORM_REL_TOL_HEADS = 1.5e-4  # fc_feat, fc_alpha, layers_dir, fc_rgb, ...
+# B2 stage by stage (:func:`b2_stage_readings`: each stage against float64
+# fed the kernel's own cotangents, so that no flip carries down the chain).
+# Readings on phase 17's data, five seeds per width
+# (scripts/b2_rounding_floor.py; NVIDIA H100 80GB HBM3, 700 W): flip_share
+# <= 4.2e-5 / 7.1e-5 / 1.02e-4 / 1.30e-4 at widths 128 / 256 / 384 / 512
+# (the share of bf16 tensor-core products through cuBLAS, to the digit;
+# float32 FMA sums read 2.1e-5 .. 4.2e-5), g_h <= 1.1e-8, weights <= 2.8e-6,
+# biases <= 4.7e-7, dirs <= 1.1e-7.  Faults injected at 256 and 512:
+# cotangents rounded toward zero read flip_share 0.4995; biases summed after
+# the rounding, biases >= 1.74e-3; weight gradients rounded to bf16, weights
+# >= 1.67e-3; the last split of every weight gradient dropped, weights >=
+# 0.35; the per-sample dirs cotangent summed unrounded, dirs >= 1.80e-3.
+B2_STAGE_LIMITS = {"entry": 0, "flip_share": 1e-3, "far": 0, "g_h": 1e-6,
+                   "weights": 1e-4, "biases": 1e-4, "dirs": 1e-4}
 # B2 accumulates the weight gradients in f32: of their nonzero elements,
 # at most this share may be exactly representable in bf16 (read <= 0.8%,
 # the most at width 128; weight gradients rounded to bf16 read 100%).
@@ -196,6 +227,37 @@ NDC_KEEP = 2  # experiment.max_keep_ckpts of that run
 # Rows per ray of that config's two training evaluations (num_coarse 16;
 # the fine pass adds one).
 NDC_SAMPLES = (16, 17)
+# Phase 17, the network widths: kernels at widths no kernel was built for
+# (96 runs at 128, 320 at 384, zero-padded) and at the new plans (192; 512,
+# the N-split plan), and the smoke config with a coarse-192 / fine-512 pair:
+# its captured vs eager and kernel vs plain steps run the config's schedule,
+# as the other paths' do; its 100-iteration CLI run starts at the full rate
+# (no lr delay), so that its loss must fall.  At the full rate from step 0
+# no PARITY_GAP_TOL separates kernels from trajectories: over 20 steps
+# kernel vs plain reads 8.97e-4 at 192 / 512 (3.15e-5 at 256 / 256), and
+# the plain backward accumulating in float32 vs in float64, the kernel
+# forward under both, alone reads 1.08e-3 (4.66e-5)
+# (scripts/parity_full_rate.py).
+WIDTHS = (96, 192, 320, 512)
+# At 512 B2's trunk leaves read 1.30-1.37e-3 against the plain version
+# (five seeds, scripts/b2_rounding_floor.py), over GRAD_NORM_REL_TOL_TRUNK:
+# its bf16 cotangents are those of tensor-core products (float32
+# accumulation that drifts from float64 about linearly in K, where float32
+# FMA sums drift about as sqrt(K)), and a flip carries down the chain; the
+# plain version sits 8.5-9.2e-4 from float64 accumulation.  So at 512 the
+# end result is held against the plain version with float64 accumulation:
+# the trunk to B2_FLOAT64_TRUNK_TOL (sound 1.29-1.33e-3; the faults that
+# move it least, biases summed after the rounding and weight gradients
+# rounded to bf16, read 1.96e-3 and 2.13e-3), the rest to
+# GRAD_NORM_REL_TOL_HEADS (sound <= 3.1e-5, faults >= 1.71e-3); and every
+# stage to B2_STAGE_LIMITS, as at every width.  On exact-integer data
+# (:func:`_exact_case`) B2 is held at every width to EXACT_GRAD_TOL.
+B2_FLOAT64_WIDTHS = (512,)
+B2_FLOAT64_TRUNK_TOL = 1.6e-3
+EXACT_GRAD_TOL = 1e-6
+WIDE_OPTS = ("nerf.coarse_hidden_size", "192", "nerf.fine_hidden_size", "512")
+WIDE_TRAIN_OPTS = (*WIDE_OPTS, "optimizer.lr_delay_steps", "0")
+WIDE_ITERS, WIDE_GRAPH_STEPS = 100, 20
 # Modules that must not have been imported when the run ends: the JAX
 # package and its frameworks, and the libraries not every installation has.
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "ddnerf_tpu",
@@ -239,9 +301,10 @@ def phase_build():
         print(f"[build]   {r.name}: {r.registers} registers, "
               f"{r.spill_bytes} spill bytes"
               + "".join(f"; {a}" for a in r.advisories))
-        # Widths 128 and 256 (a kernel's first template argument) and the
+        # Widths from 128 up (a kernel's first template argument) and the
         # small kernels must neither spill nor draw an advisory: a wgmma
-        # kernel that does runs its products one at a time.
+        # kernel that does runs its products one at a time.  Width 64 of
+        # the forward is known to draw C7520.
         width = re.search(r"<(\d+)", r.name)
         if (not width or int(width.group(1)) >= 128) and (
                 r.spill_bytes or r.advisories):
@@ -267,19 +330,23 @@ def _event_ms(torch, fn, reps=TIMING_REPS):
     return statistics.median(times)
 
 
-def _forward_macs(net, rows, rays):
-    """Multiply-adds of one forward of ``net``: every weight once per row,
-    except the dir layer's view-direction columns, once per ray."""
-    per_row = sum(p.numel() for name, p in net.named_parameters()
-                  if name.endswith("weight"))
-    dirs_part = net.dir_hidden * 27
-    return rows * (per_row - dirs_part) + rays * dirs_part
+DIRS_MACS = 128 * 27  # the dir layer's view-direction columns, per ray
 
 
-def _param_bytes(net):
-    """The kernels read weights as bf16 and biases as f32."""
-    return sum(p.numel() * (2 if name.endswith("weight") else 4)
-               for name, p in net.named_parameters())
+def _row_macs(hidden, depth_head):
+    """Multiply-adds per row of one forward of a network of width ``hidden``
+    (its own width, not a kernel's padded one): every weight once, except
+    the dir layer's view-direction columns (:data:`DIRS_MACS`, once per
+    ray): trunk 96 w + 6 w^2 + (96 + w) w, fc_feat w^2, the dir layer
+    128 w, alpha w, rgb 3 x 128, mu / sigma 2 x 128 = 8 w^2 + 321 w + 640
+    for the depth head (607,104 at 256, 2,262,144 at 512)."""
+    return 8 * hidden ** 2 + 321 * hidden + 384 + (256 if depth_head else 0)
+
+
+def _param_counts(hidden, depth_head):
+    """(weights, biases) of a network of width ``hidden``."""
+    return (_row_macs(hidden, depth_head) + DIRS_MACS,
+            9 * hidden + 128 + 1 + 3 + (2 if depth_head else 0))
 
 
 def _bound_ms(flop, nbytes):
@@ -291,10 +358,13 @@ def _bound_ms(flop, nbytes):
                                         else "bytes")
 
 
-def kernel_bounds(net, rows, rays, train_rows, train_rays):
-    """``{kernel: (bound_ms, bound_by)}`` at the shapes that were timed:
-    the forwards B1 / B3 on ``rows`` (``rays`` rays), the training pair B1s
-    / B2 on ``train_rows``.  Forward: 2 FLOP per multiply-add; it reads the
+def kernel_bounds(hidden, rows, rays, train_rows, train_rays,
+                  depth_head=True):
+    """``{kernel: (bound_ms, bound_by)}`` for a network of width ``hidden``
+    at the shapes that were timed: the forwards B1 / B3 on ``rows``
+    (``rays`` rays), the training pair B1s / B2 on ``train_rows``.  The
+    work is the network's own width's: a width the kernels run zero-padded
+    counts no padded unit.  Forward: 2 FLOP per multiply-add; it reads the
     IPE (96 bf16 per row; B3: means and covs, 6 f32), the dirs (27 bf16
     per ray) and the parameters, and writes out_dim f32 per row; B1s also
     writes the stash, (9 H + 128) bf16 per row.  Backward: the weight
@@ -303,23 +373,24 @@ def kernel_bounds(net, rows, rays, train_rows, train_rays):
     skip layer's IPE columns, the dir layer's dirs columns); it reads the
     IPE, the dirs, the cotangent (out_dim f32 per row), the stash and the
     weights, and writes one f32 gradient per parameter."""
-    hid, out_dim = net.hidden_size, net.out_dim
-    params = _param_bytes(net)
-    n_params = sum(p.numel() for p in net.parameters())
+    out_dim = 6 if depth_head else 4
+    weights, biases = _param_counts(hidden, depth_head)
+    params = 2 * weights + 4 * biases  # read as bf16 weights, f32 biases
+    row_macs = _row_macs(hidden, depth_head)
     out = {}
-    fwd = 2 * _forward_macs(net, rows, rays)
+    fwd = 2 * (rows * row_macs + rays * DIRS_MACS)
     io = rays * 27 * 2 + params + rows * out_dim * 4
     out["fused_mlp_fwd"] = _bound_ms(fwd, io + rows * 96 * 2)
     out["fused_enc_mlp_fwd"] = _bound_ms(fwd, io + rows * 6 * 4)
-    macs = _forward_macs(net, train_rows, train_rays)
-    stash = train_rows * (9 * hid + 128) * 2
+    macs = train_rows * row_macs + train_rays * DIRS_MACS
+    stash = train_rows * (9 * hidden + 128) * 2
     io = train_rows * 96 * 2 + train_rays * 27 * 2 + params
     out["fused_mlp_fwd_stash"] = _bound_ms(
         2 * macs, io + train_rows * out_dim * 4 + stash)
-    no_dgrad = train_rows * 2 * 96 * hid + train_rays * net.dir_hidden * 27
+    no_dgrad = train_rows * 2 * 96 * hidden + train_rays * DIRS_MACS
     out["fused_mlp_bwd"] = _bound_ms(
         2 * (2 * macs - no_dgrad),
-        io + train_rows * out_dim * 4 + stash + n_params * 4)
+        io + train_rows * out_dim * 4 + stash + (weights + biases) * 4)
     return out
 
 
@@ -513,38 +584,10 @@ def phase_train_kernels(torch):
             worst["fused_mlp_fwd_stash"] = max(worst["fused_mlp_fwd_stash"],
                                                max_err)
 
-            grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
-            again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
-            torch.cuda.synchronize()
-            if not all(torch.equal(grads[name], again[name]) for name in grads):
-                fail(f"fused_mlp_bwd is not bitwise repeatable ({tag})")
-            plain = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k,
-                                                     stash)
-            bad = []
-            for name in plain:
-                rel = _rel(grads[name], plain[name])
-                abs_err = (grads[name] - plain[name]).abs().max().item()
-                worst["fused_mlp_bwd"] = max(worst["fused_mlp_bwd"], abs_err)
-                tol = (GRAD_NORM_REL_TOL_TRUNK
-                       if name.startswith("layers_xyz.")
-                       else GRAD_NORM_REL_TOL_HEADS)
-                ok, share = rel <= tol, ""
-                if name.endswith("weight"):
-                    nz = grads[name][grads[name] != 0]
-                    frac = (nz == nz.bfloat16().float()).float().mean().item()
-                    share = (f", bf16-exact share {frac:.4f} (max "
-                             f"{WEIGHT_GRAD_BF16_SHARE_MAX:g})")
-                    ok = ok and frac <= WEIGHT_GRAD_BF16_SHARE_MAX
-                if not ok:
-                    bad.append(name)
-                print(f"[train-kernel] B2 {tag} d{name}: norm_rel {rel:.3e} "
-                      f"(tol {tol:g}), max_abs {abs_err:.3e}{share}")
-            print(f"[train-kernel] B2 {tag}: {len(plain)} gradients, bitwise "
-                  f"repeatable, {'all within tolerance' if not bad else bad}",
-                  flush=True)
-            if bad:
-                fail(f"fused_mlp_bwd disagrees with the plain version "
-                     f"({tag}: {bad})")
+            worst["fused_mlp_bwd"] = max(
+                worst["fused_mlp_bwd"],
+                _check_backward(torch, "train-kernel", tag, net, ipe, dirs, g,
+                                k, stash))
             if (rays, k) != (TRAIN_RAYS, SAMPLES):
                 continue
             t = {
@@ -572,6 +615,394 @@ def phase_train_kernels(torch):
                   f"medians of {TIMING_REPS})", flush=True)
             timing[cls.__name__] = t
     return worst, timing
+
+
+def _check_backward(torch, phase, tag, net, ipe, dirs, g, k, stash,
+                    verbose=True, limits=(GRAD_NORM_REL_TOL_TRUNK,
+                                          GRAD_NORM_REL_TOL_HEADS),
+                    bf16_share=True, accumulate=None):
+    """B2 against its plain version in both settings of ``per_ray_dirs``
+    (per sample, the default, and per ray), each bitwise repeatable, every
+    stage within :data:`B2_STAGE_LIMITS`, every gradient within its
+    norm-relative limit (``limits``: trunk, the rest) of the plain version
+    (accumulating in ``accumulate``, float32 by default) and, with
+    ``bf16_share``, its weight gradients not rounded to bf16; returns the
+    largest |kernel - plain|."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    worst = 0.0
+    for per_ray in (False, True):
+        mode = f"{tag} {'per-ray' if per_ray else 'per-sample'} dirs"
+        grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, per_ray)
+        again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, per_ray)
+        torch.cuda.synchronize()
+        if not all(torch.equal(grads[name], again[name]) for name in grads):
+            fail(f"fused_mlp_bwd is not bitwise repeatable ({mode})")
+        plain = ref.fused_mlp_backward_reference(
+            net, ipe, dirs, g, k, stash, per_ray,
+            accumulate=accumulate or torch.float32)
+        stages, staged = b2_stage_readings(torch, net, ipe, dirs, g, k, stash,
+                                           per_ray)
+        if not all(torch.equal(grads[name], staged[name]) for name in grads):
+            fail(f"fused_mlp_bwd through its C entry point differs from the "
+                 f"wrapper's ({mode})")
+        over = [key for key, limit in B2_STAGE_LIMITS.items()
+                if not stages[key] <= limit]
+        print(f"[{phase}] B2 {mode}, stage by stage against float64 fed its "
+              f"own cotangents: " + ", ".join(
+                  f"{key} {stages[key]:.3e}" if isinstance(stages[key], float)
+                  else f"{key} {stages[key]}" for key in B2_STAGE_LIMITS)
+              + f" ({'within' if not over else 'OVER'} the limits)",
+              flush=True)
+        if over:
+            fail(f"fused_mlp_bwd fails its stage-by-stage check ({mode}: "
+                 f"{over})")
+        bad = []
+        for name in plain:
+            rel = _rel(grads[name], plain[name])
+            abs_err = (grads[name] - plain[name]).abs().max().item()
+            worst = max(worst, abs_err)
+            tol = limits[0] if name.startswith("layers_xyz.") else limits[1]
+            ok, share = rel <= tol, ""
+            if bf16_share and name.endswith("weight"):
+                nz = grads[name][grads[name] != 0]
+                frac = (nz == nz.bfloat16().float()).float().mean().item()
+                share = (f", bf16-exact share {frac:.4f} (max "
+                         f"{WEIGHT_GRAD_BF16_SHARE_MAX:g})")
+                ok = ok and frac <= WEIGHT_GRAD_BF16_SHARE_MAX
+            if not ok:
+                bad.append(name)
+            if verbose or not ok:
+                print(f"[{phase}] B2 {mode} d{name}: norm_rel {rel:.3e} "
+                      f"(tol {tol:g}), max_abs {abs_err:.3e}{share}")
+        against = ("" if accumulate is None else
+                   f" against the plain version accumulating in {accumulate}")
+        print(f"[{phase}] B2 {mode}: {len(plain)} gradients, bitwise "
+              f"repeatable{against}, "
+              f"{'all within tolerance' if not bad else bad}", flush=True)
+        if bad:
+            fail(f"fused_mlp_bwd disagrees with the plain version ({mode}: "
+                 f"{bad})")
+    return worst
+
+
+def _b2_launch(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
+    """B2 through its C entry point (on ``lib``, by default the built
+    library) with a workspace made here, which the wrapper would drop:
+    ``(gw, gb, ws, kw)``, the packed gradients, the workspace with the
+    cotangent slabs and the packed weights.  A check's launch: not counted."""
+    from ddnerf_tpu_torch.kernels import build
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    lib = lib or build.load_library()
+    dev, n = ipe.device, ipe.shape[0]
+    hid = fk.kernel_width(net.hidden_size)
+    kw = fk.pack_weights(net)
+    ipe_b = ipe.to(torch.bfloat16).contiguous()
+    dirs_p = torch.zeros((n // k, fk.DIRS_LD), dtype=torch.bfloat16,
+                         device=dev)
+    dirs_p[:, :dirs.shape[1]] = dirs
+    g32 = g.float().contiguous()
+    gw = torch.empty(kw.w.numel(), dtype=torch.float32, device=dev)
+    gb = torch.empty(kw.b.numel(), dtype=torch.float32, device=dev)
+    ws_bytes = lib.ddnerf_fused_mlp_bwd_workspace(n, k, hid)
+    ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=dev)
+    trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
+    err = lib.ddnerf_fused_mlp_bwd(
+        ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(), trunk.data_ptr(),
+        h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+        ws.data_ptr(), ws_bytes, n, k, hid, int(net.depth_head), int(per_ray),
+        *fk._offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "fused_mlp_bwd")
+    torch.cuda.synchronize()
+    return gw, gb, ws, kw
+
+
+def _b2_slabs(torch, ws, n, hid):
+    """The cotangents B2 left in its workspace, where ``layout()`` in
+    csrc/fused_mlp_bwd.cu puts them (regions 256-byte aligned): ``gs [n,
+    64]`` bf16 (g_heads | 0 | g_alpha at column 16), ``gd [n, 128]`` bf16
+    (bf16(g_h)), ``ghf [n, 128]`` f32 (g_h), ``gt [9, n, H]`` bf16
+    (bf16(g_0) .. bf16(g_7), bf16(g_feat))."""
+    regions = (("gs", torch.bfloat16, (n, 64)), ("gd", torch.bfloat16, (n, 128)),
+               ("ghf", torch.float32, (n, 128)),
+               ("gt", torch.bfloat16, (9, n, hid)))
+    out, off = {}, 0
+    for name, dtype, shape in regions:
+        nbytes = math.prod(shape) * (4 if dtype == torch.float32 else 2)
+        out[name] = ws[off:off + nbytes].view(dtype).view(shape)
+        off += -(-nbytes // 256) * 256
+    return out
+
+
+def _packed_mats(kw, t, hid):
+    """The 12 matrices of the packed layout (``pack_weights``) in ``t`` (the
+    weights or the weight gradients), as float64 ``[rows, cols]``."""
+    rows = (hid,) * 9 + (144, 16, 128)
+    ends = (*kw.w_off[1:], t.numel())
+    return [t[o:e].double().view(r, -1)
+            for o, e, r in zip(kw.w_off, ends, rows)]
+
+
+def b2_stage_readings(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
+    """B2 held stage by stage against float64 arithmetic fed the kernel's
+    own cotangent slabs, so that a bf16 rounding flipped upstream (which a
+    comparison of the end results carries down the chain) cannot mask or
+    mimic a fault.  Readings:
+
+    * ``entry``: elements of the bf16 cotangent tile that differ from
+      bf16(g) (0);
+    * ``flip_share``: over the 10 rounded cotangents the kernel wrote
+      (bf16(g_h), bf16(g_feat), bf16(g_7) .. bf16(g_0)), the largest share
+      of elements that differ from the bf16 rounding of the float64
+      product of the kernel's previous cotangent (relu-masked from the
+      stash): float32 and float64 sums that round to the two bf16
+      neighbours of the exact value; ``far``: elements farther from that
+      value than one bf16 step plus the error bound of any float32 sum of
+      its K products, 2 K 2^-24 sum |products| (0);
+    * ``g_h``: the float32 g_h against float64, ||d|| / ||ref||;
+    * ``weights`` / ``biases`` / ``dirs``: the largest ||d|| / ||ref|| of
+      the weight gradients (the kernel's slabs times the stash), the bias
+      gradients (float64 sums of the float64 cotangents before rounding)
+      and the dirs weight gradient (g_dproj summed in float32 from the
+      kernel's g_h, in row order, as ``per_ray`` says, times the dirs).
+
+    Also returns the kernel's gradients by name, through ``unpack_grads``.
+    """
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    n = ipe.shape[0]
+    hid = fk.kernel_width(net.hidden_size)
+    gw, gb, ws, kw = _b2_launch(torch, net, ipe, dirs, g, k, stash, per_ray,
+                                lib)
+    sl = _b2_slabs(torch, ws, n, hid)
+    w = _packed_mats(kw, kw.w, hid)
+    grad_w = _packed_mats(kw, gw, hid)
+    x = stash.trunk.double()  # x0..x7, feat
+    hh = stash.h.double()
+    gs, gd = sl["gs"].double(), sl["gd"].double()
+    gt = sl["gt"]
+
+    want_gs = torch.zeros(n, 64, device=ipe.device)
+    want_gs[:, 0:3] = g[:, 0:3]
+    if net.depth_head:
+        want_gs[:, 3:5] = g[:, 4:6]
+    want_gs[:, 16] = g[:, 3]
+    r = {"entry": int((sl["gs"] != want_gs.bfloat16()).sum().item())}
+
+    shares, far = [], 0
+
+    def product(kernel, a, wm, mask=None):
+        """The float64 product ``a @ wm`` (masked), held against the bf16
+        ``kernel`` the kernel wrote for it; returns the product."""
+        nonlocal far
+        ref = a @ wm
+        bound = 2 * a.shape[1] * 2.0 ** -24 * (a.abs() @ wm.abs())
+        if mask is not None:
+            ref = torch.where(mask, ref, 0.0)
+        shares.append((kernel != ref.to(torch.bfloat16)).double().mean()
+                      .item())
+        step = torch.ldexp(torch.ones_like(ref), torch.frexp(ref)[1] - 8)
+        far += int(((kernel.double() - ref).abs() > step + bound).sum()
+                   .item())
+        return ref
+
+    g_h = product(sl["gd"], gs[:, :16], w[10], hh > 0)
+    g_feat = product(gt[8], torch.cat([gd, gs[:, 16:17]], 1), w[9][:129])
+    g_trunk = [None] * 8
+    for layer, out in [(8, 7)] + [(i, i - 1) for i in range(7, 0, -1)]:
+        wm = w[layer][:, 96:] if layer == 5 else w[layer]
+        g_trunk[out] = product(gt[out], gt[layer].double(), wm, x[out] > 0)
+    r["flip_share"], r["far"] = max(shares), far
+    r["g_h"] = _rel(sl["ghf"].double(), g_h)
+
+    ipe_b = ipe.to(torch.bfloat16).double()
+    want_w = {}
+    for i in range(8):
+        act = (ipe_b if i == 0 else torch.cat([ipe_b, x[4]], 1) if i == 5
+               else x[i - 1])
+        want_w[i] = gt[i].double().T @ act
+    want_w[8] = gt[8].double().T @ x[7]
+    wd = torch.zeros_like(w[9])
+    wd[:128] = gd.T @ x[8]
+    wd[128] = gs[:, 16] @ x[8]
+    want_w[9] = wd
+    want_w[10] = gs[:, :16].T @ hh
+    grad_w[9], want_w[9] = grad_w[9][:129], want_w[9][:129]  # rows B2 writes
+    r["weights"] = max(_rel(grad_w[i], want_w[i]) for i in want_w)
+
+    ghf = sl["ghf"].view(n // k, k, 128)
+    g_dproj = torch.zeros_like(ghf[:, 0])
+    for j in range(k):  # the kernel's order: row after row, in float32
+        v = ghf[:, j]
+        g_dproj += v if per_ray else v.bfloat16().float()
+    if per_ray:
+        g_dproj = g_dproj.bfloat16().float()
+    dirs_b = dirs.to(torch.bfloat16).double()
+    r["dirs"] = _rel(grad_w[11][:, :dirs.shape[1]], g_dproj.double().T @ dirs_b)
+
+    b_ends = (*kw.b_off[1:], gb.numel())
+    b = [gb[o:e].double() for o, e in zip(kw.b_off, b_ends)]
+    want_dir = torch.zeros_like(b[2])
+    want_dir[:128] = g_h.sum(0)
+    want_dir[128] = gs[:, 16].sum()
+    r["biases"] = max(
+        max(_rel(b[0].view(8, hid)[i], g_trunk[i].sum(0)) for i in range(8)),
+        _rel(b[1], g_feat.sum(0)), _rel(b[2], want_dir),
+        _rel(b[3], gs[:, :16].sum(0)))
+    return r, fk.unpack_grads(net, kw, gw, gb)
+
+
+def _exact_case(torch, cls, hidden, rays, k, dev, seed):
+    """A network and inputs of small integers: weights of +-1 with four
+    nonzeros per row, zero biases, IPE, dirs and cotangent in {-1, 0, 1}.
+    The forward's and the cotangent chain's sums are then integers (below
+    2^24 on these seeds), exact in float32 in any order, and bf16 rounds an
+    integer the same way everywhere: a sound B2 equals its plain version up
+    to the last weight-gradient sums, and a fault shows in full."""
+    gen = torch.Generator().manual_seed(seed)
+    net = cls(hidden_size=hidden, compute_dtype=torch.bfloat16, generator=gen)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            p.zero_()
+            if name.endswith("weight"):
+                cols = torch.rand(p.shape, generator=gen).argsort(1)[:, :4]
+                signs = torch.randint(0, 2, (p.shape[0], 4), generator=gen)
+                p.scatter_(1, cols, signs.float() * 2 - 1)
+    n = rays * k
+    ints = [torch.randint(-1, 2, shape, generator=gen).float().to(dev)
+            for shape in ((n, 96), (rays, 27), (n, net.out_dim))]
+    return (net.to(dev), *ints)
+
+
+def phase_widths(torch):
+    """B1, B3, B1s and B2 at each of :data:`WIDTHS`, both heads, on a
+    ragged row count, against their plain versions under the gates of
+    phases 3, 3b and 4 (B1s and B3 bit for bit B1, the padded stash
+    columns zero, B2 in both dirs settings, stage by stage, its end result
+    on random data against the plain version, accumulating in float64 at
+    :data:`B2_FLOAT64_WIDTHS`, and on exact-integer data); then each
+    width's kernel times at the main paths' shapes (DepthMipMLP) beside
+    their bounds.  Returns the largest |kernel - plain| of each kernel
+    (B2's on the random data)."""
+    from ddnerf_tpu_torch.core.math import integrated_pos_enc
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
+
+    dev = torch.device("cuda")
+    worst = dict.fromkeys(fk.LAUNCHES, 0.0)
+    rays, k = 333, 33  # 10,989 rows: no whole number of 64- or 128-row tiles
+    n = rays * k
+    for hidden in WIDTHS:
+        for cls in (DepthMipMLP, MipMLP):
+            gen = torch.Generator().manual_seed(hidden)
+            net = cls(hidden_size=hidden, compute_dtype=torch.bfloat16,
+                      generator=gen).to(dev)
+            tag = (f"{cls.__name__} H={hidden} (kernel width "
+                   f"{fk.kernel_width(hidden)}) N={n} K={k}")
+            means, covs = _gaussians(torch, gen, n, dev)
+            ipe = integrated_pos_enc((means, covs), double_angle=False)
+            dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
+            g = torch.randn(n, net.out_dim, generator=gen).to(dev)
+            b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+            b1s, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+            b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+            torch.cuda.synchronize()
+            if not (torch.equal(b1, b1s) and torch.equal(b1, b3)):
+                fail(f"B1s or B3 is not bit for bit B1 ({tag})")
+            if stash.trunk[..., hidden:].any():
+                fail(f"the stash's padded columns are not zero ({tag})")
+            want, want_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+            errs = {"fused_mlp_fwd": [(b1 - want).abs()]}
+            errs["fused_enc_mlp_fwd"] = [(b3 - ref.fused_enc_mlp_reference(
+                net, means, covs, dirs, k)).abs()]
+            errs["fused_mlp_fwd_stash"] = [
+                (a.float() - b.float()).abs() for a, b in
+                zip([b1s, *stash.trunk[..., :hidden], stash.h],
+                    [want, *want_stash.trunk, want_stash.h])]
+            for name, e in errs.items():
+                max_err = max(x.max().item() for x in e)
+                mean_err = max(x.mean().item() for x in e)
+                worst[name] = max(worst[name], max_err)
+                ok = max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
+                print(f"[widths] {name} {tag}: max_abs {max_err:.3e} (tol "
+                      f"{MAX_ABS_TOL:g}), mean_abs {mean_err:.3e} (tol "
+                      f"{MEAN_ABS_TOL:g}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"{name} disagrees with the plain version ({tag})")
+            f64 = hidden in B2_FLOAT64_WIDTHS
+            err = _check_backward(
+                torch, "widths", tag, net, ipe, dirs, g, k, stash,
+                verbose=f64, limits=(
+                    B2_FLOAT64_TRUNK_TOL if f64 else GRAD_NORM_REL_TOL_TRUNK,
+                    GRAD_NORM_REL_TOL_HEADS),
+                accumulate=torch.float64 if f64 else None)
+            worst["fused_mlp_bwd"] = max(worst["fused_mlp_bwd"], err)
+            net, ipe, dirs, g = _exact_case(torch, cls, hidden, rays, k, dev,
+                                            hidden + 1)
+            _, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+            _check_backward(torch, "widths", f"{tag} exact-integer data", net,
+                            ipe, dirs, g, k, stash, verbose=False,
+                            limits=(EXACT_GRAD_TOL, EXACT_GRAD_TOL),
+                            bf16_share=False)
+    # Each width's times at the main paths' shapes, beside the bounds.
+    for hidden in WIDTHS:
+        net = DepthMipMLP(hidden_size=hidden, compute_dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+        gen = torch.Generator().manual_seed(1)
+        means, covs = _gaussians(torch, gen, CHUNK_RAYS * SAMPLES, dev)
+        ipe = integrated_pos_enc((means, covs), double_angle=False)
+        dirs = (torch.rand(CHUNK_RAYS, 27, generator=gen) * 2 - 1).to(dev)
+        t_ipe = ipe[:TRAIN_RAYS * SAMPLES]
+        t_dirs = dirs[:TRAIN_RAYS]
+        g = torch.randn(TRAIN_RAYS * SAMPLES, 6, generator=gen).to(dev)
+        _, stash = fk.fused_mlp_forward(net, t_ipe, t_dirs, SAMPLES,
+                                        stash=True)
+        ms = {
+            "fused_mlp_fwd": _event_ms(torch, lambda: fk.fused_mlp_forward(
+                net, ipe, dirs, SAMPLES)),
+            "fused_enc_mlp_fwd": _event_ms(
+                torch, lambda: fk.fused_enc_mlp_forward(net, means, covs,
+                                                        dirs, SAMPLES)),
+            "fused_mlp_fwd_stash": _event_ms(
+                torch, lambda: fk.fused_mlp_forward(net, t_ipe, t_dirs,
+                                                    SAMPLES, stash=True)),
+            "fused_mlp_bwd": _event_ms(torch, lambda: fk.fused_mlp_backward(
+                net, t_ipe, t_dirs, g, SAMPLES, stash)),
+        }
+        bounds = kernel_bounds(hidden, CHUNK_RAYS * SAMPLES, CHUNK_RAYS,
+                               TRAIN_RAYS * SAMPLES, TRAIN_RAYS)
+        print(f"[widths] DepthMipMLP H={hidden} (kernel width "
+              f"{fk.kernel_width(hidden)}): " + "; ".join(
+                  f"{name} {ms[name]:.3f} ms (bound {bounds[name][0]:.3f} ms, "
+                  f"{bounds[name][1]})" for name in ms)
+              + f" (B1, B3 on {CHUNK_RAYS * SAMPLES} rows; B1s, B2 on "
+              f"{TRAIN_RAYS * SAMPLES}; CUDA-event medians of "
+              f"{TIMING_REPS})", flush=True)
+    return worst
+
+
+def phase_wide_main_path(logroot):
+    """The coarse-192 / fine-512 run (:data:`WIDE_TRAIN_OPTS`) through the
+    CLIs in the worker: training under the captured step (2 B1s + 2 B2 per
+    iteration), eval of one image, one video frame through B1 (``mlp``)
+    and one through B3 (``ipe2``); then that run's eval image and video
+    frame through B1 and B3 against the plain version.  Returns the runs'
+    launch counts, summed."""
+    from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+
+    logdir, train = phase_train_main_path(logroot, "wide-train",
+                                          WIDE_TRAIN_OPTS, run="wide_smoke",
+                                          iters=WIDE_ITERS)
+    evals = phase_main_path(logdir, "wide-eval", images=1)
+    video = phase_video_main_path(logdir, "wide-video", 1, VIDEO_HW,
+                                  WIDE_ITERS)
+    _frame_vs_plain(load_config_snapshot(logdir), "wide-frames",
+                    "coarse-192 / fine-512", logdir=logdir)
+    return _sum_launches(train, evals, video)
 
 
 def _sum_launches(*counts):
@@ -736,13 +1167,14 @@ def _check_train_output(out, tag):
     return [int(i) for i, _, _ in train_lines]
 
 
-def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
-    """The training CLI at full width (``opts``: config overrides);
-    returns (logdir, launch counts)."""
+def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke",
+                          iters=TRAIN_ITERS):
+    """The training CLI at full width (``opts``: config overrides) for
+    ``iters`` iterations; returns (logdir, launch counts)."""
     from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
 
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.train", "--config",
-           CONFIG, "--max-iters", str(TRAIN_ITERS),
+           CONFIG, "--max-iters", str(iters),
            "experiment.logdir", logroot, "experiment.id", run, *opts]
     out, launches, wall = _cli(cmd, tag)
     logdir = os.path.join(logroot, run)
@@ -750,8 +1182,7 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
     if not re.search(r"^step mode: graph .*blocks of up to \d+", out, re.M):
         fail(f"{tag}: the CLI did not say that it runs the captured step in "
              f"blocks")
-    for name in ("config.yml", "metrics.jsonl",
-                 f"checkpoint_{TRAIN_ITERS}.ckpt"):
+    for name in ("config.yml", "metrics.jsonl", f"checkpoint_{iters}.ckpt"):
         if not os.path.isfile(os.path.join(logdir, name)):
             fail(f"{tag}: training wrote no {name} in {logdir}")
     is_dd = load_config_snapshot(logdir).is_ddnerf()
@@ -761,9 +1192,9 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
         records = [json.loads(line) for line in f]
     records = [r for r in records if r["kind"] == "train"]
     losses = [r["loss"] for r in records]
-    if len(losses) != TRAIN_ITERS or not all(map(math.isfinite, losses)):
+    if len(losses) != iters or not all(map(math.isfinite, losses)):
         fail(f"{tag}: metrics.jsonl holds {len(losses)} finite train losses, "
-             f"expected {TRAIN_ITERS}")
+             f"expected {iters}")
     if is_dd != ("dp_loss" in records[0]):
         fail(f"{tag}: the train records must carry dp_loss for DDNeRF only")
     first = statistics.mean(losses[:LOSS_WINDOW])
@@ -781,18 +1212,19 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke"):
     if not last < first:
         fail(f"{tag}: training did not lower the mean loss")
     for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
-        if launches.get(name) != 2 * TRAIN_ITERS:
+        if launches.get(name) != 2 * iters:
             fail(f"{tag}: training launched {name} {launches.get(name)} "
-                 f"times, expected {2 * TRAIN_ITERS} (two network "
-                 f"evaluations per step)")
+                 f"times, expected {2 * iters} (two network evaluations per "
+                 f"step)")
     return logdir, launches
 
 
-def phase_graph_vs_eager(torch, tag="graph", opts=()):
-    """The captured step against the eager step from one seed
-    (``opts``: config overrides): every metric of every iteration, the
-    parameters, Adam's state and the generator's state must be bitwise
-    equal; returns both ms/step (steady state, no metric read)."""
+def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
+    """The captured step against the eager step from one seed for
+    ``steps`` iterations (``opts``: config overrides): every metric of every
+    iteration, the parameters, Adam's state and the generator's state must
+    be bitwise equal; returns both ms/step (steady state, no metric
+    read)."""
     from ddnerf_tpu_torch.config import load_config
     from ddnerf_tpu_torch.data.datasets import load_train_store
     from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
@@ -813,21 +1245,21 @@ def phase_graph_vs_eager(torch, tag="graph", opts=()):
         gen = torch.Generator(device=dev).manual_seed(11)
         if mode == "graph":
             stepper = CapturedTrainStep(cfg, pipe, state, store, gen,
-                                        max_block=GRAPH_STEPS)
+                                        max_block=steps)
         else:
             stepper = EagerTrainStep.from_store(cfg, pipe, state, store, gen)
         before = dict(LAUNCHES)
         rows = [stepper.run(head).clone()]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rows.append(stepper.run(GRAPH_STEPS - head).clone())
+        rows.append(stepper.run(steps - head).clone())
         torch.cuda.synchronize()
-        step_ms[mode] = (time.perf_counter() - t0) * 1e3 / (GRAPH_STEPS - head)
+        step_ms[mode] = (time.perf_counter() - t0) * 1e3 / (steps - head)
         launched = {k: LAUNCHES[k] - before[k] for k in before
                     if LAUNCHES[k] != before[k]}
-        if launched != {"fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
-                        "fused_mlp_bwd": 2 * GRAPH_STEPS}:
-            fail(f"{tag}: {GRAPH_STEPS} {mode} steps counted {launched}")
+        if launched != {"fused_mlp_fwd_stash": 2 * steps,
+                        "fused_mlp_bwd": 2 * steps}:
+            fail(f"{tag}: {steps} {mode} steps counted {launched}")
         adam = [state.optimizer.state[p][key] for p in pipe.parameters()
                 for key in ("exp_avg", "exp_avg_sq", "step")]
         runs[mode] = (stepper.names, torch.cat(rows),
@@ -842,12 +1274,12 @@ def phase_graph_vs_eager(torch, tag="graph", opts=()):
     differ += [f"tensor {i}" for i, (a, b) in
                enumerate(zip(tensors_e, tensors_g)) if not torch.equal(a, b)]
     loss = rows_g[:, names.index("loss")]
-    print(f"[{tag}] {GRAPH_STEPS} iterations, captured vs eager: "
+    print(f"[{tag}] {steps} iterations, captured vs eager: "
           f"{len(names)} metrics per iteration, {len(tensors_e)} state "
           f"tensors: {'bitwise equal' if not differ else differ}; loss "
           f"{loss[0].item():.5f} -> {loss[-1].item():.5f}; eager "
           f"{step_ms['eager']:.2f} ms/step, captured {step_ms['graph']:.2f} "
-          f"ms/step (iterations {head}-{GRAPH_STEPS - 1})", flush=True)
+          f"ms/step (iterations {head}-{steps - 1})", flush=True)
     if differ:
         fail(f"{tag}: the captured step differs from the eager step: "
              f"{differ}")
@@ -1019,14 +1451,19 @@ def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
     return _sum_launches(runs["ipe2"][1], runs["mlp"][1])
 
 
-def phase_train_parity(torch, tag="parity", opts=(), config=CONFIG):
+def phase_train_parity(torch, tag="parity", opts=(), config=CONFIG,
+                       runs=(("kernel", "auto", None), ("plain", "off", None)),
+                       gate=PARITY_GAP_TOL):
     """Kernel vs plain training from one seed on the same batches
-    (``opts``: overrides of ``config``)."""
+    (``opts``: overrides of ``config``); ``runs``: two (name,
+    ``parallel.pallas_mlp``, a function in place of the backward kernel or
+    None) whose loss gap is held to ``gate`` (None: printed only)."""
     from ddnerf_tpu_torch.config import load_config
     from ddnerf_tpu_torch.data.datasets import (
         load_train_store,
         sample_rays_on_device,
     )
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
     from ddnerf_tpu_torch.models.nerf import NerfPipeline
     from ddnerf_tpu_torch.train.state import TrainState
     from ddnerf_tpu_torch.train.step import train_step
@@ -1045,23 +1482,29 @@ def phase_train_parity(torch, tag="parity", opts=(), config=CONFIG):
         batches.append({"origins": ro, "directions": rd, "radii": radii,
                         "rgb": rgb})
     losses, step_ms = {}, {}
-    for name, policy in (("kernel", "auto"), ("plain", "off")):
+    kernel_backward = fk.fused_mlp_backward
+    for name, policy, backward in runs:
         c = cfg.replace_at("parallel.pallas_mlp", policy)
         pipe = NerfPipeline(c, dev, seed=0)
         state = TrainState(c, pipe)
         gen = torch.Generator(device=dev).manual_seed(11)
         traj, marks = [], {}
-        for i, batch in enumerate(batches):
-            if i == 5:  # steady state: after the first steps' set-up
-                torch.cuda.synchronize()
-                marks["t0"] = time.perf_counter()
-            traj.append(train_step(c, pipe, state, batch, gen)["loss"])
-        torch.cuda.synchronize()
+        fk.fused_mlp_backward = backward or kernel_backward
+        try:
+            for i, batch in enumerate(batches):
+                if i == 5:  # steady state: after the first steps' set-up
+                    torch.cuda.synchronize()
+                    marks["t0"] = time.perf_counter()
+                traj.append(train_step(c, pipe, state, batch, gen)["loss"])
+            torch.cuda.synchronize()
+        finally:
+            fk.fused_mlp_backward = kernel_backward
         step_ms[name] = (time.perf_counter() - marks["t0"]) * 1e3 / (
             PARITY_STEPS - 5)
         losses[name] = [float(v) for v in traj]
+    first, second = (name for name, _, _ in runs)
     gap = max(abs(a - b) / abs(b)
-              for a, b in zip(losses["kernel"], losses["plain"]))
+              for a, b in zip(losses[first], losses[second]))
     rays = cfg.nerf.train.num_random_rays
     for name in losses:
         print(f"[{tag}] {name} losses: "
@@ -1069,11 +1512,12 @@ def phase_train_parity(torch, tag="parity", opts=(), config=CONFIG):
         print(f"[{tag}] {name}: {step_ms[name]:.2f} ms/step steady state "
               f"(steps 5-{PARITY_STEPS - 1}), "
               f"{rays / step_ms[name] * 1e3:,.0f} rays/s", flush=True)
-    print(f"[{tag}] largest relative loss gap kernel vs plain {gap:.3e} "
-          f"(gate {PARITY_GAP_TOL:g})", flush=True)
-    if not gap <= PARITY_GAP_TOL or not all(
-            math.isfinite(v) for v in losses["kernel"] + losses["plain"]):
-        fail(f"{tag}: kernel and plain training trajectories disagree")
+    print(f"[{tag}] largest relative loss gap {first} vs {second} "
+          f"{gap:.3e} ({'not held' if gate is None else f'gate {gate:g}'})",
+          flush=True)
+    if not all(math.isfinite(v) for v in losses[first] + losses[second]) or \
+            (gate is not None and not gap <= gate):
+        fail(f"{tag}: {first} and {second} training trajectories disagree")
     return step_ms
 
 
@@ -1238,42 +1682,55 @@ def phase_step_gradients(torch, tag, opts, config=CONFIG):
              f"disagrees with the plain backward: {bad}")
 
 
-def _frame_vs_plain(cfg, tag, what):
+def _frame_vs_plain(cfg, tag, what, logdir=None):
     """A frame of the path's first render pose (its validation image's
     size) from seeded weights, through both forward kernels and the plain
     version: each kernel frame within ``FRAME_PSNR_MIN`` of the plain one,
-    and each render launching its kernel alone, twice."""
+    and each render launching its kernel alone, twice.  With ``logdir``,
+    the weights of that run's newest checkpoint, and its first validation
+    image (what eval renders) besides that video frame."""
+    import torch
+
     from ddnerf_tpu_torch.data.assembly import get_datasets
+    from ddnerf_tpu_torch.eval.evaluate import load_pipeline
     from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
-    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline, ScheduleValues
     from ddnerf_tpu_torch.render.renderer import ImageRenderer
 
     _, val_ds, cfg = get_datasets(cfg)
-    pose = val_ds.render_poses[0]
-    rgbs = {}
+    views = {"video frame": val_ds.render_poses[0]}
+    if logdir is not None:
+        views["eval image"] = val_ds.poses[0]
+    rgbs = {view: {} for view in views}
     for name, policy, variant, kernel in (
             ("plain", "off", "mlp", None), ("kernel", "auto", "mlp",
                                             "fused_mlp_fwd"),
             ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd")):
         c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
             "parallel.render_kernel_variant", variant)
-        renderer = ImageRenderer(c, NerfPipeline(c, "cuda", seed=0))
-        for key in LAUNCHES:
-            LAUNCHES[key] = 0
-        rgbs[name] = renderer.render_image_from_pose(
-            pose, val_ds.H, val_ds.W, val_ds.focal)[1]["rgb"]
-        launched = {k: v for k, v in LAUNCHES.items() if v}
-        if launched != ({kernel: 2} if kernel else {}):
-            fail(f"{tag}: the {name} frame launched {launched}")
-    for name in ("kernel", "ipe2"):
-        mse = float(np.mean((rgbs[name] - rgbs["plain"]) ** 2))
-        frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
-        print(f"[{tag}] {val_ds.H} x {val_ds.W} {what} rgb PSNR {name} vs "
-              f"plain {frame_psnr:.2f} dB (gate {FRAME_PSNR_MIN:g})",
-              flush=True)
-        if not (frame_psnr >= FRAME_PSNR_MIN
-                and np.isfinite(rgbs[name]).all()):
-            fail(f"{tag}: the {name} frame disagrees with the plain version")
+        pipe = (NerfPipeline(c, "cuda", seed=0) if logdir is None else
+                load_pipeline(logdir, c, torch.device("cuda")))
+        renderer = ImageRenderer(c, pipe)
+        sched = None if logdir is None else ScheduleValues.for_eval(c)
+        for view, pose in views.items():
+            for key in LAUNCHES:
+                LAUNCHES[key] = 0
+            rgbs[view][name] = renderer.render_image_from_pose(
+                pose, val_ds.H, val_ds.W, val_ds.focal, sched=sched)[1]["rgb"]
+            launched = {k: v for k, v in LAUNCHES.items() if v}
+            if launched != ({kernel: 2} if kernel else {}):
+                fail(f"{tag}: the {name} {view} launched {launched}")
+    for view in views:
+        for name in ("kernel", "ipe2"):
+            got, want = rgbs[view][name], rgbs[view]["plain"]
+            mse = float(np.mean((got - want) ** 2))
+            frame_psnr = float("inf") if mse == 0 else -10.0 * math.log10(mse)
+            print(f"[{tag}] {val_ds.H} x {val_ds.W} {what} {view} rgb PSNR "
+                  f"{name} vs plain {frame_psnr:.2f} dB (gate "
+                  f"{FRAME_PSNR_MIN:g})", flush=True)
+            if not (frame_psnr >= FRAME_PSNR_MIN and np.isfinite(got).all()):
+                fail(f"{tag}: the {name} {view} disagrees with the plain "
+                     f"version")
 
 
 def phase_ndc_main_path(logroot):
@@ -2043,6 +2500,7 @@ def main():
     max_err, timing = phase_kernel(torch)
     enc_err, enc_timing = phase_enc_kernel(torch)
     train_err, train_timing = phase_train_kernels(torch)
+    width_err = phase_widths(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logroot:
         logdir, train_launches = phase_train_main_path(logroot)
         host_launches = phase_host_sampling(logroot)
@@ -2072,6 +2530,7 @@ def main():
                                          FF_CONFIG)
         phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
         real360_launches = phase_real360_main_path(logroot)
+        wide_launches = phase_wide_main_path(logroot)
         _close_cli_worker()
         rehearsal_launches = {tag: phase_rehearsal(logroot, tag)
                               for tag in REHEARSALS}
@@ -2083,6 +2542,9 @@ def main():
         gloo_launches, gloo_ms = phase_gloo_two_ranks(torch, logroot)
     graph_ms = phase_graph_vs_eager(torch)
     mip_graph_ms = phase_graph_vs_eager(torch, "mip-graph", MIPNERF)
+    wide_graph_ms = phase_graph_vs_eager(torch, "wide-graph", WIDE_OPTS,
+                                         WIDE_GRAPH_STEPS)
+    wide_step_ms = phase_train_parity(torch, "wide-parity", WIDE_OPTS)
     step_ms = phase_train_parity(torch)
     frame_s = phase_frame(torch)
     mip_step_ms = phase_train_parity(torch, "mip-parity", MIPNERF)
@@ -2101,7 +2563,11 @@ def main():
           f"{ndc_step_ms['plain']:.2f} ms; captured vs eager step "
           f"{graph_ms['graph']:.2f} vs {graph_ms['eager']:.2f} ms (DDNeRF), "
           f"{mip_graph_ms['graph']:.2f} vs {mip_graph_ms['eager']:.2f} ms "
-          f"(mip-NeRF); torchrun one rank on NCCL {nccl_ms['nccl']:.2f} vs "
+          f"(mip-NeRF), {wide_graph_ms['graph']:.2f} vs "
+          f"{wide_graph_ms['eager']:.2f} ms (coarse-192 / fine-512; its "
+          f"train step kernel {wide_step_ms['kernel']:.2f} ms, plain "
+          f"{wide_step_ms['plain']:.2f} ms); torchrun one rank on NCCL "
+          f"{nccl_ms['nccl']:.2f} vs "
           f"one process {nccl_ms['single']:.2f} ms/step, two ranks on one "
           f"card under gloo {gloo_ms:.2f} ms/step; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
@@ -2123,7 +2589,8 @@ def main():
                "ndc": ndc_launches,
                "parallel": _sum_launches(nccl_launches, gloo_launches,
                                          render_launches),
-               "real360": real360_launches, **rehearsal_launches}
+               "real360": real360_launches, "widths": wide_launches,
+               **rehearsal_launches}
     total = _sum_launches(*by_path.values())
     print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
     for path, counts in by_path.items():
@@ -2136,14 +2603,15 @@ def main():
         if idle:
             fail(f"the {path} main path never launched {idle}")
 
-    from ddnerf_tpu_torch.models.mlp import DepthMipMLP
-
     ms, plain_ms = timing["DepthMipMLP"]
     coarse = train_timing["DepthMipMLP"]
     enc = enc_timing["DepthMipMLP"]
-    bounds = kernel_bounds(
-        DepthMipMLP(hidden_size=256, compute_dtype=torch.bfloat16),
-        CHUNK_RAYS * SAMPLES, CHUNK_RAYS, TRAIN_RAYS * SAMPLES, TRAIN_RAYS)
+    bounds = kernel_bounds(256, CHUNK_RAYS * SAMPLES, CHUNK_RAYS,
+                           TRAIN_RAYS * SAMPLES, TRAIN_RAYS)
+    max_err = max(max_err, width_err["fused_mlp_fwd"])
+    enc_err = max(enc_err, width_err["fused_enc_mlp_fwd"])
+    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+        train_err[name] = max(train_err[name], width_err[name])
     fwd_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu"
     # name, source, the TPU kernel, main-path launches, error, ms, plain ms
     rows = [

@@ -199,7 +199,10 @@ class ParallelConfig:
     remat_mlp: bool = False
     remat_ipe: bool = True
     kernel_stash_acts: bool = True
-    # the port always takes view directions once per ray
+    # Read by the port (it stands here to keep the JAX package's field
+    # order): where the fused backward rounds the dirs weight gradient's
+    # cotangent, per sample (false) or once per ray (true); the dirs are per
+    # ray in memory either way.
     kernel_per_ray_dirs: bool = False
     bwd_block_rows: int = 2048
     scoped_vmem_limit_kib: int = 32768

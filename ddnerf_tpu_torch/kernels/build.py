@@ -166,12 +166,13 @@ def load_library() -> ctypes.CDLL:
         *offs, ptr,  # w_off, b_off, stream
     ]
     lib.ddnerf_fused_enc_mlp_fwd.restype = i32
+    # n, samples, hidden
     lib.ddnerf_fused_mlp_bwd_workspace.argtypes = [i64, i32, i32]
     lib.ddnerf_fused_mlp_bwd_workspace.restype = i64
     lib.ddnerf_fused_mlp_bwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, g, stash, stash_h, w
         ptr, ptr, ptr, i64,  # gw, gb, workspace, workspace bytes
-        i64, i32, i32, i32,  # n, samples, hidden, depth_head
+        i64, i32, i32, i32, i32,  # n, samples, hidden, depth_head, per_ray
         *offs, ptr,  # w_off, b_off, stream
     ]
     lib.ddnerf_fused_mlp_bwd.restype = i32

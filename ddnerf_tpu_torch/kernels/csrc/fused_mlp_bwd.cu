@@ -7,7 +7,11 @@
 //   d_W_heads = h^T g_heads,  d_b_heads = sum g_heads                   (f32)
 //   g_h = mask(h > 0, g_heads W_heads),  d_b_dir = sum g_h,  g_h_c = bf16(g_h)
 //   d_Wd_feat = feat^T g_h_c,  d_w_alpha = feat^T g_alpha,  d_b_alpha = sum g_alpha
-//   g_dproj[ray] = bf16(sum of g_h over the ray's K rows),  d_Wd_dirs = dirs^T g_dproj
+//   d_Wd_dirs = dirs^T g_dproj in f32, over the rays: per sample
+//     (kernel_per_ray_dirs false, the JAX default) g_dproj[ray] = the f32 sum
+//     of bf16(g_h) over the ray's K rows, the same products as the sum over
+//     rows of dirs[ray(row)]^T bf16(g_h[row]); per ray (true), g_dproj[ray] =
+//     bf16(the sum of g_h over them)
 //   g_feat = g_h_c Wd_feat + g_alpha w_alpha,  d_bf = sum g_feat,  g_feat_c = bf16
 //   d_Wf = x7^T g_feat_c,  gx = g_feat_c Wf
 //   for i = 7..0: g_i = mask(x_i > 0, gx), d_b_i = sum g_i (before rounding),
@@ -41,13 +45,25 @@
 //     TMA store that runs under the next product, and reduces the f32 column
 //     sums (the bias gradients) with shuffles to one partial row per tile and
 //     warpgroup.  g_h also goes out in f32, and dproj_grad_kernel sums it per
-//     ray in row order.
+//     ray in row order.  Widths 384 and 512 take the N-split plan of
+//     fused_mlp_fwd.cu: 64-row tiles, both consumers on every row, consumer
+//     w producing columns H/2 w .. H/2 w + H/2 - 1 of each product (of g_h,
+//     64 w .. 64 w + 63), with a barrier of both consumers before and after
+//     each write-back; the tile, the relu-mask tile and a 2- or 4-stage ring
+//     then fit in shared memory.
 // (b) wgrad_kernel: act^T g over the row axis for every weight matrix, both
 //     operands MN-major straight from TMA boxes of 64 rows (no transposing
 //     copies), output tiles of 128 x {H, 128} (two consumer warpgroups, m64
 //     each), a 4-stage ring, the rows split so that about one CTA per SM is
 //     busy; a split's f32 partial tile goes to the workspace.  Tiles that
 //     share rows of an activation run side by side, so the second reads L2.
+//     Above width 256 an output tile is 128 x H/2 (an accumulator of H/2
+//     floats per thread would not fit), and the units of one launch are at
+//     most MAX_UNITS: the weight gradients of widths 384 and 512 take
+//     several launches.  The dirs weight gradient (128 x 27 outputs) is
+//     dirs_grad_partial_kernel's and dirs_grad_reduce_kernel's instead: a
+//     float32 product, since its g_dproj is a float32 sum per sample (per
+//     ray a bf16 value, which f32 holds exactly).
 // (c) reduce_kernel / bias_reduce_kernel: sum the partials in a fixed order
 //     into the packed f32 gradients, laid out as the packed weights and
 //     biases of kernels/fused_mlp.py::pack_weights.
@@ -60,19 +76,22 @@ namespace {
 
 using namespace ddnerf;
 
-constexpr int BM = 128;           // rows per chain tile
-constexpr int WG_ROWS = 64;       // rows per consumer warpgroup
+constexpr int WG_ROWS = 64;       // rows of one wgmma (m64)
 constexpr int NTHREADS = 384;     // producer warpgroup + 2 consumer warpgroups
 constexpr int KS = 32;            // k-rows of a streamed weight slice
-constexpr int STAGES = 4;
+constexpr int MAX_STAGES = 4;
 constexpr int NQ = 10;            // chain products: heads, dir, feat, W7..W1
 constexpr int L_FEAT = W_FEAT, L_DIR = W_DIR, L_HEAD = W_HEAD, NLAYER = 11;
 constexpr int GS_W = 64;          // small slab: g_heads | g_alpha | zeros
 constexpr int GS_ALPHA = 16;      // its column of g_alpha
 constexpr int NSLAB = NTRUNK + 1; // gt slabs: bf16(g_0..g_7), g_feat_c
-constexpr uint32_t BLOCK_BYTES = BM * 128;     // [BM][64] bf16
-constexpr uint32_t WG_BYTES = WG_ROWS * 128;   // one warpgroup's rows of it
+constexpr uint32_t WG_BYTES = WG_ROWS * 128;   // 64 rows of a [rows][64] block
 constexpr uint32_t WBLOCK_BYTES = KS * 128;    // [KS][64] weights
+
+// Rows per chain tile: 128 up to width 256, 64 in the N-split plan.
+constexpr int chain_rows(int hidden) {
+  return hidden > 256 ? WG_ROWS : 2 * WG_ROWS;
+}
 
 // ---------------------------------------------------------------- chain
 
@@ -97,17 +116,29 @@ struct ChainParams {
 
 template <int H>
 struct Shape {
+  static_assert(H % 64 == 0 && H <= 512, "no backward plan for this width");
+  // The N-split plan (see the top of the file) above width 256.
+  static constexpr bool SPLIT = H > 256;
+  static constexpr int BM = chain_rows(H);
+  static constexpr int NW = SPLIT ? H / 2 : H;    // H-wide columns per consumer
+  static constexpr int NH = SPLIT ? DH / 2 : DH;  // g_h columns per consumer
+  static constexpr uint32_t BLOCK_BYTES = BM * 128;  // [BM][64] bf16
   static constexpr int WIDE = H > DH ? H : DH;
   static constexpr int BLOCKS = WIDE / 64;
+  // Ring depth: four stages, two at width 512 (all that shared memory holds).
+  static constexpr int STAGES = H > 384 ? 2 : MAX_STAGES;
   static constexpr uint32_t ACT_BYTES = BLOCKS * BLOCK_BYTES;
   static constexpr uint32_t GS_BYTES = BLOCK_BYTES;
   static constexpr uint32_t STAGE_BYTES = BLOCKS * WBLOCK_BYTES;
-  static constexpr int RED_FLOATS = 4 * WIDE + 4 * 32;  // per warpgroup
+  // A consumer's column sums: a row per warp, then the small tile's sums.
+  static constexpr int RED_W = SPLIT ? NW : WIDE;
+  static constexpr int RED_FLOATS = 4 * RED_W + 4 * 32;  // per warpgroup
   static constexpr uint32_t RED_BYTES = 2 * RED_FLOATS * sizeof(float);
   static constexpr uint32_t BAR_BYTES = 128;
   // 1024 spare bytes to start the tiles on a 1024-byte boundary.
   static constexpr size_t SMEM = 1024 + 2 * ACT_BYTES + GS_BYTES +
                                  STAGES * STAGE_BYTES + RED_BYTES + BAR_BYTES;
+  static_assert(SMEM <= MAX_SMEM, "the plan exceeds a block's shared memory");
   // Product q multiplies the cotangent by layer(q)'s weights, columns col0
   // .. col0 + ncol, in nslices slices of KS rows.
   __host__ __device__ static constexpr int layer(int q) {
@@ -142,15 +173,15 @@ __device__ __forceinline__ void produce(const ChainMaps& maps, const Smem& s,
   using S = Shape<H>;
   uint32_t it = 0, m = 0;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row = (int)(tile * BM);
+    const int row = (int)(tile * S::BM);
 #pragma unroll 1
     for (int q = 0; q < NQ; ++q) {
       const int ns = S::nslices(q), nblk = S::ncol(q) / 64;
-      const int mask_at = (ns < STAGES ? ns : STAGES) - 1;
+      const int mask_at = (ns < S::STAGES ? ns : S::STAGES) - 1;
       const CUtensorMap* wm = &maps.w[S::layer(q)];
 #pragma unroll 1
       for (int i = 0; i < ns; ++i, ++it) {
-        const uint32_t stage = it % STAGES, parity = (it / STAGES) & 1;
+        const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
         mbar_wait(s.empty + 8 * stage, parity ^ 1);
         mbar_arrive_expect_tx(s.full + 8 * stage, nblk * WBLOCK_BYTES);
         for (int b = 0; b < nblk; ++b)
@@ -158,14 +189,14 @@ __device__ __forceinline__ void produce(const ChainMaps& maps, const Smem& s,
                       S::col0(q) + b * 64, i * KS, s.full + 8 * stage);
         if (i == mask_at && q != 1) {
           mbar_wait(s.mask_empty, (m & 1) ^ 1);
-          mbar_arrive_expect_tx(s.mask_full, nblk * BLOCK_BYTES);
+          mbar_arrive_expect_tx(s.mask_full, nblk * S::BLOCK_BYTES);
           for (int b = 0; b < nblk; ++b) {
             if (q == 0)
-              tma_load_2d(s.mask + b * BLOCK_BYTES, &maps.stash_h, b * 64, row,
-                          s.mask_full);
+              tma_load_2d(s.mask + b * S::BLOCK_BYTES, &maps.stash_h, b * 64,
+                          row, s.mask_full);
             else
-              tma_load_3d(s.mask + b * BLOCK_BYTES, &maps.stash, b * 64, row,
-                          NQ - 1 - q, s.mask_full);
+              tma_load_3d(s.mask + b * S::BLOCK_BYTES, &maps.stash, b * 64,
+                          row, NQ - 1 - q, s.mask_full);
           }
           ++m;
         }
@@ -177,7 +208,9 @@ __device__ __forceinline__ void produce(const ChainMaps& maps, const Smem& s,
 // acc = A @ W^T-slices for this warpgroup's 64 rows: `nact` slices whose A
 // is the cotangent tile at `a_act`, then, if a_tail != 0, one slice whose A
 // is the two k16 steps at a_tail (the weight rows past the layer's are
-// zero-filled by TMA, so columns of A beyond them do not count).
+// zero-filled by TMA, so columns of A beyond them do not count).  `w_cols`
+// is the byte offset in a stage of the 64-column block of the first output
+// column.
 // acc starts at zero and every product accumulates (see the forward: an
 // accumulator that a product merely overwrites looks live to the compiler
 // from the previous product on).  One slice's products stay in flight while
@@ -186,8 +219,8 @@ __device__ __forceinline__ void produce(const ChainMaps& maps, const Smem& s,
 template <int H, int N>
 __device__ __forceinline__ void products(float (&acc)[N / 2], int nact,
                                          uint32_t a_act, uint32_t a_tail,
-                                         uint32_t& it, const Smem& s,
-                                         int lane) {
+                                         uint32_t w_cols, uint32_t& it,
+                                         const Smem& s, int lane) {
   using S = Shape<H>;
   const int ns = nact + (a_tail != 0 ? 1 : 0);
   uint32_t prev = 0;
@@ -195,13 +228,13 @@ __device__ __forceinline__ void products(float (&acc)[N / 2], int nact,
   for (int j = 0; j < N / 2; ++j) acc[j] = 0.f;
 #pragma unroll 1
   for (int i = 0; i < ns; ++i, ++it) {
-    const uint32_t stage = it % STAGES, parity = (it / STAGES) & 1;
+    const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
     mbar_wait(s.full + 8 * stage, parity);
-    const uint32_t b = s.ring + stage * S::STAGE_BYTES;
+    const uint32_t b = s.ring + stage * S::STAGE_BYTES + w_cols;
     // Slice i of the tile is k16 steps 2 i and 2 i + 1 of one 64-column
     // block; the tail's second step meets zero rows of the weights.
     const uint32_t a =
-        i < nact ? a_act + (i >> 1) * BLOCK_BYTES + (i & 1) * 64 : a_tail;
+        i < nact ? a_act + (i >> 1) * S::BLOCK_BYTES + (i & 1) * 64 : a_tail;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS / 16; ++kk)
@@ -241,7 +274,9 @@ __device__ __forceinline__ void warp_column_sums(float (&v)[C], int lane) {
   }
 }
 
-// One consumer warpgroup: rows 64 wg .. 64 wg + 63 of every tile of the CTA.
+// One consumer warpgroup: up to width 256, rows 64 wg .. 64 wg + 63 of
+// every tile of the CTA; in the N-split plan every row of the tile and
+// columns NW wg .. NW wg + NW - 1 of each product (64 wg .. of g_h).
 template <int H>
 __device__ __forceinline__ void consume(const ChainParams& p,
                                         const ChainMaps& maps, const Smem& s,
@@ -249,40 +284,51 @@ __device__ __forceinline__ void consume(const ChainParams& p,
                                         long long tiles, int wg, int tid) {
   using S = Shape<H>;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
-  const int bar_id = 1 + wg;
-  // This warpgroup's rows of the first block of each tile.
-  const uint32_t act_wg = s.act + wg * WG_BYTES;
-  const uint32_t gs_wg = s.gs + wg * WG_BYTES;
-  unsigned char* act_p = smem + wg * WG_BYTES;
-  const unsigned char* mask_p = smem + S::ACT_BYTES + wg * WG_BYTES;
-  unsigned char* gs_p = smem + 2 * S::ACT_BYTES + wg * WG_BYTES;
-  float* red_small = red + 4 * S::WIDE;
+  // The narrow plan: this warpgroup's own barrier and rows of each block.
+  // The N-split plan: a barrier of both consumers, every row, and its
+  // column blocks (blk_w of the H-wide products, blk_h of g_h).
+  const int bar_id = S::SPLIT ? 1 : 1 + wg;
+  const int bar_threads = S::SPLIT ? 256 : 128;
+  const uint32_t rows_at = S::SPLIT ? 0 : wg * WG_BYTES;
+  const int blk_w = S::SPLIT ? wg * (S::NW / 64) : 0;
+  const int blk_h = S::SPLIT ? wg : 0;
+  // Consumer 0 of the N-split plan fills the small cotangent tile alone.
+  const bool lead = !S::SPLIT || wg == 0;
+  // The rows it multiplies (the A operands).
+  const uint32_t act_wg = s.act + rows_at;
+  const uint32_t gs_wg = s.gs + rows_at;
+  unsigned char* gs_p = smem + 2 * S::ACT_BYTES + rows_at;
+  float* red_small = red + 4 * S::RED_W;
   // The two rows of the warpgroup's 64 whose accumulator elements this
   // thread holds: lrow and lrow + 8 (both are g modulo 8).
   const int lrow = warp * 16 + g;
 
   // Before a write to the tiles: the TMA stores started by thread 0 must
-  // have read them.
+  // have read them; in the N-split plan the other consumer must also have
+  // read the product's input.
   auto stores_done = [&]() {
     if (tid == 0) bulk_wait_read();
-    named_bar_sync(bar_id, 128);
+    named_bar_sync(bar_id, bar_threads);
   };
-  // After a write: publish it to the warpgroup's wgmma and TMA stores.
+  // After a write: publish it to the consumers' wgmma and TMA stores.
   auto publish = [&]() {
     fence_proxy_async();
-    named_bar_sync(bar_id, 128);
+    named_bar_sync(bar_id, bar_threads);
   };
 
-  // The epilogue of a product of width N: optional relu mask from the mask
-  // tile, the f32 column sums, bf16 rounding back into the cotangent tile.
-  // Returns with the warp's column sums in red[warp][column].
-  auto epilogue = [&](auto& acc, auto width, bool masked, float* ghf_rows,
-                      const bool (&valid)[2]) {
+  // The epilogue of a product of width N whose columns start at block
+  // `blk` of the tiles: optional relu mask from the mask tile, the f32
+  // column sums, bf16 rounding back into the cotangent tile.  Returns with
+  // the warp's column sums in red[warp][column].
+  auto epilogue = [&](auto& acc, auto width, int blk, bool masked,
+                      float* ghf_rows, const bool (&valid)[2]) {
     constexpr int N = decltype(width)::value;
+    unsigned char* act_p = smem + blk * S::BLOCK_BYTES + rows_at;
+    const unsigned char* mask_p = act_p + S::ACT_BYTES;
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
       const uint32_t off =
-          (j / 8) * BLOCK_BYTES + swizzle128(lrow, j % 8) + q4 * 4;
+          (j / 8) * S::BLOCK_BYTES + swizzle128(lrow, j % 8) + q4 * 4;
       float v[2][2];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
@@ -317,29 +363,32 @@ __device__ __forceinline__ void consume(const ChainParams& p,
 #pragma unroll
     for (int i = 0; i < N / 32; ++i) {
       const int c = (N / 32) * g + i;
-      red[warp * S::WIDE + 8 * (c >> 1) + 2 * q4 + (c & 1)] = sums[i];
+      red[warp * S::RED_W + 8 * (c >> 1) + 2 * q4 + (c & 1)] = sums[i];
     }
   };
   // After the epilogue's publish: the warpgroup's column sums -> its
   // partial row.
   auto bias_partial = [&](int width, float* dst) {
     for (int c = tid; c < width; c += 128)
-      dst[c] = red[c] + red[S::WIDE + c] + red[2 * S::WIDE + c] +
-               red[3 * S::WIDE + c];
+      dst[c] = red[c] + red[S::RED_W + c] + red[2 * S::RED_W + c] +
+               red[3 * S::RED_W + c];
   };
 
   uint32_t it = 0, m = 0;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long r0 = tile * BM + wg * WG_ROWS;  // the warpgroup's first row
+    // The warpgroup's first row.
+    const long long r0 = tile * S::BM + (S::SPLIT ? 0 : wg * WG_ROWS);
     const bool valid[2] = {r0 + lrow < p.n, r0 + lrow + 8 < p.n};
     const bool store = tid == 0 && r0 < p.n;
-    float* bp = p.bpart + (tile * 2 + wg) * p.nb;
+    // Its partial row of the bias gradients (the N-split plan's consumers
+    // share one per tile, each writing its own columns).
+    float* bp = p.bpart + (S::SPLIT ? tile : tile * 2 + wg) * p.nb;
 
     // The cotangent's small tile, rounded to bf16: columns 0..15 g_heads
     // (rgb | mu, sigma | 0), column 16 g_alpha, zeros to 63.  Two threads
     // per row, four 16-byte chunks each.
     stores_done();
-    {
+    if (lead) {
       const int r = tid >> 1;
       const long long grow = r0 + r;
       uint4 c0 = make_uint4(0u, 0u, 0u, 0u), c2 = c0;
@@ -365,13 +414,13 @@ __device__ __forceinline__ void consume(const ChainParams& p,
       }
     }
     publish();
-    if (store) {
+    if (lead && store) {
       tma_store_2d(&maps.gs, gs_wg, 0, (int)r0);
       bulk_commit();
     }
     // d_b_heads and d_b_alpha: column sums of the small tile's first 32
     // columns, 16 rows per warp; added up after the first epilogue.
-    {
+    if (lead) {
       const int c = lane;
       float sum = 0.f;
 #pragma unroll
@@ -384,43 +433,46 @@ __device__ __forceinline__ void consume(const ChainParams& p,
     // Heads: g_h = mask(h > 0, g_heads @ W_heads), bf16 into columns 0..127
     // of the tile, f32 to ghf.
     {
-      float acc[DH / 2];
-      products<H, DH>(acc, 0, 0, gs_wg, it, s, lane);
+      float acc[S::NH / 2];
+      products<H, S::NH>(acc, 0, 0, gs_wg, blk_h * WBLOCK_BYTES, it, s, lane);
       mbar_wait(s.mask_full, m & 1);
       ++m;
       stores_done();
-      epilogue(acc, std::integral_constant<int, DH>{}, true,
-               p.ghf + (r0 + lrow) * DH, valid);
+      epilogue(acc, std::integral_constant<int, S::NH>{}, blk_h, true,
+               p.ghf + (r0 + lrow) * DH + blk_h * 64, valid);
       __syncwarp();
       if (lane == 0) mbar_arrive(s.mask_empty);
       publish();
       if (store) {
 #pragma unroll
-        for (int blk = 0; blk < DH / 64; ++blk)
-          tma_store_2d(&maps.gd, act_wg + blk * BLOCK_BYTES, blk * 64, (int)r0);
+        for (int blk = blk_h; blk < blk_h + S::NH / 64; ++blk)
+          tma_store_2d(&maps.gd, act_wg + blk * S::BLOCK_BYTES, blk * 64,
+                       (int)r0);
         bulk_commit();
       }
-      bias_partial(DH, bp + p.b_off[2]);
-      if (tid < 32)
+      bias_partial(S::NH, bp + p.b_off[2] + blk_h * 64);
+      if (lead && tid < 32)
         bp[tid < NHEAD ? p.b_off[3] + tid : p.b_off[2] + DH + tid - NHEAD] =
             red_small[tid] + red_small[32 + tid] + red_small[64 + tid] +
             red_small[96 + tid];
     }
     {
-      float acc[H / 2];
+      float acc[S::NW / 2];
       // Dir layer: g_feat = [g_h_c | g_alpha] @ [Wd_feat; w_alpha]; then
       // fc_feat and W7..W1: gx = bf16(g) @ W, g_i = mask(x_i > 0, gx).
 #pragma unroll 1
       for (int q = 1; q < NQ; ++q) {
         const bool dir = q == 1;
-        products<H, H>(acc, dir ? DH / KS : H / KS, act_wg,
-                       dir ? gs_wg + (GS_ALPHA / 16) * 32 : 0u, it, s, lane);
+        products<H, S::NW>(acc, dir ? DH / KS : H / KS, act_wg,
+                           dir ? gs_wg + (GS_ALPHA / 16) * 32 : 0u,
+                           blk_w * WBLOCK_BYTES, it, s, lane);
         if (!dir) {
           mbar_wait(s.mask_full, m & 1);
           ++m;
         }
         stores_done();
-        epilogue(acc, std::integral_constant<int, H>{}, !dir, nullptr, valid);
+        epilogue(acc, std::integral_constant<int, S::NW>{}, blk_w, !dir,
+                 nullptr, valid);
         if (!dir) {
           __syncwarp();
           if (lane == 0) mbar_arrive(s.mask_empty);
@@ -429,12 +481,13 @@ __device__ __forceinline__ void consume(const ChainParams& p,
         const int slab = dir ? NTRUNK : NQ - 1 - q;
         if (store) {
 #pragma unroll
-          for (int blk = 0; blk < H / 64; ++blk)
-            tma_store_3d(&maps.gt, act_wg + blk * BLOCK_BYTES, blk * 64,
+          for (int blk = blk_w; blk < blk_w + S::NW / 64; ++blk)
+            tma_store_3d(&maps.gt, act_wg + blk * S::BLOCK_BYTES, blk * 64,
                          (int)r0, slab);
           bulk_commit();
         }
-        bias_partial(H, bp + (dir ? p.b_off[1] : p.b_off[0] + slab * H));
+        bias_partial(S::NW, bp + (dir ? p.b_off[1] : p.b_off[0] + slab * H) +
+                                blk_w * 64);
       }
     }
   }
@@ -456,14 +509,14 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   s.gs = s.mask + S::ACT_BYTES;
   s.ring = s.gs + S::GS_BYTES;
   const uint32_t red_off =
-      2 * S::ACT_BYTES + S::GS_BYTES + STAGES * S::STAGE_BYTES;
+      2 * S::ACT_BYTES + S::GS_BYTES + S::STAGES * S::STAGE_BYTES;
   s.full = base + red_off + S::RED_BYTES;
-  s.empty = s.full + 8 * STAGES;
-  s.mask_full = s.empty + 8 * STAGES;
+  s.empty = s.full + 8 * S::STAGES;
+  s.mask_full = s.empty + 8 * S::STAGES;
   s.mask_empty = s.mask_full + 8;
 
   if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES; ++i) {
+    for (int i = 0; i < S::STAGES; ++i) {
       mbar_init(s.full + 8 * i, 1);   // the producer's arrive.expect_tx
       mbar_init(s.empty + 8 * i, 8);  // lane 0 of each consumer warp
     }
@@ -473,7 +526,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   __syncthreads();
 
-  const long long tiles = (p.n + BM - 1) / BM;
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     if (threadIdx.x == 0) produce<H>(maps, s, tiles);
@@ -484,15 +537,61 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-// g_dproj[ray, c] = bf16(sum over the ray's rows of g_h[row, c]), in row
-// order.
-__global__ void dproj_grad_kernel(const float* ghf, bf16* gdp, int samples) {
+// g_dproj[ray, c] = the sum over the ray's rows of g_h[row, c], in row
+// order and in f32.  Per ray: of the f32 g_h, rounded to bf16 once; per
+// sample: of each row's bf16 rounding.  Stored in f32 either way.
+__global__ void dproj_grad_kernel(const float* ghf, float* gdp, int samples,
+                                  int per_ray) {
   const long long ray = blockIdx.x;
   const int c = threadIdx.x;
   const float* src = ghf + ray * samples * DH + c;
   float s = 0.f;
-  for (int k = 0; k < samples; ++k) s += src[(long long)k * DH];
-  gdp[ray * DH + c] = __float2bfloat16_rn(s);
+  for (int k = 0; k < samples; ++k) {
+    const float v = src[(long long)k * DH];
+    s += per_ray ? v : __bfloat162float(__float2bfloat16_rn(v));
+  }
+  gdp[ray * DH + c] = per_ray ? __bfloat162float(__float2bfloat16_rn(s)) : s;
+}
+
+// The dirs weight gradient d_Wd_dirs[c, j] = sum over the rays of
+// g_dproj[ray, c] * dirs[ray, j] in f32 (a 128 x 27 product, a few MFLOP per
+// call), in two fixed-order passes:
+// dirs_grad_partial_kernel adds block b's DG_RAYS rays, ray after ray, into
+// part[b, j, c] (thread c); dirs_grad_reduce_kernel sums the blocks'
+// partials in block order into the packed gradient's [128, 32] block
+// (columns 27..31 zero).
+constexpr int DG_RAYS = 16;
+
+__global__ void dirs_grad_partial_kernel(const float* gdp, const bf16* dirs,
+                                         float* part, long long rays) {
+  __shared__ float d[DG_RAYS][DIRS];
+  const long long r0 = (long long)blockIdx.x * DG_RAYS;
+  const int c = threadIdx.x;
+  const int here = (int)(rays - r0 < DG_RAYS ? rays - r0 : DG_RAYS);
+  for (int i = c; i < here * DIRS; i += DH)
+    d[i / DIRS][i % DIRS] =
+        __bfloat162float(dirs[(r0 + i / DIRS) * DIRS_LD + i % DIRS]);
+  __syncthreads();
+  float acc[DIRS];
+#pragma unroll
+  for (int j = 0; j < DIRS; ++j) acc[j] = 0.f;
+  for (int i = 0; i < here; ++i) {
+    const float g = gdp[(r0 + i) * DH + c];
+#pragma unroll
+    for (int j = 0; j < DIRS; ++j) acc[j] = fmaf(g, d[i][j], acc[j]);
+  }
+  float* out = part + (long long)blockIdx.x * DIRS * DH + c;
+#pragma unroll
+  for (int j = 0; j < DIRS; ++j) out[j * DH] = acc[j];
+}
+
+__global__ void dirs_grad_reduce_kernel(const float* part, float* gw_dirs,
+                                        int blocks) {
+  const int j = blockIdx.x, c = threadIdx.x;
+  float s = 0.f;
+  if (j < DIRS)
+    for (int b = 0; b < blocks; ++b) s += part[((long long)b * DIRS + j) * DH + c];
+  gw_dirs[c * DIRS_LD + j] = s;
 }
 
 // ---------------------------------------------------------------- wgrad
@@ -503,22 +602,22 @@ constexpr int WM = 128;           // output rows per CTA (two warpgroups)
 constexpr int MAX_UNITS = 28;
 constexpr uint32_t WBOX_BYTES = WK * 128;  // [WK][64] bf16
 
-// dst[m, c] (+ over splits) = sum_r g[r, acol + m] a[r, c] for the rows m of
-// the 128-row tile in [keep_lo, keep_lo + keep_n) and c < ncols.
+// dst[m, c] (+ over splits) = sum_r g[r, acol + m] a[r, bcol + c] for the
+// rows m of the 128-row tile in [keep_lo, keep_lo + keep_n) and c < ncols.
 struct WUnit {
   long long rows;      // of g and a
   long long part;      // float offset of the [splits, keep_n, ncols] partials
   long long dst;       // float offset of dst[0, 0] in the packed gradient
   int amap, aslab, acol;
-  int bmap, bslab;
+  int bmap, bslab, bcol;
   int keep_lo, keep_n, ncols, ld_dst;
   int rows_per_split, splits;
   int cta_begin;       // first CTA of the unit (read for units past `nbig`)
 };
 
 struct WMaps {
-  CUtensorMap a[4];  // gs, gd, gt, gdp: box [1, WK, 64]
-  CUtensorMap b[4];  // stash_h, stash, ipe, dirs
+  CUtensorMap a[3];  // gs, gd, gt: box [1, WK, 64]
+  CUtensorMap b[3];  // stash_h, stash, ipe
 };
 
 // The first nbig units have `sbig` splits each and their CTAs are numbered
@@ -534,6 +633,8 @@ struct WShape {
   static constexpr uint32_t A_BYTES = (WM / 64) * WBOX_BYTES;
   static constexpr uint32_t STAGE_BYTES = A_BYTES + (NT / 64) * WBOX_BYTES;
   static constexpr size_t SMEM = 1024 + WSTAGES * STAGE_BYTES + 128;
+  static_assert(NT % 64 == 0 && NT <= 256, "no weight-gradient tile of this width");
+  static_assert(SMEM <= MAX_SMEM, "the tile exceeds a block's shared memory");
 };
 
 template <int NT>
@@ -585,8 +686,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                     full + 8 * stage);
 #pragma unroll
       for (int b = 0; b < NT / 64; ++b)
-        tma_load_3d(dst + S::A_BYTES + b * WBOX_BYTES, bm, b * 64, row,
-                    U.bslab, full + 8 * stage);
+        tma_load_3d(dst + S::A_BYTES + b * WBOX_BYTES, bm, U.bcol + b * 64,
+                    row, U.bslab, full + 8 * stage);
     }
     return;
   }
@@ -689,68 +790,93 @@ __global__ void bias_reduce_kernel(const float* bpart, float* gb,
 
 size_t align256(size_t x) { return (x + 255) & ~size_t(255); }
 
-// The weight-gradient units of both launches (first the NT = hidden launch,
-// `nmain` units, then the NT = 128 one) and the floats of their partials.
+// The weight-gradient units, in launches of one tile width NT and at most
+// MAX_UNITS units each: first those whose activation is a stash slab (NT =
+// main_nt), then those whose activation is h or the IPE (NT = 128); and the
+// floats of their partials.
+constexpr int MAX_PLAN_UNITS = 80;  // 77 at width 512
+constexpr int MAX_LAUNCHES = 4;
+
+struct WLaunch {
+  int first, count, nt;
+  int big, sbig, ctas;
+};
+
 struct Plan {
-  WUnit u[2 * MAX_UNITS];
-  int nmain, nsmall;
-  int big[2], sbig[2], ctas[2];
+  WUnit u[MAX_PLAN_UNITS];
+  WLaunch l[MAX_LAUNCHES];
+  int nunit, nlaunch;
   long long part_floats;
 };
 
-Plan make_plan(long long n, long long rays, int hidden, int sms,
-               const long long* w_off) {
+// The tile width of the weight gradients of the H-wide products: H, or
+// H / 2 in the N-split plan (two column chunks per output).
+int main_nt(int hidden) { return hidden > 256 ? hidden / 2 : hidden; }
+
+Plan make_plan(long long n, int hidden, int sms, const long long* w_off) {
   Plan P = {};
   int nu = 0;
-  // amap: 0 gs, 1 gd, 2 gt, 3 gdp; bmap: 0 stash_h, 1 stash, 2 ipe, 3 dirs.
-  auto add = [&](int amap, int aslab, int m, int bmap, int bslab,
+  // amap: 0 gs, 1 gd, 2 gt; bmap: 0 stash_h, 1 stash, 2 ipe.
+  // One unit per 128 output rows and per nt output columns.
+  auto add = [&](int nt, int amap, int aslab, int m, int bmap, int bslab,
                  long long rows, int keep_lo, int keep_n, int ncols,
                  long long dst, int ld) {
     for (int m0 = 0; m0 < m; m0 += WM) {
-      WUnit& U = P.u[nu++];
-      U.rows = rows;
-      U.amap = amap;
-      U.aslab = aslab;
-      U.acol = m0;
-      U.bmap = bmap;
-      U.bslab = bslab;
-      U.keep_lo = keep_lo;
-      U.keep_n = keep_n < m - m0 ? keep_n : m - m0;
-      U.ncols = ncols;
-      U.dst = dst + (long long)m0 * ld;
-      U.ld_dst = ld;
+      for (int c0 = 0; c0 < ncols; c0 += nt) {
+        WUnit& U = P.u[nu++];
+        U.rows = rows;
+        U.amap = amap;
+        U.aslab = aslab;
+        U.acol = m0;
+        U.bmap = bmap;
+        U.bslab = bslab;
+        U.bcol = c0;
+        U.keep_lo = keep_lo;
+        U.keep_n = keep_n < m - m0 ? keep_n : m - m0;
+        U.ncols = ncols - c0 < nt ? ncols - c0 : nt;
+        U.dst = dst + (long long)m0 * ld + c0;
+        U.ld_dst = ld;
+      }
     }
   };
   // The workspace query has no offsets: the sizes do not depend on them.
   static const long long no_off[NW] = {};
   const long long* wo = w_off != nullptr ? w_off : no_off;
-  // NT = hidden: every product whose activation is a stash slab.
+  const int nt = main_nt(hidden);
+  // NT = main_nt: every product whose activation is a stash slab.
   for (int i = NTRUNK - 1; i >= 1; --i) {
     const int kin = i == SKIP ? IPE + hidden : hidden;
-    add(2, i, hidden, 1, i - 1, n, 0, WM, hidden,
+    add(nt, 2, i, hidden, 1, i - 1, n, 0, WM, hidden,
         wo[i] + (i == SKIP ? IPE : 0), kin);
   }
-  add(2, NTRUNK, hidden, 1, NTRUNK - 1, n, 0, WM, hidden, wo[W_FEAT], hidden);
-  add(1, 0, DH, 1, NTRUNK, n, 0, WM, hidden, wo[W_DIR], hidden);
-  add(0, 0, GS_W, 1, NTRUNK, n, GS_ALPHA, 1, hidden,
+  add(nt, 2, NTRUNK, hidden, 1, NTRUNK - 1, n, 0, WM, hidden, wo[W_FEAT],
+      hidden);
+  add(nt, 1, 0, DH, 1, NTRUNK, n, 0, WM, hidden, wo[W_DIR], hidden);
+  add(nt, 0, 0, GS_W, 1, NTRUNK, n, GS_ALPHA, 1, hidden,
       wo[W_DIR] + (long long)DH * hidden, hidden);
-  P.nmain = nu;
-  // NT = 128: h, the IPE and the dirs as activations.
-  add(2, SKIP, hidden, 2, 0, n, 0, WM, IPE, wo[SKIP], IPE + hidden);
-  add(2, 0, hidden, 2, 0, n, 0, WM, IPE, wo[0], IPE);
-  add(0, 0, GS_W, 0, 0, n, 0, NHEAD, DH, wo[W_HEAD], DH);
-  add(3, 0, DH, 3, 0, rays, 0, WM, DIRS_LD, wo[W_DIRS], DIRS_LD);
-  P.nsmall = nu - P.nmain;
+  const int nmain = nu;
+  // NT = 128: h and the IPE as activations.
+  add(DH, 2, SKIP, hidden, 2, 0, n, 0, WM, IPE, wo[SKIP], IPE + hidden);
+  add(DH, 2, 0, hidden, 2, 0, n, 0, WM, IPE, wo[0], IPE);
+  add(DH, 0, 0, GS_W, 0, 0, n, 0, NHEAD, DH, wo[W_HEAD], DH);
+  P.nunit = nu;
+
+  int nl = 0;
+  for (int first = 0; first < nmain; first += MAX_UNITS)
+    P.l[nl++] = {first, nmain - first < MAX_UNITS ? nmain - first : MAX_UNITS,
+                 nt, 0, 0, 0};
+  P.l[nl++] = {nmain, nu - nmain, DH, 0, 0, 0};
+  P.nlaunch = nl;
 
   long long part = 0;
-  for (int l = 0; l < 2; ++l) {
-    WUnit* u = P.u + (l == 0 ? 0 : P.nmain);
-    const int cnt = l == 0 ? P.nmain : P.nsmall;
+  for (int l = 0; l < nl; ++l) {
+    WLaunch& L = P.l[l];
+    WUnit* u = P.u + L.first;
     int big = 0;
-    while (big < cnt && u[big].rows == n) ++big;
+    while (big < L.count && u[big].rows == n) ++big;
     const int sbig = big > 0 && sms / big > 1 ? sms / big : 1;
     int ctas = 0;
-    for (int i = 0; i < cnt; ++i) {
+    for (int i = 0; i < L.count; ++i) {
       const long long per = (u[i].rows + sbig - 1) / sbig;
       u[i].rows_per_split = (int)((per + WK - 1) / WK * WK);
       u[i].splits =
@@ -760,20 +886,27 @@ Plan make_plan(long long n, long long rays, int hidden, int sms,
       u[i].part = part;
       part += (long long)u[i].splits * u[i].keep_n * u[i].ncols;
     }
-    P.big[l] = big;
-    P.sbig[l] = big > 0 ? u[0].splits : 0;
-    P.ctas[l] = ctas;
+    L.big = big;
+    L.sbig = big > 0 ? u[0].splits : 0;
+    L.ctas = ctas;
   }
   P.part_floats = part;
   return P;
 }
 
+// Partial rows of the bias gradients: one per chain tile and consumer, or
+// one per tile in the N-split plan.
+long long bias_rows(long long n, int hidden) {
+  const long long bm = chain_rows(hidden), tiles = (n + bm - 1) / bm;
+  return hidden > 256 ? tiles : 2 * tiles;
+}
+
 struct Layout {
-  size_t gs, gd, ghf, gt, bpart, gdp, part, total;
+  size_t gs, gd, ghf, gt, bpart, gdp, dpart, part, total;
 };
 
 Layout layout(long long n, int samples, int hidden, const Plan& P) {
-  const long long rays = n / samples, tiles = (n + BM - 1) / BM;
+  const long long rays = n / samples;
   const long long nb = 9LL * hidden + DHP + NHEAD;
   Layout L;
   size_t off = 0;
@@ -786,8 +919,10 @@ Layout layout(long long n, int samples, int hidden, const Plan& P) {
   L.gd = take(n * DH * sizeof(bf16));
   L.ghf = take(n * DH * sizeof(float));
   L.gt = take(NSLAB * n * hidden * sizeof(bf16));
-  L.bpart = take(2 * tiles * nb * sizeof(float));
-  L.gdp = take(rays * DH * sizeof(bf16));
+  L.bpart = take(bias_rows(n, hidden) * nb * sizeof(float));
+  // g_dproj (f32) and the partials of its product with the dirs.
+  L.gdp = take(rays * DH * sizeof(float));
+  L.dpart = take((rays + DG_RAYS - 1) / DG_RAYS * DIRS * DH * sizeof(float));
   L.part = take(P.part_floats * sizeof(float));
   L.total = off;
   return L;
@@ -821,38 +956,44 @@ cudaError_t launch_chain(const ChainParams& p, const ChainMaps& maps, int sms,
       chain_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)S::SMEM);
   if (setup != cudaSuccess) return setup;
-  const long long tiles = (p.n + BM - 1) / BM;
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   chain_kernel<H><<<grid, NTHREADS, S::SMEM, stream>>>(p, maps);
   return cudaGetLastError();
 }
 
 template <int NT>
-cudaError_t launch_wgrad(const Plan& P, int l, float* part, const WMaps& maps,
-                         cudaStream_t stream) {
+cudaError_t launch_wgrad(const Plan& P, const WLaunch& L, float* part,
+                         const WMaps& maps, cudaStream_t stream) {
   using S = WShape<NT>;
   WParams W = {};
-  const int first = l == 0 ? 0 : P.nmain;
-  W.nunit = l == 0 ? P.nmain : P.nsmall;
-  for (int i = 0; i < W.nunit; ++i) W.u[i] = P.u[first + i];
-  W.nbig = P.big[l];
-  W.sbig = P.sbig[l];
+  W.nunit = L.count;
+  for (int i = 0; i < W.nunit; ++i) W.u[i] = P.u[L.first + i];
+  W.nbig = L.big;
+  W.sbig = L.sbig;
   W.part = part;
   static const cudaError_t setup = cudaFuncSetAttribute(
       wgrad_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)S::SMEM);  // once per process and instantiation
   if (setup != cudaSuccess) return setup;
-  wgrad_kernel<NT><<<(unsigned)P.ctas[l], NTHREADS, S::SMEM, stream>>>(W, maps);
+  wgrad_kernel<NT><<<(unsigned)L.ctas, NTHREADS, S::SMEM, stream>>>(W, maps);
   return cudaGetLastError();
 }
 
-cudaError_t launch_wgrad_width(int nt, const Plan& P, int l, float* part,
+cudaError_t launch_wgrad_width(const Plan& P, const WLaunch& L, float* part,
                                const WMaps& maps, cudaStream_t stream) {
-  switch (nt) {
-    case 64: return launch_wgrad<64>(P, l, part, maps, stream);
-    case 128: return launch_wgrad<128>(P, l, part, maps, stream);
-    default: return launch_wgrad<256>(P, l, part, maps, stream);
+  switch (L.nt) {
+    case 64: return launch_wgrad<64>(P, L, part, maps, stream);
+    case 128: return launch_wgrad<128>(P, L, part, maps, stream);
+    case 192: return launch_wgrad<192>(P, L, part, maps, stream);
+    case 256: return launch_wgrad<256>(P, L, part, maps, stream);
+    default: return cudaErrorInvalidValue;
   }
+}
+
+bool known_width(int hidden) {
+  return hidden == 64 || hidden == 128 || hidden == 192 || hidden == 256 ||
+         hidden == 384 || hidden == 512;
 }
 
 }  // namespace
@@ -860,10 +1001,10 @@ cudaError_t launch_wgrad_width(int nt, const Plan& P, int l, float* part,
 // Bytes of device workspace that ddnerf_fused_mlp_bwd needs.
 extern "C" long long ddnerf_fused_mlp_bwd_workspace(long long n, int samples,
                                                     int hidden) {
-  if (n <= 0 || samples <= 0 || n % samples) return -1;
+  if (n <= 0 || samples <= 0 || n % samples || !known_width(hidden)) return -1;
   int sms = 0;
   if (sm_count(&sms) != cudaSuccess) return -1;
-  const Plan P = make_plan(n, n / samples, hidden, sms, nullptr);
+  const Plan P = make_plan(n, hidden, sms, nullptr);
   return (long long)layout(n, samples, hidden, P).total;
 }
 
@@ -872,26 +1013,26 @@ extern "C" long long ddnerf_fused_mlp_bwd_workspace(long long n, int samples,
 // [n, 4|6] f32, the forward's stash [9, n, hidden] and stash_h [n, 128]
 // bf16, packed bf16 weights w; outputs gw (f32, laid out as w) and gb (f32,
 // laid out as the packed biases); ws a workspace of
-// ddnerf_fused_mlp_bwd_workspace bytes.  w_off (12 entries) and b_off (4)
-// are host arrays.  Returns a cudaError_t.
+// ddnerf_fused_mlp_bwd_workspace bytes.  per_ray: the dirs weight gradient
+// rounds the per-ray cotangent sum (1) or each sample's cotangent (0).
+// w_off (12 entries) and b_off (4) are host arrays.  Returns a cudaError_t.
 extern "C" int ddnerf_fused_mlp_bwd(
     const void* ipe, const void* dirs, const void* g, const void* stash,
     const void* stash_h, const void* w, void* gw, void* gb, void* ws,
     long long ws_bytes, long long n, int samples, int hidden, int depth_head,
-    const long long* w_off, const long long* b_off, void* stream) {
+    int per_ray, const long long* w_off, const long long* b_off,
+    void* stream) {
   if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
-  if (hidden != 64 && hidden != 128 && hidden != 256)
-    return cudaErrorInvalidValue;
+  if (!known_width(hidden)) return cudaErrorInvalidValue;
   // TMA coordinates are 32-bit.
-  if (n > 0x7fffffffLL - BM) return cudaErrorInvalidValue;
+  if (n > 0x7fffffffLL - 2 * WG_ROWS) return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
   const long long rays = n / samples, h = hidden;
-  const long long tiles = (n + BM - 1) / BM;
   const int nb = 9 * hidden + DHP + NHEAD;
   if (b_off[3] + NHEAD != nb) return cudaErrorInvalidValue;
-  const Plan P = make_plan(n, rays, hidden, sms, w_off);
+  const Plan P = make_plan(n, hidden, sms, w_off);
   const Layout L = layout(n, samples, hidden, P);
   if (ws_bytes < (long long)L.total) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -900,7 +1041,7 @@ extern "C" int ddnerf_fused_mlp_bwd(
   bf16* gs = reinterpret_cast<bf16*>(base + L.gs);
   bf16* gd = reinterpret_cast<bf16*>(base + L.gd);
   bf16* gt = reinterpret_cast<bf16*>(base + L.gt);
-  bf16* gdp = reinterpret_cast<bf16*>(base + L.gdp);
+  float* gdp = reinterpret_cast<float*>(base + L.gdp);
   float* part = reinterpret_cast<float*>(base + L.part);
 
   ChainParams p = {};
@@ -912,6 +1053,7 @@ extern "C" int ddnerf_fused_mlp_bwd(
   p.nb = nb;
   for (int i = 0; i < NB_OFF; ++i) p.b_off[i] = b_off[i];
 
+  const int bm = chain_rows(hidden);
   ChainMaps cm = {};
   bool ok = true;
   for (int l = 1; l < NLAYER; ++l) {
@@ -919,8 +1061,8 @@ extern "C" int ddnerf_fused_mlp_bwd(
     const long long kin = l == SKIP ? IPE + h : (l == L_HEAD ? DH : h);
     ok = ok && map2(&cm.w[l], wp + w_off[l], kin, nout, KS);
   }
-  ok = ok && map3(&cm.stash, stash, h, n, NSLAB, BM);
-  ok = ok && map2(&cm.stash_h, stash_h, DH, n, BM);
+  ok = ok && map3(&cm.stash, stash, h, n, NSLAB, bm);
+  ok = ok && map2(&cm.stash_h, stash_h, DH, n, bm);
   ok = ok && map2(&cm.gs, gs, GS_W, n, WG_ROWS);
   ok = ok && map2(&cm.gd, gd, DH, n, WG_ROWS);
   ok = ok && map3(&cm.gt, gt, h, n, NSLAB, WG_ROWS);
@@ -928,51 +1070,66 @@ extern "C" int ddnerf_fused_mlp_bwd(
   ok = ok && map3(&wm.a[0], gs, GS_W, n, 1, WK);
   ok = ok && map3(&wm.a[1], gd, DH, n, 1, WK);
   ok = ok && map3(&wm.a[2], gt, h, n, NSLAB, WK);
-  ok = ok && map3(&wm.a[3], gdp, DH, rays, 1, WK);
   ok = ok && map3(&wm.b[0], stash_h, DH, n, 1, WK);
   ok = ok && map3(&wm.b[1], stash, h, n, NSLAB, WK);
   ok = ok && map3(&wm.b[2], ipe, IPE, n, 1, WK);
-  ok = ok && map3(&wm.b[3], dirs, DIRS_LD, rays, 1, WK);
   if (!ok) return cudaErrorInvalidValue;
 
   switch (hidden) {
     case 64: e = launch_chain<64>(p, cm, sms, st); break;
     case 128: e = launch_chain<128>(p, cm, sms, st); break;
-    default: e = launch_chain<256>(p, cm, sms, st); break;
+    case 192: e = launch_chain<192>(p, cm, sms, st); break;
+    case 256: e = launch_chain<256>(p, cm, sms, st); break;
+    case 384: e = launch_chain<384>(p, cm, sms, st); break;
+    default: e = launch_chain<512>(p, cm, sms, st); break;
   }
   if (e != cudaSuccess) return e;
-  dproj_grad_kernel<<<(unsigned)rays, DH, 0, st>>>(p.ghf, gdp, samples);
+  dproj_grad_kernel<<<(unsigned)rays, DH, 0, st>>>(p.ghf, gdp, samples,
+                                                   per_ray);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int blocks = (int)((rays + DG_RAYS - 1) / DG_RAYS);
+  float* dpart = reinterpret_cast<float*>(base + L.dpart);
+  dirs_grad_partial_kernel<<<blocks, DH, 0, st>>>(
+      gdp, static_cast<const bf16*>(dirs), dpart, rays);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  dirs_grad_reduce_kernel<<<DIRS_LD, DH, 0, st>>>(
+      dpart, static_cast<float*>(gw) + w_off[W_DIRS], blocks);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  e = launch_wgrad_width(hidden, P, 0, part, wm, st);
-  if (e != cudaSuccess) return e;
-  e = launch_wgrad_width(DH, P, 1, part, wm, st);
-  if (e != cudaSuccess) return e;
-
-  // Reduce the split partials into gw and the bias partial rows into gb.
-  RParams R = {};
-  R.part = part;
-  R.gw = static_cast<float*>(gw);
-  long long elems = 0;
-  const int nu = P.nmain + P.nsmall;
-  for (int i = 0; i < nu; ++i) {
-    const WUnit& U = P.u[i];
-    RTask& Q = R.t[i];
-    Q.src = U.part;
-    Q.dst = U.dst;
-    Q.begin = elems;
-    Q.splits = U.splits;
-    Q.m = U.keep_n;
-    Q.n = U.ncols;
-    Q.ld = U.ld_dst;
-    elems += (long long)U.keep_n * U.ncols;
+  for (int l = 0; l < P.nlaunch; ++l) {
+    e = launch_wgrad_width(P, P.l[l], part, wm, st);
+    if (e != cudaSuccess) return e;
   }
-  R.ntask = nu;
-  reduce_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(R);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+
+  // Reduce the split partials into gw, at most 2 MAX_UNITS units a launch,
+  // and the bias partial rows into gb.
+  for (int t0 = 0; t0 < P.nunit; t0 += 2 * MAX_UNITS) {
+    RParams R = {};
+    R.part = part;
+    R.gw = static_cast<float*>(gw);
+    R.ntask = P.nunit - t0 < 2 * MAX_UNITS ? P.nunit - t0 : 2 * MAX_UNITS;
+    long long elems = 0;
+    for (int i = 0; i < R.ntask; ++i) {
+      const WUnit& U = P.u[t0 + i];
+      RTask& Q = R.t[i];
+      Q.src = U.part;
+      Q.dst = U.dst;
+      Q.begin = elems;
+      Q.splits = U.splits;
+      Q.m = U.keep_n;
+      Q.n = U.ncols;
+      Q.ld = U.ld_dst;
+      elems += (long long)U.keep_n * U.ncols;
+    }
+    reduce_kernel<<<(unsigned)((elems + 255) / 256), 256, 0, st>>>(R);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
   bias_reduce_kernel<<<(nb + BR_COLS - 1) / BR_COLS, BR_COLS * BR_GROUPS, 0,
-                       st>>>(p.bpart, static_cast<float*>(gb), 2 * tiles, nb);
+                       st>>>(p.bpart, static_cast<float*>(gb),
+                             bias_rows(n, hidden), nb);
   return cudaGetLastError();
 }

@@ -32,10 +32,11 @@
 // (the values are the same either way).  The stash changes no arithmetic:
 // the outputs are bit-identical to a render-mode launch.
 //
-// What bounds it on an H100: tensor-core throughput.  A row costs ~0.6
-// M multiply-adds against ~200 bytes of input and 16-24 bytes of output
-// (0.64 ms per 524,288 rows at width 256 at the dense bf16 peak, 0.03 ms of
-// device-memory traffic).  Measured (PERF.md), the tensor pipes are busy
+// What bounds it on an H100: tensor-core throughput.  A row costs
+// 8 H^2 + 321 H + 640 multiply-adds (~0.6 M at width 256, ~2.3 M at 512)
+// against ~200 bytes of input and 16-24 bytes of output (0.64 ms per
+// 524,288 rows at width 256 at the dense bf16 peak, 2.40 ms at 512; 0.03 ms
+// of device-memory traffic).  Measured (PERF.md), the tensor pipes are busy
 // about 63% of a consumer's cycles: the two consumers run in step, so the
 // pipes idle through both epilogues (~16%) and through the waits for the
 // weight stream (~8%; every 128-row tile reads all ~1.2 MB of a network's
@@ -45,20 +46,35 @@
 // that would otherwise idle.
 //
 // Design:
-// * Persistent CTAs (one per SM) walk the 128-row tiles with a static
-//   stride.  A CTA is three warpgroups: one producer (a single thread of it
-//   starts every TMA copy) and two consumers.  Consumer w owns rows 64 w ..
-//   64 w + 63 of the tile through every layer: it reads and overwrites only
-//   its own rows of the activation buffer, so no CTA-wide barrier is needed
-//   after set-up; a layer costs one warpgroup-scope barrier.  All three fit
-//   the 168 registers a thread of a 384-thread CTA can have (ptxas allots no
-//   more after setmaxnreg, so the kernel does not use it).
+// * Persistent CTAs (one per SM) walk the tiles with a static stride.  A
+//   CTA is three warpgroups: one producer (a single thread of it starts
+//   every TMA copy) and two consumers.  Up to width 256 a tile is 128 rows
+//   and consumer w owns rows 64 w .. 64 w + 63 of it through every layer:
+//   it reads and overwrites only its own rows of the activation buffer, so
+//   no CTA-wide barrier is needed after set-up; a layer costs one
+//   warpgroup-scope barrier.  All three fit the 168 registers a thread of a
+//   384-thread CTA can have (ptxas allots no more after setmaxnreg, so the
+//   kernel does not use it).
+// * Widths 384 and 512, the N-split plan: a consumer's accumulator for 64
+//   rows x H columns would be H / 2 registers a thread (256 at 512, over
+//   the limit), and a 128-row activation tile alone 128 KB.  So a tile is
+//   64 rows and both consumers multiply all of it, consumer w producing
+//   trunk columns H/2 w .. H/2 w + H/2 - 1 (an accumulator of H / 4
+//   registers, 128 at 512).  Each reads the other's columns, so a layer's
+//   write-back waits at a barrier of both consumers until both have read
+//   its input, and the next layer waits at a second one until both have
+//   written.  Both multiply the dir layer (144 outputs) and the heads, and
+//   consumer 0 alone writes their results back.  Every 128-row tile of the
+//   narrow plan reads a network's weights once from L2; here every 64-row
+//   tile does, so the weight stream per row doubles, and a ring stage of
+//   [H, 64] weights (64 KB at 512) leaves room for two or three stages.
 // * Products are wgmma.mma_async m64 n{H, 144, 16} k16, A (activations or
 //   IPE) and B (weights, torch [out, in] = K-major) both from shared memory
 //   in the 128-byte-swizzled layout, f32 accumulators in registers.
 // * Weights stream as [n_out, 64] slices (32 KB at H = 256), one TMA box
-//   each, through a ring of STAGES stages with a full and an empty mbarrier
-//   per stage, across layer and tile boundaries.  There is one tensor map
+//   each (two above 256 rows, TMA's box limit), through a ring of STAGES
+//   stages with a full and an empty mbarrier per stage, across layer and
+//   tile boundaries.  There is one tensor map
 //   per layer over the packed weights.  The IPE is 96 wide: its tile is
 //   kept 128 wide with zero columns 96..127, and its second weight slice
 //   starts at column 64 (layer 0: TMA zero-fills past column 96; skip
@@ -91,16 +107,15 @@ namespace {
 
 using namespace ddnerf;
 
-constexpr int BM = 128;           // rows per tile
-constexpr int WG_ROWS = 64;       // rows per consumer warpgroup
+constexpr int WG_ROWS = 64;       // rows of one wgmma (m64)
 constexpr int NTHREADS = 384;     // producer warpgroup + 2 consumer warpgroups
 constexpr int NENCODERS = 96;     // ENC mode: warps 1..3 of the producer warpgroup
 constexpr int KS = 64;            // k-slice of streamed weights (128 bytes)
 constexpr int MAX_STAGES = 4;
 constexpr int L_FEAT = W_FEAT, L_DIR = W_DIR, L_HEAD = W_HEAD, NLAYER = 11;
 constexpr int IPE_SLICES = 2;     // the IPE tile padded to 2 * KS columns
-constexpr uint32_t BLOCK_BYTES = BM * 128;      // [BM][KS] bf16
-constexpr uint32_t WG_BYTES = WG_ROWS * 128;    // one warpgroup's rows of it
+constexpr uint32_t WG_BYTES = WG_ROWS * 128;    // 64 rows of a [rows][KS] block
+constexpr int MAX_BOX_ROWS = 256;  // TMA's largest box dimension
 
 struct TensorMaps {
   CUtensorMap w[NLAYER];  // layer l's weights [n_out, k_in], box [n_out, KS]
@@ -124,11 +139,18 @@ struct Params {
 
 template <int H, bool ENC>
 struct Shape {
-  // Weight ring depth, and IPE tiles in shared memory: ENC mode encodes the
-  // next tile while this one is multiplied, and pays a ring stage for the
-  // second tile.
-  static constexpr int STAGES = ENC ? 3 : MAX_STAGES;
+  static_assert(H % KS == 0 && H <= 512, "no forward plan for this width");
+  // The N-split plan (see the top of the file) above width 256.
+  static constexpr bool SPLIT = H > 256;
+  static constexpr int BM = SPLIT ? WG_ROWS : 2 * WG_ROWS;  // rows per tile
+  static constexpr int NW = SPLIT ? H / 2 : H;  // trunk columns per consumer
+  static constexpr uint32_t BLOCK_BYTES = BM * 128;  // [BM][KS] bf16
+  // IPE tiles in shared memory: ENC mode encodes the next tile while this
+  // one is multiplied, and pays a ring stage for the second tile.
   static constexpr int IPE_BUFS = ENC ? 2 : 1;
+  // Weight ring depth: as many stages as shared memory holds, up to four.
+  static constexpr int STAGES =
+      SPLIT ? (H > 384 ? 2 : 3) : (ENC ? 3 : MAX_STAGES);
   // act holds the trunk (H wide) and later h (DH wide), in KS-column blocks.
   static constexpr int ACT_BLOCKS = (H > DH ? H : DH) / KS;
   static constexpr int MAX_NOUT = H > DHP ? H : DHP;
@@ -139,8 +161,13 @@ struct Shape {
   // 1024 spare bytes to start the tiles on a 1024-byte boundary.
   static constexpr size_t SMEM = 1024 + ACT_BYTES + IPE_BUFS * IPE_BYTES +
                                  STAGES * STAGE_BYTES + BAR_BYTES;
+  static_assert(SMEM <= MAX_SMEM, "the plan exceeds a block's shared memory");
   __host__ __device__ static constexpr int nout(int l) {
     return l <= L_FEAT ? H : (l == L_DIR ? DHP : NHEAD);
+  }
+  // TMA boxes per weight slice: a slice of more than 256 rows takes two.
+  __host__ __device__ static constexpr int boxes(int l) {
+    return nout(l) > MAX_BOX_ROWS ? 2 : 1;
   }
   __host__ __device__ static constexpr int kin(int l) {
     return l == 0 ? IPE : (l == SKIP ? IPE + H : (l == L_HEAD ? DH : H));
@@ -191,13 +218,16 @@ __device__ __forceinline__ float wrap_trig(float y) {
   return m;
 }
 
-// Element (row r, column c) of an IPE tile.
+// Element (row r, column c) of an IPE tile of BM rows.
+template <int BM>
 __device__ __forceinline__ bf16* ipe_elem(unsigned char* ipe, int r, int c) {
-  return reinterpret_cast<bf16*>(ipe + (c / KS) * BLOCK_BYTES +
+  return reinterpret_cast<bf16*>(ipe + (c / KS) * (BM * 128) +
                                  swizzle128(r, (c % KS) >> 3)) + (c & 7);
 }
 
-// Thread `tid` of NENCODERS: its items of the tile whose first row is r0.
+// Thread `tid` of NENCODERS: its items of the BM-row tile whose first row
+// is r0.
+template <int BM>
 __device__ __forceinline__ void encode_ipe(const Params& p, unsigned char* ipe,
                                            long long r0, int tid) {
   constexpr int HALF = IPE / 2;    // 48 = 16 levels x 3 coordinates
@@ -214,8 +244,8 @@ __device__ __forceinline__ void encode_ipe(const Params& p, unsigned char* ipe,
     if (r0 + r >= p.n) {
 #pragma unroll
       for (int i = 0; i < LPI; ++i) {
-        *ipe_elem(ipe, r, col + i * 3) = __float2bfloat16_rn(0.f);
-        *ipe_elem(ipe, r, HALF + col + i * 3) = __float2bfloat16_rn(0.f);
+        *ipe_elem<BM>(ipe, r, col + i * 3) = __float2bfloat16_rn(0.f);
+        *ipe_elem<BM>(ipe, r, HALF + col + i * 3) = __float2bfloat16_rn(0.f);
       }
       continue;
     }
@@ -225,9 +255,9 @@ __device__ __forceinline__ void encode_ipe(const Params& p, unsigned char* ipe,
 #pragma unroll
     for (int i = 0; i < LPI; ++i) {
       const float att = expf(-0.5f * v);
-      *ipe_elem(ipe, r, col + i * 3) =
+      *ipe_elem<BM>(ipe, r, col + i * 3) =
           __float2bfloat16_rn(att * sinf(wrap_trig(y)));
-      *ipe_elem(ipe, r, HALF + col + i * 3) =
+      *ipe_elem<BM>(ipe, r, HALF + col + i * 3) =
           __float2bfloat16_rn(att * sinf(wrap_trig(y + HALF_PI)));
       y *= 2.f;
       v *= 4.f;
@@ -247,24 +277,26 @@ __device__ __forceinline__ void produce(const TensorMaps& maps, const Smem& s,
     if (!ENC) {  // the IPE tile (one buffer: S::IPE_BUFS == 1)
       mbar_wait(s.ipe_empty, (round & 1) ^ 1);
       mbar_arrive_expect_tx(s.ipe_full, S::IPE_BYTES);
-      const int row = (int)(tile * BM);
+      const int row = (int)(tile * S::BM);
 #pragma unroll
       for (int i = 0; i < IPE_SLICES; ++i)
-        tma_load_2d(s.ipe + i * BLOCK_BYTES, &maps.ipe, i * KS, row,
+        tma_load_2d(s.ipe + i * S::BLOCK_BYTES, &maps.ipe, i * KS, row,
                     s.ipe_full);
     }
 #pragma unroll 1
     for (int l = 0; l < NLAYER; ++l) {
       const int ni = S::ipe_slices(l), ns = ni + S::act_slices(l);
       const uint32_t bytes = S::nout(l) * 128;
+      const int box_rows = S::nout(l) / S::boxes(l);
 #pragma unroll 1
       for (int i = 0; i < ns; ++i, ++it) {
         const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
         mbar_wait(s.empty + 8 * stage, parity ^ 1);
         mbar_arrive_expect_tx(s.full + 8 * stage, bytes);
         const int col = i < ni ? i * KS : (l == SKIP ? IPE : 0) + (i - ni) * KS;
-        tma_load_2d(s.ring + stage * S::STAGE_BYTES, &maps.w[l], col, 0,
-                    s.full + 8 * stage);
+        for (int b = 0; b < S::boxes(l); ++b)
+          tma_load_2d(s.ring + stage * S::STAGE_BYTES + b * box_rows * 128,
+                      &maps.w[l], col, b * box_rows, s.full + 8 * stage);
       }
     }
   }
@@ -278,9 +310,9 @@ __device__ __forceinline__ void encode_tiles(const Params& p, const Smem& s,
                                              long long tiles, int tid) {
   using S = Shape<H, true>;
   // The tiles' zero columns 96..127, written once.
-  for (int c = tid; c < S::IPE_BUFS * BM * 4; c += NENCODERS) {
-    const int buf = c / (BM * 4), r = (c >> 2) % BM, chunk = 4 + (c & 3);
-    *reinterpret_cast<uint4*>(ipe0 + buf * S::IPE_BYTES + BLOCK_BYTES +
+  for (int c = tid; c < S::IPE_BUFS * S::BM * 4; c += NENCODERS) {
+    const int buf = c / (S::BM * 4), r = (c >> 2) % S::BM, chunk = 4 + (c & 3);
+    *reinterpret_cast<uint4*>(ipe0 + buf * S::IPE_BYTES + S::BLOCK_BYTES +
                               swizzle128(r, chunk)) = make_uint4(0u, 0u, 0u, 0u);
   }
   uint32_t round = 0;
@@ -288,7 +320,7 @@ __device__ __forceinline__ void encode_tiles(const Params& p, const Smem& s,
     const uint32_t buf = round % S::IPE_BUFS;
     const uint32_t parity = (round / S::IPE_BUFS) & 1;
     mbar_wait(s.ipe_empty + 8 * buf, parity ^ 1);
-    encode_ipe(p, ipe0 + buf * S::IPE_BYTES, tile * BM, tid);
+    encode_ipe<S::BM>(p, ipe0 + buf * S::IPE_BYTES, tile * S::BM, tid);
     fence_proxy_async();  // the consumers read the tile with wgmma
     mbar_arrive(s.ipe_full + 8 * buf);
   }
@@ -301,7 +333,8 @@ __device__ __forceinline__ void encode_tiles(const Params& p, const Smem& s,
 // live to the compiler from the previous layer on (it then spills, and
 // ptxas serializes every wgmma of the kernel).  `ipe_wg` / `act_wg` are the
 // shared addresses of the warpgroup's rows of the first IPE / activation
-// block.
+// block; `w_rows` the byte offset in a stage of the first weight row (the
+// first output column) it multiplies by.
 // One slice's products stay in flight while the next slice is awaited; a
 // stage is released (one arrival per warp) once its products have finished.
 template <int H, bool ENC, int N>
@@ -309,7 +342,8 @@ __device__ __forceinline__ void layer_products(float (&acc)[N / 2], int l,
                                                const float* bias,
                                                uint32_t& it, const Smem& s,
                                                uint32_t ipe_wg,
-                                               uint32_t act_wg, int lane) {
+                                               uint32_t act_wg,
+                                               uint32_t w_rows, int lane) {
   using S = Shape<H, ENC>;
   const int ni = S::ipe_slices(l), ns = ni + S::act_slices(l);
   uint32_t prev = 0;
@@ -324,9 +358,9 @@ __device__ __forceinline__ void layer_products(float (&acc)[N / 2], int l,
   for (int i = 0; i < ns; ++i, ++it) {
     const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
     mbar_wait(s.full + 8 * stage, parity);
-    const uint32_t a =
-        i < ni ? ipe_wg + i * BLOCK_BYTES : act_wg + (i - ni) * BLOCK_BYTES;
-    const uint32_t b = s.ring + stage * S::STAGE_BYTES;
+    const uint32_t a = i < ni ? ipe_wg + i * S::BLOCK_BYTES
+                              : act_wg + (i - ni) * S::BLOCK_BYTES;
+    const uint32_t b = s.ring + stage * S::STAGE_BYTES + w_rows;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KS / 16; ++kk)
@@ -342,7 +376,9 @@ __device__ __forceinline__ void layer_products(float (&acc)[N / 2], int l,
   if (lane == 0) mbar_arrive(s.empty + 8 * prev);
 }
 
-// One consumer warpgroup: rows 64 wg .. 64 wg + 63 of every tile of the CTA.
+// One consumer warpgroup: up to width 256, rows 64 wg .. 64 wg + 63 of
+// every tile of the CTA; in the N-split plan every row of the tile and
+// trunk columns NW wg .. NW wg + NW - 1.
 template <int H, bool ENC>
 __device__ __forceinline__ void consume(const Params& p,
                                         const TensorMaps& maps, const Smem& s,
@@ -350,26 +386,38 @@ __device__ __forceinline__ void consume(const Params& p,
                                         int wg, int tid) {
   using S = Shape<H, ENC>;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
-  const int bar_id = 1 + wg;
-  // This warpgroup's rows of the first activation block.
-  const uint32_t act_wg = s.act + wg * WG_BYTES;
-  unsigned char* act_p = smem + wg * WG_BYTES;
+  // The narrow plan: this warpgroup's own barrier and rows of each block.
+  // The N-split plan: a barrier of both consumers, every row, and the
+  // column blocks of its trunk columns.
+  const int bar_id = S::SPLIT ? 1 : 1 + wg;
+  const int bar_threads = S::SPLIT ? 256 : 128;
+  const uint32_t rows_at = S::SPLIT ? 0 : wg * WG_BYTES;
+  const int blk0 = S::SPLIT ? wg * (S::NW / KS) : 0;
+  // Consumer 0 of the N-split plan writes the dir layer's and the heads'
+  // results alone; in the narrow plan each consumer does, for its rows.
+  const bool lead = !S::SPLIT || wg == 0;
+  // The rows it multiplies (the A operands), and where it writes back.
+  const uint32_t act_wg = s.act + rows_at;
+  unsigned char* act_p = smem + blk0 * S::BLOCK_BYTES + rows_at;
+  // Its trunk columns' weight rows in a ring stage.
+  const uint32_t w_rows = blk0 * KS * 128;
   // The two rows of the warpgroup's 64 whose accumulator elements this
   // thread holds: lrow and lrow + 8 (both are g modulo 8).
   const int lrow = warp * 16 + g;
 
-  // Stash mode, before a write-back: the previous layer's stores (started by
-  // thread 0) must have read the activation tile.
+  // Before a write-back: the previous layer's stores (started by thread 0)
+  // must have read the activation tile; in the N-split plan the other
+  // consumer must also have read this layer's input.
   auto stores_done = [&]() {
-    if (p.stash) {
-      if (tid == 0) bulk_wait_read();
-      named_bar_sync(bar_id, 128);
+    if (S::SPLIT || p.stash) {
+      if (p.stash && tid == 0) bulk_wait_read();
+      named_bar_sync(bar_id, bar_threads);
     }
   };
-  // After a write-back: publish it to the warpgroup's wgmma (and TMA).
+  // After a write-back: publish it to the consumers' wgmma (and TMA).
   auto publish = [&]() {
     fence_proxy_async();
-    named_bar_sync(bar_id, 128);
+    named_bar_sync(bar_id, bar_threads);
   };
 
   const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
@@ -377,29 +425,31 @@ __device__ __forceinline__ void consume(const Params& p,
   const __nv_bfloat162 neg_inf2 = __floats2bfloat162_rn(neg_inf, neg_inf);
   uint32_t it = 0, round = 0;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++round) {
-    const long long r0 = tile * BM + wg * WG_ROWS;  // the warpgroup's first row
+    // The warpgroup's first row.
+    const long long r0 = tile * S::BM + (S::SPLIT ? 0 : wg * WG_ROWS);
     const long long grow[2] = {r0 + lrow, r0 + lrow + 8};
     // This tile's IPE: from the TMA load, or from the encoders.
     const uint32_t buf = round % S::IPE_BUFS;
-    const uint32_t ipe_wg = s.ipe + buf * S::IPE_BYTES + wg * WG_BYTES;
+    const uint32_t ipe_wg = s.ipe + buf * S::IPE_BYTES + rows_at;
     mbar_wait(s.ipe_full + 8 * buf, (round / S::IPE_BUFS) & 1);
 
     // Trunk and fc_feat: bias (+ relu), round to bf16, back into act.
     {
-      float acc[H / 2];
+      float acc[S::NW / 2];
 #pragma unroll 1
       for (int l = 0; l <= L_FEAT; ++l) {
-        layer_products<H, ENC, H>(
-            acc, l, p.b + (l < NTRUNK ? p.b_off[0] + l * H : p.b_off[1]), it, s,
-            ipe_wg, act_wg, lane);
+        layer_products<H, ENC, S::NW>(
+            acc, l,
+            p.b + (l < NTRUNK ? p.b_off[0] + l * H : p.b_off[1]) + blk0 * KS,
+            it, s, ipe_wg, act_wg, w_rows, lane);
         if (l == SKIP && lane == 0) mbar_arrive(s.ipe_empty + 8 * buf);
         stores_done();
         // relu after the rounding gives the rounded relu (both monotone, 0
         // kept), on two values at once; fc_feat has no relu.
         const __nv_bfloat162 floor2 = l < NTRUNK ? zero2 : neg_inf2;
 #pragma unroll
-        for (int j = 0; j < H / 8; ++j) {
-          unsigned char* dst = act_p + (j / 8) * BLOCK_BYTES +
+        for (int j = 0; j < S::NW / 8; ++j) {
+          unsigned char* dst = act_p + (j / 8) * S::BLOCK_BYTES +
                                swizzle128(lrow, j % 8) + q * 4;
           // Row lrow + 8 is 8 * 128 bytes on, in the same swizzle phase.
 #pragma unroll
@@ -412,53 +462,58 @@ __device__ __forceinline__ void consume(const Params& p,
         publish();
         if (p.stash && tid == 0 && r0 < p.n) {
 #pragma unroll
-          for (int blk = 0; blk < H / KS; ++blk)
-            tma_store_3d(&maps.stash, act_wg + blk * BLOCK_BYTES, blk * KS,
+          for (int blk = blk0; blk < blk0 + S::NW / KS; ++blk)
+            tma_store_3d(&maps.stash, act_wg + blk * S::BLOCK_BYTES, blk * KS,
                          (int)r0, l);
           bulk_commit();
         }
       }
     }
 
-    // Dir layer (+ alpha in column DH): h back into act, alpha to out.
+    // Dir layer (+ alpha in column DH): h back into act, alpha to out.  In
+    // the N-split plan both consumers multiply (a wgmma in a branch that
+    // depends on the warpgroup makes ptxas spill) and consumer 0 writes.
     {
       float acc[DHP / 2];
-      layer_products<H, ENC, DHP>(acc, L_DIR, p.b + p.b_off[2], it, s, ipe_wg,
-                             act_wg, lane);
+      layer_products<H, ENC, DHP>(acc, L_DIR, p.b + p.b_off[2], it, s,
+                                  ipe_wg, act_wg, 0, lane);
       stores_done();
-      const bool valid[2] = {grow[0] < p.n, grow[1] < p.n};
-      const float* dp[2] = {
-          p.dproj + (valid[0] ? grow[0] / p.samples : 0) * DH,
-          p.dproj + (valid[1] ? grow[1] / p.samples : 0) * DH};
+      if (lead) {
+        const bool valid[2] = {grow[0] < p.n, grow[1] < p.n};
+        const float* dp[2] = {
+            p.dproj + (valid[0] ? grow[0] / p.samples : 0) * DH,
+            p.dproj + (valid[1] ? grow[1] / p.samples : 0) * DH};
 #pragma unroll
-      for (int j = 0; j < DH / 8; ++j) {
-        // Four column groups' loads in flight at a time, not all sixteen:
-        // the accumulators leave no registers for more.
-        if (j % 4 == 0) asm volatile("" ::: "memory");
-        const int col = j * 8 + 2 * q;
+        for (int j = 0; j < DH / 8; ++j) {
+          // Four column groups' loads in flight at a time, not all sixteen:
+          // the accumulators leave no registers for more.
+          if (j % 4 == 0) asm volatile("" ::: "memory");
+          const int col = j * 8 + 2 * q;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          __nv_bfloat162 h = zero2;
-          if (valid[half]) {
-            const float2 d = *reinterpret_cast<const float2*>(dp[half] + col);
-            h = __hmax2(__floats2bfloat162_rn(acc[4 * j + 2 * half] + d.x,
-                                              acc[4 * j + 2 * half + 1] + d.y),
-                        zero2);
+          for (int half = 0; half < 2; ++half) {
+            __nv_bfloat162 h = zero2;
+            if (valid[half]) {
+              const float2 d =
+                  *reinterpret_cast<const float2*>(dp[half] + col);
+              h = __hmax2(__floats2bfloat162_rn(acc[4 * j + 2 * half] + d.x,
+                                                acc[4 * j + 2 * half + 1] + d.y),
+                          zero2);
+            }
+            *reinterpret_cast<__nv_bfloat162*>(
+                act_p + (j / 8) * S::BLOCK_BYTES + swizzle128(lrow, j % 8) +
+                q * 4 + half * 1024) = h;
           }
-          *reinterpret_cast<__nv_bfloat162*>(
-              act_p + (j / 8) * BLOCK_BYTES + swizzle128(lrow, j % 8) + q * 4 +
-              half * 1024) = h;
         }
-      }
 #pragma unroll
-      for (int half = 0; half < 2; ++half)
-        if (q == 0 && valid[half])
-          p.out[grow[half] * p.out_dim + 3] = acc[4 * (DH / 8) + 2 * half];
+        for (int half = 0; half < 2; ++half)
+          if (q == 0 && valid[half])
+            p.out[grow[half] * p.out_dim + 3] = acc[4 * (DH / 8) + 2 * half];
+      }
       publish();
-      if (p.stash && tid == 0 && r0 < p.n) {
+      if (p.stash && lead && tid == 0 && r0 < p.n) {
 #pragma unroll
         for (int blk = 0; blk < DH / KS; ++blk)
-          tma_store_2d(&maps.stash_h, act_wg + blk * BLOCK_BYTES, blk * KS,
+          tma_store_2d(&maps.stash_h, act_wg + blk * S::BLOCK_BYTES, blk * KS,
                        (int)r0);
         bulk_commit();
       }
@@ -467,11 +522,11 @@ __device__ __forceinline__ void consume(const Params& p,
     // Heads: rgb -> out[:, 0:3], (mu, sigma) -> out[:, 4:6].
     {
       float acc[NHEAD / 2];
-      layer_products<H, ENC, NHEAD>(acc, L_HEAD, p.b + p.b_off[3], it, s, ipe_wg,
-                               act_wg, lane);
+      layer_products<H, ENC, NHEAD>(acc, L_HEAD, p.b + p.b_off[3], it, s,
+                                    ipe_wg, act_wg, 0, lane);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        if (grow[half] >= p.n) continue;
+        if (!lead || grow[half] >= p.n) continue;
         float* o = p.out + grow[half] * p.out_dim;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
@@ -524,7 +579,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
   __syncthreads();
 
-  const long long tiles = (p.n + BM - 1) / BM;
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     if (threadIdx.x == 0) produce<H, ENC>(maps, s, tiles);
@@ -575,13 +630,13 @@ cudaError_t launch(const Params& p, const bf16* w, const long long* w_off,
   for (int l = 0; l < NLAYER; ++l) {
     const cuuint64_t dims[2] = {(cuuint64_t)S::kin(l), (cuuint64_t)S::nout(l)};
     const cuuint64_t strides[1] = {(cuuint64_t)S::kin(l)};
-    const cuuint32_t box[2] = {KS, (cuuint32_t)S::nout(l)};
+    const cuuint32_t box[2] = {KS, (cuuint32_t)(S::nout(l) / S::boxes(l))};
     ok = ok && make_map(&maps.w[l], w + w_off[l], 2, dims, strides, box);
   }
   const cuuint64_t n = (cuuint64_t)p.n;
   if (!ENC) {
     const cuuint64_t dims[2] = {IPE, n}, strides[1] = {IPE};
-    const cuuint32_t box[2] = {KS, BM};
+    const cuuint32_t box[2] = {KS, S::BM};
     ok = ok && make_map(&maps.ipe, ipe, 2, dims, strides, box);
   }
   if (p.stash) {
@@ -602,7 +657,7 @@ cudaError_t launch(const Params& p, const bf16* w, const long long* w_off,
       fused_mlp_fwd_kernel<H, ENC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (setup != cudaSuccess) return setup;
-  const long long tiles = (p.n + BM - 1) / BM;
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
   const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
   fused_mlp_fwd_kernel<H, ENC><<<grid, NTHREADS, S::SMEM, stream>>>(p, maps);
   return cudaGetLastError();
@@ -614,10 +669,8 @@ template <bool ENC>
 cudaError_t run(Params& p, const void* ipe, const void* dirs, const void* w,
                 void* stash, void* stash_h, int hidden, const long long* w_off,
                 const long long* b_off, cudaStream_t st) {
-  if (hidden != 64 && hidden != 128 && hidden != 256)
-    return cudaErrorInvalidValue;
   // TMA coordinates are 32-bit.
-  if (p.n > 0x7fffffffLL - BM) return cudaErrorInvalidValue;
+  if (p.n > 0x7fffffffLL - 128) return cudaErrorInvalidValue;
   for (int i = 0; i < 4; ++i) p.b_off[i] = b_off[i];
   const bf16* wp = static_cast<const bf16*>(w);
   const long long rays = p.n / p.samples;
@@ -632,7 +685,11 @@ cudaError_t run(Params& p, const void* ipe, const void* dirs, const void* w,
   switch (hidden) {
     case 64: return launch<64, ENC>(p, wp, w_off, ip, sp, hp, st);
     case 128: return launch<128, ENC>(p, wp, w_off, ip, sp, hp, st);
-    default: return launch<256, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 192: return launch<192, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 256: return launch<256, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 384: return launch<384, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 512: return launch<512, ENC>(p, wp, w_off, ip, sp, hp, st);
+    default: return cudaErrorInvalidValue;
   }
 }
 

@@ -61,7 +61,13 @@ def _count(name: str) -> None:
     counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
     counts[name] += 1
 
-SUPPORTED_HIDDEN = (64, 128, 256)
+# The widths the kernels are built for; a network of another width up to
+# MAX_HIDDEN runs at the next of them with its weights zero-padded
+# (:func:`pack_weights`).  A padded unit's pre-activation is 0 and relu
+# keeps it 0, so it adds nothing forward; its mask is 0, so its cotangent
+# is 0 and it adds nothing to any gradient: the padding is exact.
+KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)
+MAX_HIDDEN = KERNEL_WIDTHS[-1]
 DIR_HIDDEN = 128
 DIR_LAYER_ROWS = 144  # Wd_feat rows | fc_alpha | zero pad (an n8 multiple)
 HEAD_ROWS = 16  # fc_rgb (3) | fc_mu_sigma (2) | zero pad
@@ -82,6 +88,31 @@ def _named_params(net) -> list:
             for leaf in ("weight", "bias")]
 
 
+def kernel_width(hidden: int) -> int:
+    """The width the kernels run a network of width ``hidden`` at: the
+    smallest of :data:`KERNEL_WIDTHS` that is at least ``hidden``."""
+    for width in KERNEL_WIDTHS:
+        if hidden <= width:
+            return width
+    raise ValueError(f"the fused MLP kernels take hidden widths up to "
+                     f"{MAX_HIDDEN}; got {hidden}")
+
+
+def stash_width(net, device) -> int:
+    """Width of the stash slabs of a training forward on ``device``: the
+    kernels' (padded) width on a card, the network's on the CPU, where the
+    plain version makes the stash."""
+    hid = net.hidden_size
+    return hid if torch.device(device).type == "cpu" else kernel_width(hid)
+
+
+def _pad(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` in the leading corner of a zero tensor of ``shape``."""
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
+
+
 class KernelWeights(NamedTuple):
     """One network's weights in the kernel's packed layout (see the
     layout table at the top of ``csrc/fused_mlp_fwd.cu``)."""
@@ -94,17 +125,20 @@ class KernelWeights(NamedTuple):
 
 @torch.no_grad()
 def pack_weights(net) -> KernelWeights:
-    """Pack ``net``'s parameters for the kernels, on ``net``'s device.
-    Weights are rounded to bf16 (round-to-nearest-even, as the TPU kernel's
-    ``astype``); biases stay f32.  The backward kernel writes its f32
-    gradients in the same layout (:func:`unpack_grads`)."""
+    """Pack ``net``'s parameters for the kernels, on ``net``'s device, at
+    :func:`kernel_width`: a narrower network's trunk, fc_feat and dir-layer
+    matrices and biases get zero rows and columns past its width.  Weights
+    are rounded to bf16 (round-to-nearest-even, as the TPU kernel's
+    ``astype``); biases stay f32.  The backward kernel
+    writes its f32 gradients in the same layout (:func:`unpack_grads`)."""
     hid, dh = net.hidden_size, net.dir_hidden
+    width = kernel_width(hid)
     ref = net.fc_feat.weight
     wd = net.layers_dir[0].weight  # [dh, hid + 27]
 
-    w_dir = ref.new_zeros(DIR_LAYER_ROWS, hid)
-    w_dir[:dh] = wd[:, :hid]
-    w_dir[dh] = net.fc_alpha.weight[0]
+    w_dir = ref.new_zeros(DIR_LAYER_ROWS, width)
+    w_dir[:dh, :hid] = wd[:, :hid]
+    w_dir[dh, :hid] = net.fc_alpha.weight[0]
     w_head = ref.new_zeros(HEAD_ROWS, dh)
     w_head[:3] = net.fc_rgb.weight
     w_dirs = ref.new_zeros(dh, DIRS_LD)
@@ -119,10 +153,20 @@ def pack_weights(net) -> KernelWeights:
         w_head[3:5] = net.fc_mu_sigma.weight
         b_head[3:5] = net.fc_mu_sigma.bias
 
-    mats = [layer.weight for layer in net.layers_xyz]
-    mats += [net.fc_feat.weight, w_dir, w_head, w_dirs]
-    biases = [torch.stack([layer.bias for layer in net.layers_xyz]),
-              net.fc_feat.bias, b_dir, b_head]
+    mats = [layer.weight for layer in net.layers_xyz] + [net.fc_feat.weight]
+    b_trunk = torch.stack([layer.bias for layer in net.layers_xyz])
+    b_feat = net.fc_feat.bias
+    if width != hid:
+        skip = net.skip_layer
+        mats = [_pad(m, (width, width)) if i not in (0, skip) else
+                _pad(m, (width, IPE_DIM)) if i == 0 else
+                torch.cat([_pad(m[:, :IPE_DIM], (width, IPE_DIM)),
+                           _pad(m[:, IPE_DIM:], (width, width))], 1)
+                for i, m in enumerate(mats)]
+        b_trunk = _pad(b_trunk, (len(net.layers_xyz), width))
+        b_feat = _pad(b_feat, (width,))
+    mats += [w_dir, w_head, w_dirs]
+    biases = [b_trunk, b_feat, b_dir, b_head]
 
     def offsets(parts):
         offs, total = [], 0
@@ -143,8 +187,10 @@ def unpack_grads(net, kw: KernelWeights, gw: torch.Tensor,
                  gb: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The inverse of :func:`pack_weights` for gradients: ``gw`` / ``gb``
     laid out as ``kw.w`` / ``kw.b`` -> ``{parameter name: tensor}`` in
-    ``net.named_parameters()`` order (views where the layout allows)."""
+    ``net.named_parameters()`` order (views where the layout allows), each
+    cut to the network's width where the layout is padded."""
     hid, dh = net.hidden_size, net.dir_hidden
+    width = kernel_width(hid)
     # One split per buffer, then a view per matrix: this runs twice per
     # train step on the host's clock, so it spends few dispatches.
     ends_w = (*kw.w_off[1:], gw.numel())
@@ -153,14 +199,25 @@ def unpack_grads(net, kw: KernelWeights, gw: torch.Tensor,
     b_trunk, b_feat, b_dir, b_head = gb.split(
         [e - o for o, e in zip(kw.b_off, ends_b)])
 
+    padded = width != hid
     grads = {}
     for i, (layer, bias) in enumerate(zip(net.layers_xyz,
-                                          b_trunk.view(-1, hid).unbind(0))):
-        grads[f"layers_xyz.{i}.weight"] = mats[i].view(hid, layer.in_features)
+                                          b_trunk.view(-1, width).unbind(0))):
+        w = mats[i].view(width, layer.in_features + (width - hid) * (i > 0))
+        if padded:
+            w, bias = w[:hid], bias[:hid]
+            if i == net.skip_layer:
+                w = torch.cat([w[:, :IPE_DIM], w[:, IPE_DIM:IPE_DIM + hid]], 1)
+            elif i > 0:
+                w = w[:, :hid]
+        grads[f"layers_xyz.{i}.weight"] = w
         grads[f"layers_xyz.{i}.bias"] = bias
-    grads["fc_feat.weight"] = mats[8].view(hid, hid)
+    w_feat = mats[8].view(width, width)
+    w_dir = mats[9].view(DIR_LAYER_ROWS, width)
+    if padded:
+        w_feat, b_feat, w_dir = w_feat[:hid, :hid], b_feat[:hid], w_dir[:, :hid]
+    grads["fc_feat.weight"] = w_feat
     grads["fc_feat.bias"] = b_feat
-    w_dir = mats[9].view(DIR_LAYER_ROWS, hid)
     grads["fc_alpha.weight"] = w_dir[dh:dh + 1]
     grads["fc_alpha.bias"] = b_dir[dh:dh + 1]
     grads["layers_dir.0.weight"] = torch.cat(
@@ -205,13 +262,13 @@ def _check_net(net, device) -> None:
             "the fused MLP kernel computes in bf16; this network's compute "
             f"dtype is {net.compute_dtype} (use parallel.pallas_mlp: off for "
             "float32 compute)")
-    if (net.hidden_size not in SUPPORTED_HIDDEN
+    if (not 1 <= net.hidden_size <= MAX_HIDDEN
             or net.dir_hidden != DIR_HIDDEN
             or net.num_trunk_layers != 8 or net.skip_layer != 5):
         raise ValueError(
             "the fused MLP kernel takes 8 trunk layers with the skip at 5, "
-            f"hidden width in {SUPPORTED_HIDDEN} and a {DIR_HIDDEN}-wide "
-            f"dir branch; got hidden={net.hidden_size}, "
+            f"hidden widths up to {MAX_HIDDEN} and a {DIR_HIDDEN}-wide dir "
+            f"branch; got hidden={net.hidden_size}, "
             f"dir_hidden={net.dir_hidden}, layers={net.num_trunk_layers}, "
             f"skip={net.skip_layer}")
     if net.fc_feat.weight.device != device:
@@ -257,7 +314,9 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     ``dirs [N // K, 27]``: the view-direction PE of each ray;
     ``samples_per_ray``: K.  Returns ``[N, 4|6]`` float32 =
     (rgb, alpha[, raw_mu, raw_sigma]); with ``stash`` (the training
-    forward) ``(out, Stash)``, the activations the backward reads.
+    forward) ``(out, Stash)``, the activations the backward reads, with
+    trunk slabs :func:`stash_width` wide (on a card the columns past the
+    network's width are zero).
     """
     k = int(samples_per_ray)
     n = _check_rows(ipe, dirs, k)
@@ -269,7 +328,7 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     _check_net(net, ipe.device)
     from ddnerf_tpu_torch.kernels import build
 
-    dev, hid = ipe.device, net.hidden_size
+    dev, hid = ipe.device, kernel_width(net.hidden_size)
     out = torch.empty((n, net.out_dim), dtype=torch.float32, device=dev)
     acts = None
     if stash:
@@ -331,8 +390,8 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
     err = lib.ddnerf_fused_enc_mlp_fwd(
         means32.data_ptr(), covs32.data_ptr(), dirs_b.data_ptr(),
         kw.w.data_ptr(), kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(),
-        n, k, net.hidden_size, int(net.depth_head), *_offsets(kw),
-        torch.cuda.current_stream(dev).cuda_stream,
+        n, k, kernel_width(net.hidden_size), int(net.depth_head),
+        *_offsets(kw), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_enc_mlp_fwd")
     _count("fused_enc_mlp_fwd")
@@ -341,11 +400,16 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
 
 def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
                        g: torch.Tensor, samples_per_ray: int,
-                       stash: Stash) -> Dict[str, torch.Tensor]:
+                       stash: Stash, per_ray_dirs: bool = False,
+                       ) -> Dict[str, torch.Tensor]:
     """Parameter gradients of :func:`fused_mlp_forward` for the cotangent
     ``g [N, 4|6]``, from the ``stash`` of the same forward ->
     ``{parameter name: float32 gradient}`` in ``net.named_parameters()``
-    order.  Deterministic: the same inputs give bitwise the same gradients.
+    order.  ``per_ray_dirs`` is ``parallel.kernel_per_ray_dirs``: where the
+    dirs weight gradient rounds the dir layer's cotangent, per sample
+    (False, the JAX package's default) or once per ray (True); see
+    :func:`~ddnerf_tpu_torch.kernels.reference.fused_mlp_backward_reference`.
+    Deterministic: the same inputs give bitwise the same gradients.
     The kernel's TMA tensor maps (weights, stash, workspace slabs) are
     encoded inside the C entry point at every call: the stash and the
     workspace are fresh storage each time, so no map outlives its call.
@@ -358,7 +422,7 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     """
     k = int(samples_per_ray)
     n = _check_rows(ipe, dirs, k)
-    hid = net.hidden_size
+    hid = stash_width(net, ipe.device)
     if tuple(g.shape) != (n, net.out_dim):
         raise ValueError(f"g must be [{n}, {net.out_dim}], got "
                          f"{tuple(g.shape)}")
@@ -369,7 +433,8 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
             f"{tuple(stash.h.shape)} do not match ({NUM_STASH}, {n}, {hid}) "
             f"/ ({n}, {net.dir_hidden}): pass the stash of the same forward")
     if ipe.device.type == "cpu":
-        return fused_mlp_backward_reference(net, ipe, dirs, g, k, stash)
+        return fused_mlp_backward_reference(net, ipe, dirs, g, k, stash,
+                                            per_ray_dirs)
 
     _check_net(net, ipe.device)
     for name, t in (("g", g), ("stash", stash.trunk), ("stash h", stash.h)):
@@ -397,7 +462,7 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
         ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
         trunk.data_ptr(), h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(),
         gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
-        int(net.depth_head), *_offsets(kw),
+        int(net.depth_head), int(per_ray_dirs), *_offsets(kw),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_mlp_bwd")
@@ -413,10 +478,11 @@ class _FusedMLPTrain(torch.autograd.Function):
     from detached fenceposts and the view directions are data."""
 
     @staticmethod
-    def forward(ctx, net, ipe, dirs, samples_per_ray, *params):
+    def forward(ctx, net, ipe, dirs, samples_per_ray, per_ray_dirs, *params):
         out, stash = fused_mlp_forward(net, ipe, dirs, samples_per_ray,
                                        stash=True)
         ctx.net, ctx.samples_per_ray = net, samples_per_ray
+        ctx.per_ray_dirs = per_ray_dirs
         ctx.save_for_backward(ipe, dirs, stash.trunk, stash.h)
         return out
 
@@ -424,18 +490,21 @@ class _FusedMLPTrain(torch.autograd.Function):
     def backward(ctx, g):
         ipe, dirs, trunk, h = ctx.saved_tensors
         grads = fused_mlp_backward(ctx.net, ipe, dirs, g, ctx.samples_per_ray,
-                                   Stash(trunk, h))
-        return (None, None, None, None, *grads.values())
+                                   Stash(trunk, h), ctx.per_ray_dirs)
+        return (None, None, None, None, None, *grads.values())
 
 
 def fused_mlp_train_apply(net, ipe: torch.Tensor, dirs: torch.Tensor,
-                          samples_per_ray: int) -> torch.Tensor:
+                          samples_per_ray: int,
+                          per_ray_dirs: bool = False) -> torch.Tensor:
     """The training forward of ``net`` on ray-major rows (as
-    :func:`fused_mlp_forward`) whose backward is the B2 kernel: gradients
-    flow into ``net``'s parameters only.  The inputs are detached and cast
-    to the compute dtype first, as the JAX pipeline's
+    :func:`fused_mlp_forward`) whose backward is the B2 kernel (with
+    ``per_ray_dirs`` as :func:`fused_mlp_backward`): gradients flow into
+    ``net``'s parameters only.  The inputs are detached and cast to the
+    compute dtype first, as the JAX pipeline's
     ``stop_gradient(ipe.astype(cdt))``."""
     cdt = net.compute_dtype
     return _FusedMLPTrain.apply(net, ipe.detach().to(cdt),
                                 dirs.detach().to(cdt), int(samples_per_ray),
+                                bool(per_ray_dirs),
                                 *(p for _, p in _named_params(net)))

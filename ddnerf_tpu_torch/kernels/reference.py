@@ -83,21 +83,35 @@ def fused_mlp_stash_reference(net, ipe: torch.Tensor, dirs: torch.Tensor,
 @torch.no_grad()
 def fused_mlp_backward_reference(net, ipe: torch.Tensor, dirs: torch.Tensor,
                                  g: torch.Tensor, samples_per_ray: int,
-                                 stash: Stash) -> Dict[str, torch.Tensor]:
+                                 stash: Stash, per_ray_dirs: bool = False,
+                                 accumulate: torch.dtype = torch.float32,
+                                 ) -> Dict[str, torch.Tensor]:
     """Parameter gradients of the fused MLP for the cotangent ``g [N, 4|6]``
     -> ``{parameter name: float32 gradient}`` (``net.named_parameters()``
     names and shapes).  No input gradients: ipe and dirs are detached
     upstream.  The rounding points are ``_bwd_kernel``'s: g in the compute
     dtype on entry; each matmul's cotangent operand rounded, bias sums
     taken in f32 before the rounding; relu masks from the stashed
-    activations; the per-ray dirs cotangent summed in f32, then rounded.
+    activations.  The dirs weight gradient follows
+    ``parallel.kernel_per_ray_dirs``: ``per_ray_dirs=False`` (the JAX
+    package's default, its per-sample branch) multiplies each sample's
+    rounded cotangent by its ray's dirs, here as the f32 sum of the ray's
+    rounded cotangents times the dirs (the same products; the dirs are the
+    same for every sample of a ray); ``True`` rounds the f32 sum of the
+    ray's cotangents once.  A stash wider than the network (the kernel's,
+    at a zero-padded width) is read up to the network's width.
+    ``accumulate``: the dtype of the products and sums between the rounding
+    points (float64 measures how far float32 accumulation moves the
+    result: ``scripts/b2_rounding_floor.py``).
     """
-    q = net._q
+    def q(x):  # net._q at float32
+        return x.to(net.compute_dtype).to(accumulate)
+
     k = samples_per_ray
     n, hid, dh = ipe.shape[0], net.hidden_size, net.dir_hidden
-    acts = [a.float() for a in stash.trunk]  # x0..x7, feat
+    acts = [a[:, :hid].to(accumulate) for a in stash.trunk]  # x0..x7, feat
     x7, feat = acts[7], acts[8]
-    h = stash.h.float()
+    h = stash.h.to(accumulate)
     ipe = q(ipe.float())
     dirs = q(dirs.float())
     g = q(g.float())
@@ -110,13 +124,16 @@ def fused_mlp_backward_reference(net, ipe: torch.Tensor, dirs: torch.Tensor,
     heads = [("fc_rgb", g[:, 0:3])]
     if net.depth_head:
         heads.append(("fc_mu_sigma", g[:, 4:6]))
-    g_h = torch.zeros(n, dh, dtype=torch.float32, device=g.device)
+    g_h = torch.zeros(n, dh, dtype=accumulate, device=g.device)
     for name, gk in heads:
         put(name, gk.T @ q(h), gk.sum(0))
         g_h = g_h + gk @ q(getattr(net, name).weight)
     g_h = torch.where(h > 0, g_h, 0.0)
     g_h_c = q(g_h)
-    g_dproj = q(g_h.reshape(n // k, k, dh).sum(1))
+    if per_ray_dirs:
+        g_dproj = q(g_h.reshape(n // k, k, dh).sum(1))
+    else:
+        g_dproj = g_h_c.reshape(n // k, k, dh).sum(1)
     g_alpha = g[:, 3:4]
     put("layers_dir.0", torch.cat([g_h_c.T @ feat, g_dproj.T @ dirs], 1),
         g_h.sum(0))

@@ -40,14 +40,18 @@ On a CPU each kernel wrapper itself runs its plain version.  The JAX
 package's probe-and-fallback ladder has no counterpart: a kernel that fails
 to build or launch raises.
 
-Both kernel directions take the view directions once per ray.
-``parallel.kernel_per_ray_dirs`` is accepted and ignored, and so is
-``parallel.bwd_block_rows`` (a TPU block size).  Unlike the layout switches
-below, per-ray versus per-sample directions is not bit-neutral in the
-backward: per ray, the dirs weight gradient rounds the per-ray SUM of the
-dir-layer cotangent to bf16, where per sample it rounds each sample's
-cotangent before the sum (fused_mlp_bwd.py:238-248).  The port always
-computes the per-ray form (``kernel_per_ray_dirs: true``).
+Both kernel directions take the view directions once per ray, whatever
+``parallel.kernel_per_ray_dirs`` says; the switch sets where the training
+backward rounds the dirs weight gradient's cotangent, as in the JAX
+package, where it is not bit-neutral (fused_mlp_bwd.py:236-248): ``false``
+(the default) rounds each sample's dir-layer cotangent to bf16 before the
+sum over the ray, ``true`` rounds the per-ray sum once.
+``parallel.bwd_block_rows`` (a TPU block size) is accepted and ignored.
+
+Any ``coarse_hidden_size`` / ``fine_hidden_size`` up to 512 runs through
+the kernels, each network at its own width (the kernels' widths and the
+zero padding between them: ``kernels/fused_mlp.py::KERNEL_WIDTHS``); a
+wider network raises.
 
 Config switches that only shape TPU programs are accepted and ignored:
 ``ipe_transposed``, ``raw_lane_inputs``, ``alpha_vpu``, ``split_h_stash``,
@@ -262,8 +266,12 @@ class NerfPipeline:
         kernel = self.use_train_kernel if mode == "train" else self.use_kernel
         if not kernel:
             return net(ipe, dirs)
-        fn = fused_mlp_train_apply if mode == "train" else fused_mlp_forward
-        flat = fn(net, ipe.reshape(n * s, -1), dirs, s)
+        if mode == "train":
+            flat = fused_mlp_train_apply(
+                net, ipe.reshape(n * s, -1), dirs, s,
+                self.cfg.parallel.kernel_per_ray_dirs)
+        else:
+            flat = fused_mlp_forward(net, ipe.reshape(n * s, -1), dirs, s)
         return flat.reshape(n, s, -1)
 
     # ---------------------------------------------------------------- render

@@ -5,18 +5,25 @@ NVIDIA GPU, inside one process, in turns.
 
 ``DIR`` holds another version of ``fused_mlp_bwd.cu`` and the headers it
 includes (for a parent commit: ``git show REV:ddnerf_tpu_torch/kernels/csrc/F
-> DIR/F`` for each file), with the same C entry points.  It is compiled with
-nvcc for sm_90a into ``DIR/other_bwd.so``; the repository's own library is
-built as usual and its stash forward feeds both.  Then the backward is timed
-with CUDA events, medians of ``--reps``, for DepthMipMLP and MipMLP at width
-256 on the training shape (2048 rays x 32 samples) and on 2048 x 33, in the
-order other, this, this, other: once through the wrapper
+> DIR/F`` for each file), with the same C entry points or those of a version
+whose ``ddnerf_fused_mlp_bwd`` has no ``per_ray`` argument (which computes
+the per-ray dirs gradient only).  It is compiled with nvcc for sm_90a into ``DIR/other_bwd.so``; the
+repository's own library is built as usual and its stash forward feeds both.
+Then the backward is timed with CUDA events, medians of ``--reps``, for
+DepthMipMLP and MipMLP at width 256 on the training shape (2048 rays x 32
+samples) and on 2048 x 33, with per-ray dirs (``per_ray_dirs=True``, what
+both versions compute) in the order other, this, this, other, and then this
+version with per-sample dirs (the default): once through the wrapper
 (``fused_mlp_backward``: what a train step calls, allocations and gradient
 views included) and once through the C entry point alone on buffers made
 beforehand (the kernels' own time), each with the host time to enqueue it.
-The two libraries' gradients are compared leaf by leaf.  The first line is
-the card's name and power limit.  Needs a GPU; prints nothing of worth
-without one.
+The two libraries' per-ray gradients are compared leaf by leaf: the count
+of leaves that are bitwise equal, and the largest ||d|| / ||other||
+(``layers_dir.0.weight`` may differ in summation order: its dirs columns
+are a float32 product here, a tensor-core one in the parent of the
+per-sample repair).  The first
+line is the card's name and power limit.  Needs a GPU; prints nothing of
+worth without one.
 """
 
 from __future__ import annotations
@@ -78,16 +85,36 @@ def build_other(directory, this_lib):
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on {directory}:\n{proc.stderr}")
     lib = ctypes.CDLL(so)
+    with open(os.path.join(directory, "fused_mlp_bwd.cu")) as f:
+        per_ray_arg = "int per_ray" in f.read()
     fns = {"ddnerf_cuda_error_string": this_lib.ddnerf_cuda_error_string}
     for name in ENTRIES:
         fn = getattr(lib, name)
-        fn.argtypes = getattr(this_lib, name).argtypes
+        argtypes = list(getattr(this_lib, name).argtypes)
+        if not per_ray_arg and name == "ddnerf_fused_mlp_bwd":
+            del argtypes[14]  # the per_ray argument follows depth_head
+        fn.argtypes = argtypes
         fn.restype = getattr(this_lib, name).restype
         fns[name] = fn
+    if not per_ray_arg:
+        fns = {**fns, **legacy_entries(fns)}
     return types.SimpleNamespace(**fns)
 
 
-def raw_call(lib, net, ipe, dirs, g, k, stash):
+def legacy_entries(fns):
+    """This version's backward entry point over a version without the
+    per_ray argument, which rounds the per-ray sum (per_ray must be 1)."""
+    old_bwd = fns["ddnerf_fused_mlp_bwd"]
+
+    def backward(*args):
+        args = list(args)
+        assert args.pop(14), "the other version computes per-ray dirs only"
+        return old_bwd(*args)
+
+    return {"ddnerf_fused_mlp_bwd": backward}
+
+
+def raw_call(lib, net, ipe, dirs, g, k, stash, per_ray):
     """The C entry point alone, on buffers made here once."""
     dev, n, hid = ipe.device, ipe.shape[0], net.hidden_size
     kw = fk._packed(net)
@@ -108,7 +135,7 @@ def raw_call(lib, net, ipe, dirs, g, k, stash):
             ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
             stash.trunk.data_ptr(), stash.h.data_ptr(), kw.w.data_ptr(),
             gw.data_ptr(), gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
-            int(net.depth_head), *offs, stream)
+            int(net.depth_head), int(per_ray), *offs, stream)
         build.check(lib, err, "fused_mlp_bwd")
         return keep
 
@@ -141,29 +168,39 @@ def main():
             build.load_library = lambda: this_lib
             _, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
             grads = {}
-            for which in ("other", "this", "this", "other"):
+            for which, per_ray in (("other", True), ("this", True),
+                                   ("this", True), ("other", True),
+                                   ("this", False)):
                 # The wrappers fetch the library at every call.
                 build.load_library = lambda lib=libs[which]: lib
-                grads[which] = fk.fused_mlp_backward(net, ipe, dirs, g, k,
-                                                     stash)
+                if per_ray:
+                    grads[which] = fk.fused_mlp_backward(net, ipe, dirs, g, k,
+                                                         stash, True)
 
                 def wrapper():
-                    return fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
+                    return fk.fused_mlp_backward(net, ipe, dirs, g, k, stash,
+                                                 per_ray)
 
-                call = raw_call(libs[which], net, ipe, dirs, g, k, stash)
-                print(f"{cls.__name__} N={n} K={k} {which}: B2 through the "
+                call = raw_call(libs[which], net, ipe, dirs, g, k, stash,
+                                per_ray)
+                mode = "per-ray" if per_ray else "per-sample"
+                print(f"{cls.__name__} N={n} K={k} {which} ({mode} dirs): B2 "
+                      f"through the "
                       f"wrapper {event_ms(wrapper, args.reps):.3f} ms (host "
                       f"{host_ms(wrapper, args.reps):.3f} ms per call), the "
                       f"C entry point alone {event_ms(call, args.reps):.3f} "
                       f"ms (host {host_ms(call, args.reps):.3f} ms per call)",
                       flush=True)
+            this, other = grads["this"], grads["other"]
+            same = sum(torch.equal(this[name], other[name]) for name in this)
             worst = max(
-                (((grads["this"][name] - grads["other"][name]).norm()
-                  / grads["other"][name].norm().clamp_min(1e-30)).item(), name)
-                for name in grads["this"])
-            print(f"{cls.__name__} N={n} K={k}: this vs other, largest "
-                  f"||d|| / ||other|| over {len(grads['this'])} leaves "
-                  f"{worst[0]:.3e} ({worst[1]})", flush=True)
+                (((this[name] - other[name]).norm()
+                  / other[name].norm().clamp_min(1e-30)).item(), name)
+                for name in this)
+            print(f"{cls.__name__} N={n} K={k}: this vs other (per-ray "
+                  f"dirs), {same} of {len(this)} leaves bitwise equal, "
+                  f"largest ||d|| / ||other|| {worst[0]:.3e} ({worst[1]})",
+                  flush=True)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Port parity for the training kernels' plain versions: the stash forward
 (B1s) and the explicit backward (B2) of ddnerf_tpu_torch against the JAX
 package's Pallas kernels in interpret mode (``fused_mlp_forward(stash=True,
-split_h_stash=True)`` and ``fused_mlp_backward`` with per-ray dirs), with
-transplanted weights; and the training ``autograd.Function`` on the CPU.
+split_h_stash=True)`` and ``fused_mlp_backward`` with per-ray dirs, the
+plain backward's ``per_ray_dirs=True``), with transplanted weights; and the
+training ``autograd.Function`` on the CPU.
 
 The CUDA kernels themselves run only on a GPU (tests/test_torch_port_cuda.py);
 here every wrapper takes its plain version."""
@@ -88,8 +89,10 @@ def test_plain_backward_matches_pallas_interpret(rays, k, depth_head, dtype):
     x = _to_torch(trunk, cdt)[:, :n]  # the JAX stash is padded to whole blocks
     stash = ref.Stash(torch.cat([x, _stash_tail(net, x[6])]),
                       _to_torch(h, cdt)[:n])
+    # JAX with per-ray dirs rounds the per-ray cotangent sum once.
     got = ref.fused_mlp_backward_reference(
-        net, torch.tensor(ipe), torch.tensor(dirs), torch.tensor(g), k, stash)
+        net, torch.tensor(ipe), torch.tensor(dirs), torch.tensor(g), k, stash,
+        per_ray_dirs=True)
     assert list(got) == [name for name, _ in net.named_parameters()]
     for name, p in net.named_parameters():
         assert got[name].shape == p.shape and got[name].dtype == torch.float32
@@ -105,11 +108,13 @@ def test_plain_backward_matches_pallas_interpret(rays, k, depth_head, dtype):
 
 @pytest.mark.parametrize("depth_head", [False, True])
 def test_dirs_gradient_rounds_the_per_ray_sum_once(depth_head):
-    """d layers_dir.0.weight[:, hid:] = bf16(sum_K g_h)^T dirs, computed here
+    """With ``per_ray_dirs`` (``parallel.kernel_per_ray_dirs: true``),
+    d layers_dir.0.weight[:, hid:] = bf16(sum_K g_h)^T dirs, computed here
     by hand: g_h is summed over the ray's K rows in float32 and rounded to
-    bf16 once, after the sum (``_bwd_kernel``'s g_dproj).  Rounding each row
-    first, the other place the rounding could sit, gives another result on
-    these inputs, so a kernel that moved the rounding point would show."""
+    bf16 once, after the sum (``_bwd_kernel``'s per-ray g_dproj).  Rounding
+    each row first, the other place the rounding could sit (the default,
+    tests/test_torch_port_widths.py), gives another result on these inputs,
+    so a kernel that moved the rounding point would show."""
     gen = torch.Generator().manual_seed(6)
     hid, rays, k = 32, 11, 33
     net = (DepthMipMLP if depth_head else MipMLP)(
@@ -119,7 +124,8 @@ def test_dirs_gradient_rounds_the_per_ray_sum_once(depth_head):
     dirs = torch.rand(rays, 27, generator=gen) * 2 - 1
     g = torch.randn(n, net.out_dim, generator=gen)
     _, stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
-    got = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash)
+    got = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash,
+                                           per_ray_dirs=True)
 
     def q(x):
         return x.to(torch.bfloat16).float()
@@ -206,12 +212,13 @@ def test_f32_plain_backward_is_autograd_of_the_module():
                                    rtol=1e-5, atol=1e-6, err_msg=name)
 
 
-@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("hidden", [64, 256, 96, 320])
 @pytest.mark.parametrize("depth_head", [False, True])
 def test_gradient_layout_round_trips(depth_head, hidden):
     """``unpack_grads`` reads the packed layout that the backward kernel
-    writes its f32 gradients in (the packed weight layout) back into
-    parameter shapes: unpacking the packed weights gives the parameters."""
+    writes its f32 gradients in (the packed weight layout, zero-padded to
+    the kernel width at 96 and 320) back into parameter shapes: unpacking
+    the packed weights gives the parameters."""
     gen = torch.Generator().manual_seed(5)
     net = (DepthMipMLP if depth_head else MipMLP)(hidden_size=hidden,
                                                   generator=gen)

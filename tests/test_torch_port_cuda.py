@@ -42,9 +42,14 @@ def device():
     return torch.device("cuda")
 
 
+# Widths 96 (run at 128, zero-padded) and 320 (at 384), 192, 384 and 512
+# (the N-split plan) besides the shipped three.
 @pytest.mark.parametrize("hidden,rays,k", [(256, 512, 32), (256, 129, 33),
                                            (128, 77, 3), (64, 50, 5),
-                                           (256, 1, 1)])
+                                           (256, 1, 1), (96, 77, 3),
+                                           (192, 129, 33), (320, 50, 5),
+                                           (384, 129, 33), (512, 512, 32),
+                                           (512, 3, 1)])
 @pytest.mark.parametrize("depth_head", [False, True])
 def test_kernel_matches_plain_version(device, depth_head, hidden, rays, k):
     gen = torch.Generator().manual_seed(hidden + rays)
@@ -107,7 +112,10 @@ def _gaussians(gen, n, device):
 
 @pytest.mark.parametrize("hidden,rays,k", [(256, 512, 32), (256, 129, 33),
                                            (128, 77, 32), (64, 50, 33),
-                                           (256, 3, 1)])
+                                           (256, 3, 1), (96, 77, 32),
+                                           (192, 129, 33), (320, 50, 33),
+                                           (384, 129, 33), (512, 512, 32),
+                                           (512, 3, 1)])
 @pytest.mark.parametrize("depth_head", [False, True])
 def test_enc_kernel_matches_plain_and_the_forward_fed_the_plain_ipe(
         device, depth_head, hidden, rays, k):
@@ -151,9 +159,9 @@ def test_enc_kernel_checks_its_inputs_and_never_falls_back(device):
     with pytest.raises(ValueError, match="computes in bf16"):
         fk.fused_enc_mlp_forward(MipMLP(hidden_size=64).to(device), means,
                                  covs, dirs, 4)
-    with pytest.raises(ValueError, match="hidden width"):
+    with pytest.raises(ValueError, match="up to 512"):
         fk.fused_enc_mlp_forward(
-            MipMLP(hidden_size=32, compute_dtype=torch.bfloat16).to(device),
+            MipMLP(hidden_size=513, compute_dtype=torch.bfloat16).to(device),
             means, covs, dirs, 4)
     assert fk.LAUNCHES == before
 
@@ -200,7 +208,7 @@ def _net(cls, hidden, seed, device):
 # wrap (33,000 rows = 258 tiles; 50,717 rows = 397 tiles, the last ragged).
 @pytest.mark.parametrize("rays,k", [(5, 13), (3, 43), (7, 29), (1000, 33),
                                     (1237, 41)])
-@pytest.mark.parametrize("hidden", [64, 128, 256])
+@pytest.mark.parametrize("hidden", [64, 128, 256, 96, 192, 384, 512])
 def test_forward_modes_agree_bit_for_bit(device, hidden, rays, k):
     """Render mode, stash mode and the in-kernel IPE are one net body:
     B1 == B1s == B3 fed the same Gaussians, bit for bit, and within the
@@ -220,14 +228,22 @@ def test_forward_modes_agree_bit_for_bit(device, hidden, rays, k):
     assert torch.equal(b1, b1s)
     assert torch.equal(b1, b3)
     want, want_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
-    for a, b in zip([b1, *stash.trunk, stash.h],
+    for a, b in zip([b1, *_cut(stash.trunk, hidden), stash.h],
                     [want, *want_stash.trunk, want_stash.h]):
         err = (a.float() - b.float()).abs()
         assert err.max().item() <= MAX_ABS_TOL
         assert err.mean().item() <= MEAN_ABS_TOL
 
 
-@pytest.mark.parametrize("hidden", [64, 128, 256])
+def _cut(trunk, hidden):
+    """The kernel's stash slabs at the network's width; the columns the
+    zero padding adds (a width that is no kernel width) must be zero."""
+    assert trunk.shape[-1] == fk.kernel_width(hidden)
+    assert not trunk[..., hidden:].any()
+    return trunk[..., :hidden]
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 256, 192, 384, 512])
 def test_back_to_back_launches_with_different_weights(device, hidden):
     """Launches queued on one stream with no synchronisation between them,
     alternating two networks and the three modes: each result equals the
@@ -273,17 +289,21 @@ def _training_shapes():
     has SMs, so the persistent CTAs walk several and the last is ragged),
     then a few odd ones (K = 1, five rows)."""
     shapes = []
-    for hidden in (64, 128, 256):
+    for hidden in (64, 128, 256, 192, 384, 512):
         for k in (32, 33, 13):
             shapes.append((hidden, 3, k))
             shapes.append((hidden, 132 * 128 // k + 7, k))
-    return shapes + [(128, 77, 3), (64, 50, 1), (256, 5, 1), (256, 37, 33)]
+    return shapes + [(128, 77, 3), (64, 50, 1), (256, 5, 1), (256, 37, 33),
+                     (96, 77, 3), (320, 37, 33), (512, 5, 1)]
 
 
 @pytest.mark.parametrize("hidden,rays,k", _training_shapes())
 @pytest.mark.parametrize("depth_head", [False, True])
 def test_training_kernels_match_plain_versions(device, depth_head, hidden,
                                                rays, k):
+    """B1s and B2 against their plain versions, B2 in both settings of
+    ``per_ray_dirs`` (where it rounds the dirs weight gradient's
+    cotangent)."""
     from ddnerf_tpu_torch.kernels import reference as ref
 
     gen = torch.Generator().manual_seed(hidden + rays + k)
@@ -304,21 +324,25 @@ def test_training_kernels_match_plain_versions(device, depth_head, hidden,
     assert fk.LAUNCHES["fused_mlp_bwd"] == before["fused_mlp_bwd"] + 2
     assert torch.equal(out_r, out_s)  # the stash changes no arithmetic
     ref_out, ref_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
-    for a, b in zip([out_s, *stash.trunk, stash.h],
+    for a, b in zip([out_s, *_cut(stash.trunk, hidden), stash.h],
                     [ref_out, *ref_stash.trunk, ref_stash.h]):
         err = (a.float() - b.float()).abs()
         assert err.max().item() <= MAX_ABS_TOL
         assert err.mean().item() <= MEAN_ABS_TOL
-    want = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash)
-    for name, p in net.named_parameters():
-        assert grads[name].shape == p.shape
+    per_ray = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, True)
+    for got, flag in ((grads, False), (per_ray, True)):
+        want = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash,
+                                                flag)
+        for name, p in net.named_parameters():
+            assert got[name].shape == p.shape
+            rel = ((got[name] - want[name]).norm()
+                   / want[name].norm().clamp_min(1e-30)).item()
+            assert rel <= GRAD_NORM_REL_TOL, (name, flag, rel)
+    for name in grads:
         assert torch.equal(grads[name], again[name]), name  # deterministic
-        rel = ((grads[name] - want[name]).norm()
-               / want[name].norm().clamp_min(1e-30)).item()
-        assert rel <= GRAD_NORM_REL_TOL, (name, rel)
 
 
-@pytest.mark.parametrize("hidden", [64, 128, 256])
+@pytest.mark.parametrize("hidden", [64, 128, 256, 192, 384, 512])
 def test_backward_repeats_bitwise_after_a_call_with_other_weights(device,
                                                                   hidden):
     """Two backward calls on one network give bitwise the same gradients,

@@ -39,13 +39,13 @@ WEIGHT_NORM_REL_TOL = 1e-3
 WEIGHT_MAX_ABS = STEPS * 1e-3
 
 
-def _cfg(**parallel):
+def _cfg(coarse=32, fine=32, **parallel):
     return Config.from_dict({
         "experiment": {"train_iters": 100},
         "optimizer": {"lr_init": 1e-3, "lr_final": 1e-4, "lr_delay_steps": 0},
         "nerf": {
-            "type": "DDNerfModel", "coarse_hidden_size": 32,
-            "fine_hidden_size": 32,
+            "type": "DDNerfModel", "coarse_hidden_size": coarse,
+            "fine_hidden_size": fine,
             "train": {"num_coarse": 6, "num_fine": 6, "num_random_rays": 16,
                       "perturb": False, "radiance_field_noise_std": 0.0},
             "validation": {"num_coarse": 6, "num_fine": 6, "perturb": False,
@@ -71,17 +71,13 @@ def _batches(n_steps, n=16, seed=0):
     return out
 
 
-def test_cotrained_trajectory_matches_jax_train_step():
-    """Port ``pallas_mlp: auto`` (CPU: the training Function's plain
-    versions) against the JAX XLA step (``pallas_mlp: off``, a short jit;
-    the kernel policy's gradients are held against the Pallas kernels in
-    tests/test_torch_port_train.py)."""
-    jcfg = _cfg(pallas_mlp="off")
+def _cotrain(coarse=32, fine=32):
+    jcfg = _cfg(coarse, fine, pallas_mlp="off")
     jpipe = JaxPipeline(jcfg)
     jstate = create_train_state(jcfg, jpipe, jax.random.PRNGKey(0))
     step = jax.jit(make_train_step(jcfg, jpipe))
 
-    cfg = _cfg(pallas_mlp="auto")
+    cfg = _cfg(coarse, fine, pallas_mlp="auto")
     pipe = NerfPipeline(cfg, "cpu")
     pipe.load_state_dicts(params_to_state_dict(jstate.params["coarse"]),
                           params_to_state_dict(jstate.params["fine"]))
@@ -103,6 +99,23 @@ def test_cotrained_trajectory_matches_jax_train_step():
             rel = (diff.norm() / want[name].norm()).item()
             assert rel <= WEIGHT_NORM_REL_TOL, (net, name, rel)
             assert diff.abs().max().item() <= WEIGHT_MAX_ABS, (net, name)
+    return pipe
+
+
+def test_cotrained_trajectory_matches_jax_train_step():
+    """Port ``pallas_mlp: auto`` (CPU: the training Function's plain
+    versions) against the JAX XLA step (``pallas_mlp: off``, a short jit;
+    the kernel policy's gradients are held against the Pallas kernels in
+    tests/test_torch_port_train.py)."""
+    _cotrain()
+
+
+def test_cotrained_trajectory_with_two_widths_matches_jax_train_step():
+    """The same with a coarse and a fine network of different widths, each
+    its own (the reference's separate hidden sizes; neither is a kernel
+    width, so on a card each runs zero-padded to its own)."""
+    pipe = _cotrain(coarse=24, fine=40)
+    assert (pipe.coarse.hidden_size, pipe.fine.hidden_size) == (24, 40)
 
 
 def test_validation_renderer_matches_jax_renderer():
