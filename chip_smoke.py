@@ -138,6 +138,8 @@ result.
 from __future__ import annotations
 
 import atexit
+import contextlib
+import glob
 import importlib.util
 import json
 import math
@@ -147,9 +149,11 @@ import re
 import select
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -170,6 +174,9 @@ VIDEO_HW = (64, 64)  # the procedural synthetic scene's resolution
 TIMING_REPS = 10
 # Published peaks of one H100 SXM (dense, no sparsity), for the bounds.
 PEAK_BF16_FLOPS = 989e12
+# Operations at float32 precision: 3xTF32 on the tensor cores, a third of
+# the dense TF32 peak (495e12), the least time f32 products could take.
+PEAK_F32_FLOPS = 495e12 / 3
 PEAK_HBM_BYTES = 3.35e12
 # The training shape: 2048 rays x 32 samples per network per step.
 TRAIN_RAYS = 2048
@@ -261,7 +268,7 @@ WIDE_ITERS, WIDE_GRAPH_STEPS = 100, 20
 # Modules that must not have been imported when the run ends: the JAX
 # package and its frameworks, and the libraries not every installation has.
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "orbax", "ddnerf_tpu",
-                     "imageio", "matplotlib")
+                     "imageio", "matplotlib", "tensorboardX", "tensorboard")
 
 
 def fail(msg: str) -> None:
@@ -349,17 +356,18 @@ def _param_counts(hidden, depth_head):
             9 * hidden + 128 + 1 + 3 + (2 if depth_head else 0))
 
 
-def _bound_ms(flop, nbytes):
+def _bound_ms(flop, nbytes, peak=PEAK_BF16_FLOPS):
     """The least time the card could take: the larger of the operations
-    over the dense bf16 peak and the bytes (each input read once, each
-    output written once) over the device-memory rate -> (ms, which)."""
-    t_flop, t_bytes = flop / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    over the dense peak of their type (bf16 by default) and the bytes
+    (each input read once, each output written once) over the device-memory
+    rate -> (ms, which)."""
+    t_flop, t_bytes = flop / peak, nbytes / PEAK_HBM_BYTES
     return max(t_flop, t_bytes) * 1e3, ("operations" if t_flop >= t_bytes
                                         else "bytes")
 
 
 def kernel_bounds(hidden, rows, rays, train_rows, train_rays,
-                  depth_head=True):
+                  depth_head=True, f32=False):
     """``{kernel: (bound_ms, bound_by)}`` for a network of width ``hidden``
     at the shapes that were timed: the forwards B1 / B3 on ``rows``
     (``rays`` rays), the training pair B1s / B2 on ``train_rows``.  The
@@ -372,26 +380,31 @@ def kernel_bounds(hidden, rows, rays, train_rows, train_rays,
     repeats all but those whose input is the IPE or the dirs (layer 0, the
     skip layer's IPE columns, the dir layer's dirs columns); it reads the
     IPE, the dirs, the cotangent (out_dim f32 per row), the stash and the
-    weights, and writes one f32 gradient per parameter."""
+    weights, and writes one f32 gradient per parameter.  With ``f32``, the
+    float32 kernels (``{kernel}_f32``): every IPE, dirs, weight and stash
+    element is 4 bytes, and the operations run at f32 precision, whose
+    least time is 3xTF32's: :data:`PEAK_F32_FLOPS`."""
     out_dim = 6 if depth_head else 4
+    e = 4 if f32 else 2  # bytes of a compute-dtype element
+    peak = PEAK_F32_FLOPS if f32 else PEAK_BF16_FLOPS
     weights, biases = _param_counts(hidden, depth_head)
-    params = 2 * weights + 4 * biases  # read as bf16 weights, f32 biases
+    params = e * weights + 4 * biases  # weights in the compute dtype
     row_macs = _row_macs(hidden, depth_head)
     out = {}
     fwd = 2 * (rows * row_macs + rays * DIRS_MACS)
-    io = rays * 27 * 2 + params + rows * out_dim * 4
-    out["fused_mlp_fwd"] = _bound_ms(fwd, io + rows * 96 * 2)
-    out["fused_enc_mlp_fwd"] = _bound_ms(fwd, io + rows * 6 * 4)
+    io = rays * 27 * e + params + rows * out_dim * 4
+    out["fused_mlp_fwd"] = _bound_ms(fwd, io + rows * 96 * e, peak)
+    out["fused_enc_mlp_fwd"] = _bound_ms(fwd, io + rows * 6 * 4, peak)
     macs = train_rows * row_macs + train_rays * DIRS_MACS
-    stash = train_rows * (9 * hidden + 128) * 2
-    io = train_rows * 96 * 2 + train_rays * 27 * 2 + params
+    stash = train_rows * (9 * hidden + 128) * e
+    io = train_rows * 96 * e + train_rays * 27 * e + params
     out["fused_mlp_fwd_stash"] = _bound_ms(
-        2 * macs, io + train_rows * out_dim * 4 + stash)
+        2 * macs, io + train_rows * out_dim * 4 + stash, peak)
     no_dgrad = train_rows * 2 * 96 * hidden + train_rays * DIRS_MACS
     out["fused_mlp_bwd"] = _bound_ms(
         2 * (2 * macs - no_dgrad),
-        io + train_rows * out_dim * 4 + stash + (weights + biases) * 4)
-    return out
+        io + train_rows * out_dim * 4 + stash + (weights + biases) * 4, peak)
+    return {name + ("_f32" if f32 else ""): v for name, v in out.items()}
 
 
 def phase_kernel(torch):
@@ -985,6 +998,287 @@ def phase_widths(torch):
     return worst
 
 
+# Phase 18, the float32 kernels (csrc/fused_mlp_f32.cu, counted as
+# ``{kernel}_f32``) against their plain versions at float32 with TF32 off.
+# Both compute in f32 and differ in summation order only (the kernels'
+# 3xTF32 products keep about f32's precision): B1, B3 and B1s within
+# F32_OUT_TOL of the plain version (max |kernel - plain|), B1s bit for bit
+# B1; B2 per gradient within F32_GRAD_TOL of the plain version's norm (the
+# port's f32 limit, tests/test_torch_port_backward.py), bitwise repeatable,
+# in both dirs settings.  Each limit must sit between the sound readings
+# and three faults injected at width 256: the kernels built single-pass
+# TF32 (F32_ONE_PASS), the weight pack rounded to bf16, the dirs rounded to
+# bf16 (phase 18 fails if a fault reads inside a limit).  Readings
+# (scripts/f32_kernels.py; NVIDIA H100 80GB HBM3, 700 W): B1 and B3 <=
+# 1.8e-7, B1s <= 1.2e-6, B2 <= 7.8e-6 (fc_alpha.bias, a sum of 67,584
+# random cotangents that nearly cancel; the plain version sits 1.5e-6 from
+# float64 there), every other leaf <= 4.5e-6; single-pass TF32 reads 8.5e-5
+# on B1's outputs, inside the JAX package's f32 kernel tolerance of 1e-4
+# (tests/test_fused_mlp.py), so the forward limit here is 1e-5.
+F32_OUT_TOL = 1e-5
+F32_GRAD_TOL = 1e-5
+F32_ONE_PASS = ("-DDDNERF_F32_ONE_PASS",)
+F32_WIDTHS = (256, 64, 192, 512)
+F32_OPTS = ("parallel.compute_dtype", "float32")
+# The float32 CLI run starts at the full rate (no lr delay), as the wide
+# run does, so that its loss must fall in F32_ITERS iterations.
+F32_TRAIN_OPTS = (*F32_OPTS, "optimizer.lr_delay_steps", "0")
+F32_ITERS, F32_GRAPH_STEPS = 100, 20
+F32_NAMES = ("fused_mlp_fwd_f32", "fused_enc_mlp_fwd_f32",
+             "fused_mlp_fwd_stash_f32", "fused_mlp_bwd_f32")
+# The single-pass TF32 build, started beside the main build (phase 1).
+FAULT_BUILD = {}
+
+
+def start_fault_build():
+    """Compile the library with :data:`F32_ONE_PASS` in a thread, so that
+    its nvcc runs beside the main build's."""
+    from ddnerf_tpu_torch.kernels import build
+
+    def run():
+        try:
+            FAULT_BUILD["info"] = build.build(F32_ONE_PASS)
+        except (RuntimeError, OSError) as e:  # raised where it is needed
+            FAULT_BUILD["error"] = e
+
+    FAULT_BUILD["thread"] = threading.Thread(target=run, daemon=True)
+    FAULT_BUILD["thread"].start()
+    # A run that fails before phase 18 still leaves no nvcc behind.
+    atexit.register(FAULT_BUILD["thread"].join)
+
+
+@contextlib.contextmanager
+def _f32_fault(fault, nets=()):
+    """Inside: the wrappers compute with ``fault`` ("one-pass": the
+    single-pass TF32 library; "bf16-weights": the weight pack rounded to
+    bf16; anything else: none, the caller rounds the dirs itself)."""
+    from ddnerf_tpu_torch.kernels import build
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    saved = build.load_library, fk.pack_weights
+    if fault == "one-pass":
+        FAULT_BUILD["thread"].join()
+        if "error" in FAULT_BUILD:
+            fail(f"the single-pass TF32 build failed: {FAULT_BUILD['error']}")
+        lib = build.load_library(F32_ONE_PASS)
+        build.load_library = lambda flags=(): lib
+    elif fault == "bf16-weights":
+        def rounded(net):
+            kw = saved[1](net)
+            return kw._replace(w=kw.w.bfloat16().float())
+        fk.pack_weights = rounded
+    for net in nets:
+        fk.forget_packed(net)
+    try:
+        yield
+    finally:
+        build.load_library, fk.pack_weights = saved
+        for net in nets:
+            fk.forget_packed(net)
+
+
+def _f32_readings(torch, net, fwd, train, dirs_fault=False):
+    """B1, B3 and B1s (outputs and stash, max |kernel - plain|) and B2 (the
+    largest per-gradient norm-relative gap, per-sample dirs) of ``net`` on
+    ``fwd`` = (means, covs, ipe, dirs, k, plain B1, plain B3) and ``train``
+    = (ipe, dirs, k, g, plain out, plain stash, kernel stash, plain B2);
+    ``dirs_fault``: the kernels get the dirs rounded to bf16."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    def rd(d):
+        return d.bfloat16().float() if dirs_fault else d
+
+    means, covs, ipe, dirs, k, p1, p3 = fwd
+    out = {"fused_mlp_fwd_f32":
+           (fk.fused_mlp_forward(net, ipe, rd(dirs), k) - p1).abs().max(),
+           "fused_enc_mlp_fwd_f32":
+           (fk.fused_enc_mlp_forward(net, means, covs, rd(dirs), k)
+            - p3).abs().max()}
+    t_ipe, t_dirs, t_k, g, p_out, p_stash, stash, p_grads = train
+    hid = net.hidden_size
+    b1s, s = fk.fused_mlp_forward(net, t_ipe, rd(t_dirs), t_k, stash=True)
+    out["fused_mlp_fwd_stash_f32"] = max(
+        (a - b).abs().max() for a, b in
+        zip([b1s, *s.trunk[..., :hid], s.h], [p_out, *p_stash.trunk,
+                                              p_stash.h]))
+    grads = fk.fused_mlp_backward(net, t_ipe, rd(t_dirs), g, t_k, stash)
+    out["fused_mlp_bwd_f32"] = max(_rel(grads[n], p_grads[n])
+                                   for n in p_grads)
+    return {name: float(v) for name, v in out.items()}
+
+
+def phase_f32_kernels(torch):
+    """Phase 18: B1, B3, B1s and B2 at float32 (see :data:`F32_OUT_TOL`)
+    at each of :data:`F32_WIDTHS`, both heads, on the main paths' shapes
+    (B1 and B3 on a render chunk, B1s and B2 on a training batch, K = 32
+    and, at 256, 33) and on a ragged 333 x 33; then each width's times
+    beside their bounds and the three faults' readings at 256.  Returns
+    (the largest |kernel - plain| of each kernel, {width: times})."""
+    from ddnerf_tpu_torch.core.math import integrated_pos_enc
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
+
+    dev = torch.device("cuda")
+    worst = dict.fromkeys(F32_NAMES, 0.0)
+    times, main = {}, {}
+    for hidden in F32_WIDTHS:
+        for cls in (DepthMipMLP, MipMLP):
+            gen = torch.Generator().manual_seed(hidden + 18)
+            net = cls(hidden_size=hidden, compute_dtype=torch.float32,
+                      generator=gen).to(dev)
+            fwd_cases = [(CHUNK_RAYS, SAMPLES), (333, 33)]
+            train_cases = [(TRAIN_RAYS, SAMPLES), (333, 33)]
+            if hidden == 256:
+                train_cases.insert(1, (TRAIN_RAYS, 33))
+            for rays, k in fwd_cases:
+                tag = f"{cls.__name__} H={hidden} N={rays * k} K={k}"
+                means, covs = _gaussians(torch, gen, rays * k, dev)
+                ipe = integrated_pos_enc((means, covs), double_angle=False)
+                dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
+                b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+                b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+                p1 = ref.fused_mlp_reference(net, ipe, dirs, k)
+                p3 = ref.fused_enc_mlp_reference(net, means, covs, dirs, k)
+                torch.cuda.synchronize()
+                for name, a, b in (("fused_mlp_fwd_f32", b1, p1),
+                                   ("fused_enc_mlp_fwd_f32", b3, p3)):
+                    err = (a - b).abs().max().item()
+                    ok = bool(torch.isfinite(a).all()) and err <= F32_OUT_TOL
+                    worst[name] = max(worst[name], err)
+                    print(f"[f32] {name} {tag}: max_abs {err:.3e} (tol "
+                          f"{F32_OUT_TOL:g}) {'ok' if ok else 'FAIL'}",
+                          flush=True)
+                    if not ok:
+                        fail(f"{name} disagrees with the plain version "
+                             f"({tag})")
+                if (rays, k) == (CHUNK_RAYS, SAMPLES) and cls is DepthMipMLP:
+                    main[hidden] = {"net": net,
+                                    "fwd": (means, covs, ipe, dirs, k, p1, p3)}
+            for rays, k in train_cases:
+                n = rays * k
+                tag = f"{cls.__name__} H={hidden} N={n} K={k}"
+                ipe = (torch.rand(n, 96, generator=gen) * 2 - 1).to(dev)
+                dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
+                g = torch.randn(n, net.out_dim, generator=gen).to(dev)
+                b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+                b1s, stash = fk.fused_mlp_forward(net, ipe, dirs, k,
+                                                  stash=True)
+                p_out, p_stash = ref.fused_mlp_stash_reference(net, ipe, dirs,
+                                                               k)
+                torch.cuda.synchronize()
+                if not torch.equal(b1, b1s):
+                    fail(f"B1s-f32 is not bit for bit B1-f32 ({tag})")
+                if stash.trunk[..., hidden:].any():
+                    fail(f"the f32 stash's padded columns are not zero "
+                         f"({tag})")
+                err = max((a - b).abs().max().item() for a, b in zip(
+                    [b1s, *stash.trunk[..., :hidden], stash.h],
+                    [p_out, *p_stash.trunk, p_stash.h]))
+                worst["fused_mlp_fwd_stash_f32"] = max(
+                    worst["fused_mlp_fwd_stash_f32"], err)
+                ok = err <= F32_OUT_TOL
+                print(f"[f32] fused_mlp_fwd_stash_f32 {tag}: outputs bit for "
+                      f"bit B1-f32's; outputs + 10 stash slabs vs plain: "
+                      f"max_abs {err:.3e} (tol {F32_OUT_TOL:g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"fused_mlp_fwd_stash_f32 disagrees with the plain "
+                         f"version ({tag})")
+                for per_ray in (False, True):
+                    mode = f"{tag} {'per-ray' if per_ray else 'per-sample'}"
+                    grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash,
+                                                  per_ray)
+                    again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash,
+                                                  per_ray)
+                    torch.cuda.synchronize()
+                    if not all(torch.equal(grads[x], again[x]) for x in grads):
+                        fail(f"fused_mlp_bwd_f32 is not bitwise repeatable "
+                             f"({mode})")
+                    plain = ref.fused_mlp_backward_reference(
+                        net, ipe, dirs, g, k, stash, per_ray)
+                    f64 = ref.fused_mlp_backward_reference(
+                        net, ipe, dirs, g, k, stash, per_ray,
+                        accumulate=torch.float64)
+                    rel = {x: _rel(grads[x], plain[x]) for x in plain}
+                    rel64 = max(_rel(grads[x], f64[x]) for x in plain)
+                    plain64 = max(_rel(plain[x], f64[x]) for x in plain)
+                    worst["fused_mlp_bwd_f32"] = max(
+                        worst["fused_mlp_bwd_f32"],
+                        max((grads[x] - plain[x]).abs().max().item()
+                            for x in plain))
+                    top = max(rel, key=rel.get)
+                    bad = [x for x in rel if not rel[x] <= F32_GRAD_TOL]
+                    print(f"[f32] fused_mlp_bwd_f32 {mode} dirs: "
+                          f"{len(rel)} gradients bitwise repeatable, largest "
+                          f"norm_rel {rel[top]:.3e} (d{top}; tol "
+                          f"{F32_GRAD_TOL:g}); against float64 accumulation "
+                          f"{rel64:.3e} (the plain version's own "
+                          f"{plain64:.3e}) {'ok' if not bad else bad}",
+                          flush=True)
+                    if bad:
+                        fail(f"fused_mlp_bwd_f32 disagrees with the plain "
+                             f"version ({mode}: {bad})")
+                    if (rays, k, per_ray) == (TRAIN_RAYS, SAMPLES, False) \
+                            and cls is DepthMipMLP:
+                        main[hidden]["train"] = (ipe, dirs, k, g, p_out,
+                                                 p_stash, stash, plain)
+        # Times at the main paths' shapes (DepthMipMLP), beside the bounds.
+        m = main[hidden]
+        net = m["net"]
+        means, covs, ipe, dirs, k, _, _ = m["fwd"]
+        t_ipe, t_dirs, t_k, g, _, _, stash, _ = m["train"]
+        t = {
+            "fused_mlp_fwd_f32": (
+                lambda: fk.fused_mlp_forward(net, ipe, dirs, k),
+                lambda: ref.fused_mlp_reference(net, ipe, dirs, k)),
+            "fused_enc_mlp_fwd_f32": (
+                lambda: fk.fused_enc_mlp_forward(net, means, covs, dirs, k),
+                lambda: ref.fused_enc_mlp_reference(net, means, covs, dirs,
+                                                    k)),
+            "fused_mlp_fwd_stash_f32": (
+                lambda: fk.fused_mlp_forward(net, t_ipe, t_dirs, t_k,
+                                             stash=True),
+                lambda: ref.fused_mlp_stash_reference(net, t_ipe, t_dirs,
+                                                      t_k)),
+            "fused_mlp_bwd_f32": (
+                lambda: fk.fused_mlp_backward(net, t_ipe, t_dirs, g, t_k,
+                                              stash),
+                lambda: ref.fused_mlp_backward_reference(
+                    net, t_ipe, t_dirs, g, t_k, stash)),
+        }
+        times[hidden] = {name: (_event_ms(torch, kern), _event_ms(torch, pl))
+                         for name, (kern, pl) in t.items()}
+        bounds = kernel_bounds(hidden, CHUNK_RAYS * SAMPLES, CHUNK_RAYS,
+                               TRAIN_RAYS * SAMPLES, TRAIN_RAYS, f32=True)
+        print(f"[f32] DepthMipMLP H={hidden}: " + "; ".join(
+            f"{name} {kt:.3f} ms, plain {pt:.3f} ms (bound "
+            f"{bounds[name][0]:.3f} ms, {bounds[name][1]})"
+            for name, (kt, pt) in times[hidden].items())
+            + f" (B1, B3 on {CHUNK_RAYS * SAMPLES} rows; B1s, B2 on "
+            f"{TRAIN_RAYS * SAMPLES}; CUDA-event medians of {TIMING_REPS})",
+            flush=True)
+        if hidden != 256:
+            del main[hidden]
+    # The faults, at 256: each reading must fall outside its limit.
+    m = main[256]
+    inside = []
+    for fault in ("one-pass", "bf16-weights", "bf16-dirs"):
+        with _f32_fault(fault, [m["net"]]), torch.no_grad():
+            r = _f32_readings(torch, m["net"], m["fwd"], m["train"],
+                              dirs_fault=fault == "bf16-dirs")
+        limits = {name: F32_GRAD_TOL if name == "fused_mlp_bwd_f32"
+                  else F32_OUT_TOL for name in r}
+        inside += [f"{fault} {name}" for name in r
+                   if not r[name] > limits[name]]
+        print(f"[f32] fault {fault} at H=256: " + "; ".join(
+            f"{name} {r[name]:.3e} (limit {limits[name]:g})" for name in r),
+            flush=True)
+    if inside:
+        fail(f"phase 18's limits do not separate these faults: {inside}")
+    return worst, times
+
+
 def phase_wide_main_path(logroot):
     """The coarse-192 / fine-512 run (:data:`WIDE_TRAIN_OPTS`) through the
     CLIs in the worker: training under the captured step (2 B1s + 2 B2 per
@@ -1002,6 +1296,25 @@ def phase_wide_main_path(logroot):
                                   WIDE_ITERS)
     _frame_vs_plain(load_config_snapshot(logdir), "wide-frames",
                     "coarse-192 / fine-512", logdir=logdir)
+    return _sum_launches(train, evals, video)
+
+
+def phase_f32_main_path(logroot):
+    """The float32 path (:data:`F32_TRAIN_OPTS`) through the CLIs in the
+    worker: training under the captured step (2 B1s-f32 + 2 B2-f32 per
+    iteration, its events read back), eval of one image, one video frame
+    through B1-f32 (``mlp``) and one through B3-f32 (``ipe2``); then that
+    run's eval image and video frame through both against the plain
+    version.  Returns the runs' launch counts, summed."""
+    from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+
+    logdir, train = phase_train_main_path(logroot, "f32-train",
+                                          F32_TRAIN_OPTS, run="f32_smoke",
+                                          iters=F32_ITERS)
+    evals = phase_main_path(logdir, "f32-eval", images=1)
+    video = phase_video_main_path(logdir, "f32-video", 1, VIDEO_HW, F32_ITERS)
+    _frame_vs_plain(load_config_snapshot(logdir), "f32-frames", "float32",
+                    logdir=logdir)
     return _sum_launches(train, evals, video)
 
 
@@ -1167,6 +1480,66 @@ def _check_train_output(out, tag):
     return [int(i) for i, _, _ in train_lines]
 
 
+def _sfx(cfg):
+    """The launch-count suffix of the kernels a config runs: ``_f32`` at
+    ``parallel.compute_dtype: float32``."""
+    return "_f32" if cfg.parallel.compute_dtype == "float32" else ""
+
+
+def _only_dtype(launches, sfx, tag):
+    """Fail if a run launched a kernel of the other compute dtype."""
+    other = {k: v for k, v in launches.items()
+             if v and k.endswith("_f32") != (sfx == "_f32")}
+    if other:
+        fail(f"{tag}: the run launched kernels of the other compute dtype: "
+             f"{other}")
+
+
+def check_events(logdir, tag):
+    """The TensorBoard events a training run wrote into ``logdir``, read
+    back with the port's reader (which checks both CRCs of every record):
+    a ``train/loss`` scalar at each iteration ``metrics.jsonl`` records and,
+    from validation, images and (DDNeRF) the mu / sigma histograms.  A
+    missing or corrupt file fails the run.  Returns the counts."""
+    from ddnerf_tpu_torch.viz.tfevents import read_events
+
+    paths = sorted(glob.glob(os.path.join(logdir, "events.out.tfevents.*")))
+    if not paths:
+        fail(f"{tag}: no TensorBoard events file in {logdir}")
+    values = []
+    for path in paths:
+        try:
+            events = read_events(path)
+        except (ValueError, IndexError, struct.error) as e:
+            fail(f"{tag}: {path} does not read back: {e}")
+        if events[0].get("file_version") != "brain.Event:2":
+            fail(f"{tag}: {path} does not start with a file_version event")
+        values += [(e["step"], v) for e in events for v in e["values"]]
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    want = [r["step"] for r in records if r["kind"] == "train"]
+    loss = {s: v["value"] for s, v in values if v["tag"] == "train/loss"}
+    got = sorted(loss)
+    bad = [r["step"] for r in records if r["kind"] == "train"
+           and r["step"] in loss and abs(loss[r["step"]] - r["loss"]) > 1e-6 *
+           max(1.0, abs(r["loss"]))]
+    if got != want or bad:
+        fail(f"{tag}: train/loss scalars at {len(got)} steps ({bad[:3]} "
+             f"disagree with metrics.jsonl), metrics.jsonl records {len(want)}")
+    images = [v for _, v in values if v["kind"] == "image"]
+    hists = [v for _, v in values if v["kind"] == "histogram"]
+    is_dd = any(r["kind"] == "validation" and "dp_loss" in r for r in records)
+    if not images or (is_dd and not hists):
+        fail(f"{tag}: validation wrote {len(images)} images and "
+             f"{len(hists)} histograms to the events")
+    summary = {"files": len(paths), "train_steps": got,
+               "images": len(images), "histograms": len(hists)}
+    print(f"[{tag}] events: {len(paths)} file(s), train/loss at "
+          f"{len(got)} steps (as metrics.jsonl), {len(images)} images, "
+          f"{len(hists)} histograms", flush=True)
+    return summary
+
+
 def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke",
                           iters=TRAIN_ITERS):
     """The training CLI at full width (``opts``: config overrides) for
@@ -1185,7 +1558,8 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke",
     for name in ("config.yml", "metrics.jsonl", f"checkpoint_{iters}.ckpt"):
         if not os.path.isfile(os.path.join(logdir, name)):
             fail(f"{tag}: training wrote no {name} in {logdir}")
-    is_dd = load_config_snapshot(logdir).is_ddnerf()
+    snapshot = load_config_snapshot(logdir)
+    is_dd, sfx = snapshot.is_ddnerf(), _sfx(snapshot)
     if is_dd != bool(re.search(r"^\[VAL\] .* dp_loss \S+$", out, re.M)):
         fail(f"{tag}: the [VAL] line must carry dp_loss for DDNeRF only")
     with open(os.path.join(logdir, "metrics.jsonl")) as f:
@@ -1197,6 +1571,7 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke",
              f"expected {iters}")
     if is_dd != ("dp_loss" in records[0]):
         fail(f"{tag}: the train records must carry dp_loss for DDNeRF only")
+    check_events(logdir, tag)
     first = statistics.mean(losses[:LOSS_WINDOW])
     last = statistics.mean(losses[-LOSS_WINDOW:])
     # The loop's own pace, from the time stamps of its last two block ends
@@ -1211,11 +1586,12 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke",
           f"{wall:.1f} s, launches {launches}", flush=True)
     if not last < first:
         fail(f"{tag}: training did not lower the mean loss")
-    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
+    for name in ("fused_mlp_fwd_stash" + sfx, "fused_mlp_bwd" + sfx):
         if launches.get(name) != 2 * iters:
             fail(f"{tag}: training launched {name} {launches.get(name)} "
                  f"times, expected {2 * iters} (two network evaluations per "
                  f"step)")
+    _only_dtype(launches, sfx, tag)
     return logdir, launches
 
 
@@ -1240,6 +1616,7 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
     head = 8  # the warm-up iterations and the capture lie in these
     runs, step_ms = {}, {}
     for mode in ("eager", "graph"):
+        torch.cuda.reset_peak_memory_stats()
         pipe = NerfPipeline(cfg, dev, seed=0)
         state = TrainState(cfg, pipe)
         gen = torch.Generator(device=dev).manual_seed(11)
@@ -1255,10 +1632,11 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
         rows.append(stepper.run(steps - head).clone())
         torch.cuda.synchronize()
         step_ms[mode] = (time.perf_counter() - t0) * 1e3 / (steps - head)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         launched = {k: LAUNCHES[k] - before[k] for k in before
                     if LAUNCHES[k] != before[k]}
-        if launched != {"fused_mlp_fwd_stash": 2 * steps,
-                        "fused_mlp_bwd": 2 * steps}:
+        if launched != {"fused_mlp_fwd_stash" + _sfx(cfg): 2 * steps,
+                        "fused_mlp_bwd" + _sfx(cfg): 2 * steps}:
             fail(f"{tag}: {steps} {mode} steps counted {launched}")
         adam = [state.optimizer.state[p][key] for p in pipe.parameters()
                 for key in ("exp_avg", "exp_avg_sq", "step")]
@@ -1279,7 +1657,8 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
           f"tensors: {'bitwise equal' if not differ else differ}; loss "
           f"{loss[0].item():.5f} -> {loss[-1].item():.5f}; eager "
           f"{step_ms['eager']:.2f} ms/step, captured {step_ms['graph']:.2f} "
-          f"ms/step (iterations {head}-{steps - 1})", flush=True)
+          f"ms/step (iterations {head}-{steps - 1}); the captured run's "
+          f"peak device memory {peak_gib:.2f} GiB", flush=True)
     if differ:
         fail(f"{tag}: the captured step differs from the eager step: "
              f"{differ}")
@@ -1372,6 +1751,9 @@ def _decoded_pngs(folder, names):
 
 def phase_main_path(logdir, tag="eval", flags=(), images=2):
     """The eval CLI on the trained logdir; returns its launch counts."""
+    from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+
+    sfx = _sfx(load_config_snapshot(logdir))
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.eval",
            "--logdir", logdir, "--max-images", str(images), *flags]
     _, launches, wall = _cli(cmd, tag)
@@ -1387,8 +1769,9 @@ def phase_main_path(logdir, tag="eval", flags=(), images=2):
         fail(f"{tag}: results.txt metrics not all finite: {metrics}")
     print(f"[{tag}] {len(metrics)} finite PSNR/SSIM values, wall {wall:.1f} s, "
           f"launches {launches}", flush=True)
-    if launches.get("fused_mlp_fwd", 0) <= 0:
-        fail(f"{tag}: the eval render did not launch fused_mlp_fwd")
+    if launches.get("fused_mlp_fwd" + sfx, 0) <= 0:
+        fail(f"{tag}: the eval render did not launch fused_mlp_fwd{sfx}")
+    _only_dtype(launches, sfx, tag)
     return launches
 
 
@@ -1414,10 +1797,11 @@ def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
     h, w = hw
     chunks = -(-h * w // cfg.nerf.validation.chunksize)
     expected = 2 * chunks * frames_wanted  # two networks per chunk
+    sfx = _sfx(cfg)
     runs = {}
     for variant, path, kernel, other in (
-            ("ipe2", sibling, "fused_enc_mlp_fwd", "fused_mlp_fwd"),
-            ("mlp", logdir, "fused_mlp_fwd", "fused_enc_mlp_fwd")):
+            ("ipe2", sibling, "fused_enc_mlp_fwd" + sfx, "fused_mlp_fwd" + sfx),
+            ("mlp", logdir, "fused_mlp_fwd" + sfx, "fused_enc_mlp_fwd" + sfx)):
         cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
                "--logdir", path, "--max-frames", str(frames_wanted),
                "--save_images"]
@@ -1444,6 +1828,7 @@ def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
             fail(f"video ({variant}) launched {kernel} "
                  f"{launches.get(kernel)} and {other} {launches.get(other)} "
                  f"times, expected {expected} and 0")
+        _only_dtype(launches, sfx, f"{tag}-{variant}")
         runs[variant] = (frames, launches)
     diff = np.abs(runs["ipe2"][0].astype(int) - runs["mlp"][0].astype(int))
     print(f"[{tag}] ipe2 vs mlp frames: max {diff.max()} uint8 levels, "
@@ -1552,8 +1937,8 @@ def phase_frame(torch, tag="frame", opts=()):
     pose = _pose()
     chunks = -(-FRAME * FRAME // cfg.nerf.validation.chunksize)
     # name -> (pallas_mlp, render_kernel_variant, the kernel it launches)
-    paths = {"kernel": ("auto", "mlp", "fused_mlp_fwd"),
-             "ipe2": ("auto", "ipe2", "fused_enc_mlp_fwd"),
+    paths = {"kernel": ("auto", "mlp", "fused_mlp_fwd" + _sfx(cfg)),
+             "ipe2": ("auto", "ipe2", "fused_enc_mlp_fwd" + _sfx(cfg)),
              "plain": ("off", "mlp", None)}
     renderers = {}
     for name, (policy, variant, _) in paths.items():
@@ -1702,10 +2087,11 @@ def _frame_vs_plain(cfg, tag, what, logdir=None):
     if logdir is not None:
         views["eval image"] = val_ds.poses[0]
     rgbs = {view: {} for view in views}
+    sfx = _sfx(cfg)
     for name, policy, variant, kernel in (
             ("plain", "off", "mlp", None), ("kernel", "auto", "mlp",
-                                            "fused_mlp_fwd"),
-            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd")):
+                                            "fused_mlp_fwd" + sfx),
+            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd" + sfx)):
         c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
             "parallel.render_kernel_variant", variant)
         pipe = (NerfPipeline(c, "cuda", seed=0) if logdir is None else
@@ -2496,11 +2882,13 @@ def main():
 
     t_start = time.perf_counter()
     phase_device(torch)
+    start_fault_build()
     phase_build()
     max_err, timing = phase_kernel(torch)
     enc_err, enc_timing = phase_enc_kernel(torch)
     train_err, train_timing = phase_train_kernels(torch)
     width_err = phase_widths(torch)
+    f32_err, f32_times = phase_f32_kernels(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logroot:
         logdir, train_launches = phase_train_main_path(logroot)
         host_launches = phase_host_sampling(logroot)
@@ -2518,9 +2906,8 @@ def main():
             chunksize = int(re.search(r"validation:.*?chunksize: (\d+)",
                                       f.read(), re.S).group(1))
         chunks = -(-VIDEO_HW[0] * VIDEO_HW[1] // chunksize)
-        if mip_eval != {"fused_mlp_fwd": 2 * chunks * 2,
-                        "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
-                        "fused_enc_mlp_fwd": 0}:
+        if {k: v for k, v in mip_eval.items() if v} != {
+                "fused_mlp_fwd": 2 * chunks * 2}:
             fail(f"mip-NeRF eval launched {mip_eval}, expected "
                  f"{2 * chunks * 2} of fused_mlp_fwd only")
         mip_video = phase_video_main_path(mip_logdir, "mip-video")
@@ -2531,6 +2918,7 @@ def main():
         phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
         real360_launches = phase_real360_main_path(logroot)
         wide_launches = phase_wide_main_path(logroot)
+        f32_launches = phase_f32_main_path(logroot)
         _close_cli_worker()
         rehearsal_launches = {tag: phase_rehearsal(logroot, tag)
                               for tag in REHEARSALS}
@@ -2545,6 +2933,14 @@ def main():
     wide_graph_ms = phase_graph_vs_eager(torch, "wide-graph", WIDE_OPTS,
                                          WIDE_GRAPH_STEPS)
     wide_step_ms = phase_train_parity(torch, "wide-parity", WIDE_OPTS)
+    f32_graph_ms = phase_graph_vs_eager(torch, "f32-graph", F32_OPTS,
+                                        F32_GRAPH_STEPS)
+    f32_step_ms = phase_train_parity(torch, "f32-parity", F32_OPTS)
+    # The float32 stash and workspace of a coarse-192 / fine-512 pair in the
+    # graph's pool.
+    f32_wide_graph_ms = phase_graph_vs_eager(
+        torch, "f32-wide-graph", (*F32_OPTS, *WIDE_OPTS), WIDE_GRAPH_STEPS)
+    f32_frame_s = phase_frame(torch, "f32-frame", F32_OPTS)
     step_ms = phase_train_parity(torch)
     frame_s = phase_frame(torch)
     mip_step_ms = phase_train_parity(torch, "mip-parity", MIPNERF)
@@ -2571,6 +2967,14 @@ def main():
           f"one process {nccl_ms['single']:.2f} ms/step, two ranks on one "
           f"card under gloo {gloo_ms:.2f} ms/step; whole run "
           f"{time.perf_counter() - t_start:.1f} s")
+    print(f"[f32-frame] 800x800 best of two: kernel (B1-f32) "
+          f"{f32_frame_s['kernel']:.3f} s, ipe2 (B3-f32) "
+          f"{f32_frame_s['ipe2']:.3f} s, plain {f32_frame_s['plain']:.3f} s; "
+          f"float32 train step kernel {f32_step_ms['kernel']:.2f} ms, plain "
+          f"{f32_step_ms['plain']:.2f} ms; captured vs eager "
+          f"{f32_graph_ms['graph']:.2f} vs {f32_graph_ms['eager']:.2f} ms "
+          f"(coarse-192 / fine-512: {f32_wide_graph_ms['graph']:.2f} vs "
+          f"{f32_wide_graph_ms['eager']:.2f} ms)")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN_MODULES)
     if leaked:
@@ -2590,15 +2994,18 @@ def main():
                "parallel": _sum_launches(nccl_launches, gloo_launches,
                                          render_launches),
                "real360": real360_launches, "widths": wide_launches,
-               **rehearsal_launches}
+               "f32": f32_launches, **rehearsal_launches}
     total = _sum_launches(*by_path.values())
     print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
     for path, counts in by_path.items():
         # The NDC path and the rehearsals film through B1 alone (their
         # configs' variant).
+        # The float32 path runs the float32 kernels, every other path the
+        # bf16 ones.
         b1_only = path == "ndc" or path in REHEARSALS
-        expected = [k for k in total if not (b1_only
-                                             and k == "fused_enc_mlp_fwd")]
+        expected = [k for k in total
+                    if k.endswith("_f32") == (path == "f32")
+                    and not (b1_only and k == "fused_enc_mlp_fwd")]
         idle = [k for k in expected if counts.get(k, 0) <= 0]
         if idle:
             fail(f"the {path} main path never launched {idle}")
@@ -2608,6 +3015,8 @@ def main():
     enc = enc_timing["DepthMipMLP"]
     bounds = kernel_bounds(256, CHUNK_RAYS * SAMPLES, CHUNK_RAYS,
                            TRAIN_RAYS * SAMPLES, TRAIN_RAYS)
+    bounds.update(kernel_bounds(256, CHUNK_RAYS * SAMPLES, CHUNK_RAYS,
+                                TRAIN_RAYS * SAMPLES, TRAIN_RAYS, f32=True))
     max_err = max(max_err, width_err["fused_mlp_fwd"])
     enc_err = max(enc_err, width_err["fused_enc_mlp_fwd"])
     for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
@@ -2629,6 +3038,16 @@ def main():
          total["fused_enc_mlp_fwd"], enc_err, enc["enc"],
          enc["plain"]),
     ]
+    # The float32 instantiations of the same TPU kernels (phase 18's times
+    # at width 256, DepthMipMLP).
+    f32_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_f32.cu"
+    for name, replaces in (
+            ("fused_mlp_fwd_f32", "ddnerf_tpu/kernels/fused_mlp.py:464"),
+            ("fused_mlp_fwd_stash_f32", "ddnerf_tpu/kernels/fused_mlp.py:464"),
+            ("fused_mlp_bwd_f32", "ddnerf_tpu/kernels/fused_mlp_bwd.py:299"),
+            ("fused_enc_mlp_fwd_f32", "ddnerf_tpu/kernels/fused_mlp.py:309")):
+        rows.append((name, f32_cu, replaces, total[name], f32_err[name],
+                     *f32_times[256][name]))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": count, "max_abs_err": err, "ms": t, "plain_ms": plain_t,

@@ -83,8 +83,8 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(flags: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -106,9 +106,12 @@ def find_nvcc() -> str:
         "kernels of ddnerf_tpu_torch are compiled at first use")
 
 
-def build() -> BuildInfo:
-    """Compile the library unless a build of these exact sources exists."""
-    out_dir = BUILD_ROOT / _digest()
+def build(flags: tuple = ()) -> BuildInfo:
+    """Compile the library unless a build of these exact sources exists.
+    ``flags``: nvcc flags added to :data:`NVCC_FLAGS` (e.g. a ``-D`` that
+    compiles a fault in, to show that a check catches it); a build of
+    other flags is another library, in a directory of its own."""
+    out_dir = BUILD_ROOT / _digest(flags)
     lib = out_dir / LIB_NAME
     log_path = out_dir / "build.log"
     if lib.exists():
@@ -121,7 +124,7 @@ def build() -> BuildInfo:
     objects = [out_dir / f"{s.stem}.{os.getpid()}.o" for s in units]
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        [nvcc, *NVCC_FLAGS, *flags, "-c", "-o", str(obj), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src, obj in zip(units, objects)]
     log, failed = "", []
@@ -148,9 +151,10 @@ def build() -> BuildInfo:
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library, with C signatures."""
-    lib = ctypes.CDLL(str(build().path))
+def load_library(flags: tuple = ()) -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with C signatures
+    (``flags``: :func:`build`'s)."""
+    lib = ctypes.CDLL(str(build(flags).path))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     offs = [ctypes.POINTER(i64), ctypes.POINTER(i64)]  # w_off, b_off (host)
     lib.ddnerf_fused_mlp_fwd.argtypes = [
@@ -176,6 +180,11 @@ def load_library() -> ctypes.CDLL:
         *offs, ptr,  # w_off, b_off, stream
     ]
     lib.ddnerf_fused_mlp_bwd.restype = i32
+    # The float32 kernels (fused_mlp_f32.cu) take the same arguments.
+    for name in ("fused_mlp_fwd", "fused_enc_mlp_fwd", "fused_mlp_bwd",
+                 "fused_mlp_bwd_workspace"):
+        bf16, f32 = (getattr(lib, f"ddnerf_{name}{sfx}") for sfx in ("", "_f32"))
+        f32.argtypes, f32.restype = bf16.argtypes, bf16.restype
     lib.ddnerf_cuda_error_string.argtypes = [i32]
     lib.ddnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

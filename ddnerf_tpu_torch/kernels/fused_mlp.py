@@ -1,7 +1,10 @@
 """Fused NeRF MLP kernels and their wrappers: the forward
 (``csrc/fused_mlp_fwd.cu``) in render and stash mode and fed raw means and
 covariances (the in-kernel IPE), the backward (``csrc/fused_mlp_bwd.cu``),
-and the ``autograd.Function`` that joins them for training.
+and the ``autograd.Function`` that joins them for training.  Each wrapper
+dispatches on the network's compute dtype: bfloat16 runs those kernels,
+float32 their float32 counterparts (``csrc/fused_mlp_f32.cu``, counted
+under the same names with ``_f32`` appended), which round nothing.
 
 Replaces ``ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward`` (render
 mode, and ``stash=True``), ``fused_enc_mlp_forward`` (render only),
@@ -50,14 +53,19 @@ from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
 # Launch count of each kernel: +1 per launch of the CUDA kernel, never for
 # the plain version, so a run can show that its main path went through it.
 LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
-            "fused_enc_mlp_fwd": 0}
+            "fused_enc_mlp_fwd": 0, "fused_mlp_fwd_f32": 0,
+            "fused_mlp_fwd_stash_f32": 0, "fused_mlp_bwd_f32": 0,
+            "fused_enc_mlp_fwd_f32": 0}
 # Under CUDA-graph capture a wrapper launches nothing: it records its kernel
 # into the graph and counts here.  The graph's owner reads what a capture
 # added and adds that to LAUNCHES at every replay, where the kernels run.
 CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 
-def _count(name: str) -> None:
+def _count(name: str, net) -> None:
+    """One launch of kernel ``name`` at ``net``'s compute dtype."""
+    if net.compute_dtype == torch.float32:
+        name += "_f32"
     counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
     counts[name] += 1
 
@@ -117,7 +125,7 @@ class KernelWeights(NamedTuple):
     """One network's weights in the kernel's packed layout (see the
     layout table at the top of ``csrc/fused_mlp_fwd.cu``)."""
 
-    w: torch.Tensor  # bf16, every matrix in torch [out, in] layout
+    w: torch.Tensor  # compute dtype, every matrix in torch [out, in] layout
     b: torch.Tensor  # f32 biases
     w_off: tuple  # 12 element offsets into w
     b_off: tuple  # 4 element offsets into b
@@ -128,8 +136,9 @@ def pack_weights(net) -> KernelWeights:
     """Pack ``net``'s parameters for the kernels, on ``net``'s device, at
     :func:`kernel_width`: a narrower network's trunk, fc_feat and dir-layer
     matrices and biases get zero rows and columns past its width.  Weights
-    are rounded to bf16 (round-to-nearest-even, as the TPU kernel's
-    ``astype``); biases stay f32.  The backward kernel
+    are cast to the network's compute dtype (bf16: round-to-nearest-even, as
+    the TPU kernel's ``astype``; float32: unchanged); biases stay f32.  The
+    backward kernel
     writes its f32 gradients in the same layout (:func:`unpack_grads`)."""
     hid, dh = net.hidden_size, net.dir_hidden
     width = kernel_width(hid)
@@ -178,7 +187,7 @@ def pack_weights(net) -> KernelWeights:
     w_off, b_off = offsets(mats), offsets(biases)
     # 16-byte alignment of every matrix: each is the base of a TMA tensor map.
     assert all(o % 8 == 0 for o in w_off), w_off
-    w = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16)
+    w = torch.cat([m.reshape(-1) for m in mats]).to(net.compute_dtype)
     b = torch.cat([t.reshape(-1) for t in biases]).float()
     return KernelWeights(w.contiguous(), b.contiguous(), w_off, b_off)
 
@@ -257,11 +266,10 @@ def forget_packed(net) -> None:
 
 
 def _check_net(net, device) -> None:
-    if net.compute_dtype != torch.bfloat16:
+    if net.compute_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(
-            "the fused MLP kernel computes in bf16; this network's compute "
-            f"dtype is {net.compute_dtype} (use parallel.pallas_mlp: off for "
-            "float32 compute)")
+            "the fused MLP kernels compute in bfloat16 or float32; this "
+            f"network's compute dtype is {net.compute_dtype}")
     if (not 1 <= net.hidden_size <= MAX_HIDDEN
             or net.dir_hidden != DIR_HIDDEN
             or net.num_trunk_layers != 8 or net.skip_layer != 5):
@@ -294,11 +302,11 @@ def _check_rows(ipe: torch.Tensor, dirs: torch.Tensor, k: int,
     return n
 
 
-def _bf16_rows(ipe: torch.Tensor) -> torch.Tensor:
-    ipe_b = ipe.to(torch.bfloat16).contiguous()
-    if ipe_b.data_ptr() % 16:
-        ipe_b = ipe_b.clone()  # the kernels copy IPE rows in 16-byte chunks
-    return ipe_b
+def _rows(ipe: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    rows = ipe.to(dtype).contiguous()
+    if rows.data_ptr() % 16:
+        rows = rows.clone()  # the kernels copy IPE rows in 16-byte chunks
+    return rows
 
 
 def _offsets(kw: KernelWeights):
@@ -328,22 +336,24 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     _check_net(net, ipe.device)
     from ddnerf_tpu_torch.kernels import build
 
-    dev, hid = ipe.device, kernel_width(net.hidden_size)
+    dev, hid, cdt = ipe.device, kernel_width(net.hidden_size), net.compute_dtype
     out = torch.empty((n, net.out_dim), dtype=torch.float32, device=dev)
     acts = None
     if stash:
         acts = Stash(
-            torch.empty((NUM_STASH, n, hid), dtype=torch.bfloat16, device=dev),
-            torch.empty((n, DIR_HIDDEN), dtype=torch.bfloat16, device=dev))
+            torch.empty((NUM_STASH, n, hid), dtype=cdt, device=dev),
+            torch.empty((n, DIR_HIDDEN), dtype=cdt, device=dev))
     if n == 0:
         return (out, acts) if stash else out
     lib = build.load_library()
     kw = _packed(net)
-    ipe_b = _bf16_rows(ipe)
-    dirs_b = dirs.to(torch.bfloat16).contiguous()
+    ipe_c = _rows(ipe, cdt)
+    dirs_c = dirs.to(cdt).contiguous()
     dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32, device=dev)
-    err = lib.ddnerf_fused_mlp_fwd(
-        ipe_b.data_ptr(), dirs_b.data_ptr(), kw.w.data_ptr(), kw.b.data_ptr(),
+    entry = (lib.ddnerf_fused_mlp_fwd_f32 if cdt == torch.float32
+             else lib.ddnerf_fused_mlp_fwd)
+    err = entry(
+        ipe_c.data_ptr(), dirs_c.data_ptr(), kw.w.data_ptr(), kw.b.data_ptr(),
         dproj.data_ptr(), out.data_ptr(),
         acts.trunk.data_ptr() if stash else None,
         acts.h.data_ptr() if stash else None,
@@ -352,7 +362,7 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     )
     name = "fused_mlp_fwd_stash" if stash else "fused_mlp_fwd"
     build.check(lib, err, name)
-    _count(name)
+    _count(name, net)
     return (out, acts) if stash else out
 
 
@@ -377,7 +387,7 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
     _check_net(net, means.device)
     from ddnerf_tpu_torch.kernels import build
 
-    dev = means.device
+    dev, cdt = means.device, net.compute_dtype
     out = torch.empty((n, net.out_dim), dtype=torch.float32, device=dev)
     if n == 0:
         return out
@@ -385,16 +395,18 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
     kw = _packed(net)
     means32 = means.float().contiguous()
     covs32 = covs.float().contiguous()
-    dirs_b = dirs.to(torch.bfloat16).contiguous()
+    dirs_c = dirs.to(cdt).contiguous()
     dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32, device=dev)
-    err = lib.ddnerf_fused_enc_mlp_fwd(
-        means32.data_ptr(), covs32.data_ptr(), dirs_b.data_ptr(),
+    entry = (lib.ddnerf_fused_enc_mlp_fwd_f32 if cdt == torch.float32
+             else lib.ddnerf_fused_enc_mlp_fwd)
+    err = entry(
+        means32.data_ptr(), covs32.data_ptr(), dirs_c.data_ptr(),
         kw.w.data_ptr(), kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(),
         n, k, kernel_width(net.hidden_size), int(net.depth_head),
         *_offsets(kw), torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_enc_mlp_fwd")
-    _count("fused_enc_mlp_fwd")
+    _count("fused_enc_mlp_fwd", net)
     return out
 
 
@@ -440,33 +452,40 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     for name, t in (("g", g), ("stash", stash.trunk), ("stash h", stash.h)):
         if t.device != ipe.device:
             raise ValueError(f"{name} on {t.device}, ipe on {ipe.device}")
-    if stash.trunk.dtype != torch.bfloat16 or stash.h.dtype != torch.bfloat16:
-        raise ValueError("the stash must be bf16 (the kernel forward's)")
+    cdt = net.compute_dtype
+    if stash.trunk.dtype != cdt or stash.h.dtype != cdt:
+        raise ValueError(f"the stash must be {cdt} (the kernel forward's at "
+                         "the network's compute dtype)")
     from ddnerf_tpu_torch.kernels import build
 
-    dev = ipe.device
+    dev, f32 = ipe.device, cdt == torch.float32
     lib = build.load_library()
     kw = _packed(net)
     gw = torch.empty(kw.w.numel(), dtype=torch.float32, device=dev)
     gb = torch.empty(kw.b.numel(), dtype=torch.float32, device=dev)
     if n == 0:
         return unpack_grads(net, kw, gw.zero_(), gb.zero_())
-    ipe_b = _bf16_rows(ipe)
-    dirs_p = torch.zeros((n // k, DIRS_LD), dtype=torch.bfloat16, device=dev)
-    dirs_p[:, :DIR_DIM] = dirs
+    ipe_c = _rows(ipe, cdt)
+    if f32:  # [rays, 27] as they are
+        dirs_p = dirs.float().contiguous()
+    else:  # [rays, 32]: 27 features, zero padded for the bf16 kernel's loads
+        dirs_p = torch.zeros((n // k, DIRS_LD), dtype=cdt, device=dev)
+        dirs_p[:, :DIR_DIM] = dirs
     g32 = g.float().contiguous()
     trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
-    ws_bytes = lib.ddnerf_fused_mlp_bwd_workspace(n, k, hid)
+    ws_bytes = (lib.ddnerf_fused_mlp_bwd_workspace_f32 if f32
+                else lib.ddnerf_fused_mlp_bwd_workspace)(n, k, hid)
     ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
-    err = lib.ddnerf_fused_mlp_bwd(
-        ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
+    entry = lib.ddnerf_fused_mlp_bwd_f32 if f32 else lib.ddnerf_fused_mlp_bwd
+    err = entry(
+        ipe_c.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
         trunk.data_ptr(), h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(),
         gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
         int(net.depth_head), int(per_ray_dirs), *_offsets(kw),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, err, "fused_mlp_bwd")
-    _count("fused_mlp_bwd")
+    _count("fused_mlp_bwd", net)
     return unpack_grads(net, kw, gw, gb)
 
 

@@ -45,7 +45,9 @@ Both kernel directions take the view directions once per ray, whatever
 backward rounds the dirs weight gradient's cotangent, as in the JAX
 package, where it is not bit-neutral (fused_mlp_bwd.py:236-248): ``false``
 (the default) rounds each sample's dir-layer cotangent to bf16 before the
-sum over the ray, ``true`` rounds the per-ray sum once.
+sum over the ray, ``true`` rounds the per-ray sum once.  Under
+``parallel.compute_dtype: float32`` the kernels are their float32
+counterparts, which round nothing, and the two settings are the same sum.
 ``parallel.bwd_block_rows`` (a TPU block size) is accepted and ignored.
 
 Any ``coarse_hidden_size`` / ``fine_hidden_size`` up to 512 runs through
@@ -187,15 +189,9 @@ class NerfPipeline:
         self.render_variant = par.render_kernel_variant
         cdt = _DTYPES[par.compute_dtype]
         if self.device.type == "cuda":
-            # The plain float32 matmuls (models/mlp.py) must not use TF32.
+            # The plain float32 matmuls (models/mlp.py) must not use TF32
+            # (the float32 kernels do not read this flag).
             torch.backends.cuda.matmul.allow_tf32 = False
-            if ((self.use_kernel or self.use_train_kernel)
-                    and cdt != torch.bfloat16):
-                raise ValueError(
-                    f"parallel.pallas_mlp={policy!r} runs the bf16 fused MLP "
-                    f"kernel on {self.device}, but parallel.compute_dtype="
-                    f"{par.compute_dtype!r}; set pallas_mlp: off for "
-                    "float32 compute")
         gen = torch.Generator().manual_seed(seed)
         # Static for the life of the pipeline (ddnerf_tpu/models/nerf.py:
         # 164-175): DDNeRF has a coarse net with the depth head and a fine

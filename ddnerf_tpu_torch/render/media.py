@@ -168,6 +168,13 @@ _PNG_CHANNELS = {0: 1, 2: 3, 6: 4}
 def write_png(path: str, image: np.ndarray) -> None:
     """Write uint8 ``[H, W]`` (grey), ``[H, W, 3]`` (RGB) or ``[H, W, 4]``
     (RGBA) as an 8-bit PNG."""
+    data = encode_png(image)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """The bytes of :func:`write_png`'s file."""
     image = np.asarray(image)
     channels = 1 if image.ndim == 2 else image.shape[-1]
     color = {c: t for t, c in _PNG_CHANNELS.items()}.get(channels)
@@ -182,12 +189,10 @@ def write_png(path: str, image: np.ndarray) -> None:
         return (struct.pack(">I", len(body)) + tag + body
                 + struct.pack(">I", zlib.crc32(tag + body)))
 
-    with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE
-                + chunk(b"IHDR",
-                        struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + chunk(b"IEND", b""))
+    return (_PNG_SIGNATURE
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + chunk(b"IEND", b""))
 
 
 def read_png(path: str) -> np.ndarray:
@@ -196,6 +201,12 @@ def read_png(path: str) -> np.ndarray:
     CRC is checked."""
     with open(path, "rb") as f:
         data = f.read()
+    return decode_png(data, path)
+
+
+def decode_png(data: bytes, path: str = "PNG") -> np.ndarray:
+    """The pixels of :func:`encode_png`'s bytes (see :func:`read_png`);
+    ``path`` names the source in errors."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
     pos, idat, header = 8, b"", None

@@ -19,8 +19,8 @@ JAX loop's two forms over the step (``train/step.py``):
   is sampled there with the next batch uploaded while the step runs
   (``data/datasets.py::PrefetchedHostBatches``; always the eager step).
 
-Train scalars go through the ``Documenter`` (``metrics.jsonl``, and
-TensorBoard when tensorboardX is importable); a whole-image validation runs
+Train scalars go through the ``Documenter`` (``metrics.jsonl`` and a
+TensorBoard events file); a whole-image validation runs
 at ``validate_every`` (with the NDC depth un-warp and, under
 ``train_params.depth_analysis_rays``, the per-ray depth-analysis figures),
 the retained checkpoints are written at ``save_every`` and at the end.

@@ -4,8 +4,9 @@
 Rewrite of the reference ``Documenter``
 (``validation_utils/documentation.py``).  Three channels:
 
-* TensorBoard (via tensorboardX when importable) with the reference's exact
-  tag layout so existing dashboards keep working;
+* TensorBoard events (:mod:`ddnerf_tpu_torch.viz.tfevents`, written with
+  the standard library and numpy on every machine) with the reference's
+  exact tag layout so existing dashboards keep working;
 * a machine-readable ``metrics.jsonl`` (one line per write) — the reference
   had no machine-readable metrics; this is the channel tests/benches consume;
 * console progress is left to the train loop (tqdm-style prints,
@@ -21,6 +22,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ddnerf_tpu_torch.viz.tfevents import EventsWriter
 from ddnerf_tpu_torch.viz.visualization import (
     cast_to_disparity_image,
     cast_to_image,
@@ -33,7 +35,8 @@ class Documenter:
                  primary: bool = True):
         """``primary``: where several processes share a logdir only one may
         write it; the caller says which.  Non-primary Documenters are
-        no-ops."""
+        no-ops.  With ``use_tensorboard`` the events file is created here;
+        a logdir where it cannot be created or written raises."""
         self.primary = primary
         self.logdir = logdir
         self._jsonl = None
@@ -43,12 +46,7 @@ class Documenter:
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
         if use_tensorboard:
-            try:
-                from tensorboardX import SummaryWriter
-
-                self.writer = SummaryWriter(logdir)
-            except Exception:
-                self.writer = None
+            self.writer = EventsWriter(logdir)
 
     # ------------------------------------------------------------- scalars
 
@@ -110,7 +108,7 @@ class Documenter:
             if is_ddnerf:
                 # The mu/sigma histograms are masked to pdf > 0.1 upstream;
                 # early in training no section may pass the threshold, and
-                # tensorboardX raises on empty input — skip, don't crash.
+                # a histogram of no values is refused — skip, don't crash.
                 if "mus_hist" in output[0] and output[0]["mus_hist"].size:
                     self.writer.add_histogram(
                         "depth_prediction/mu_hist",

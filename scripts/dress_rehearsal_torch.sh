@@ -21,19 +21,23 @@
 # kernels built in that process) to 616,144 (llff) at the default shape on
 # one NVIDIA H100 80GB HBM3 at 700 W; the floor is a fifth of the lowest.
 #
-# Usage:  scripts/dress_rehearsal_torch.sh [--full] [--llff] [--keep]
+# --f32 runs the models at parallel.compute_dtype float32 (the float32
+# kernels on the card) under the same gates.
+#
+# Usage:  scripts/dress_rehearsal_torch.sh [--full] [--llff] [--keep] [--f32]
 #             [--device cuda|cpu]
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-FULL=0; LLFF=0; KEEP=0; DEVICE=cuda
+FULL=0; LLFF=0; KEEP=0; F32=0; DEVICE=cuda
 while [[ $# -gt 0 ]]; do
   case "$1" in
     --full) FULL=1 ;;
     --llff) LLFF=1 ;;
     --keep) KEEP=1 ;;
+    --f32) F32=1 ;;
     --device) DEVICE=$2; shift ;;
-    *) echo "unknown flag $1 (expected --full/--llff/--keep/--device D)" >&2
+    *) echo "unknown flag $1 (expected --full/--llff/--keep/--f32/--device D)" >&2
        exit 2 ;;
   esac
   shift
@@ -64,10 +68,13 @@ if [[ $DEVICE == cpu ]]; then
               nerf.validation.chunksize 4096)
 fi
 
+[[ $F32 == 1 ]] && MODEL_ARGS+=(parallel.compute_dtype float32)
+
 WORK=${DRESS_WORKDIR:-${TMPDIR:-/tmp}/ddnerf_dress_torch}
 DS="$WORK/dataset_${FORMAT}_$SIZE"
 LOGROOT="$WORK/logs"
 RUN_ID="dress_${FORMAT}_$SIZE"
+[[ $F32 == 1 ]] && RUN_ID="${RUN_ID}_f32"
 LOGDIR="$LOGROOT/$RUN_ID"
 [[ $KEEP == 1 ]] || rm -rf "$LOGDIR"
 

@@ -218,10 +218,12 @@ def test_gradient_layout_round_trips(depth_head, hidden):
     """``unpack_grads`` reads the packed layout that the backward kernel
     writes its f32 gradients in (the packed weight layout, zero-padded to
     the kernel width at 96 and 320) back into parameter shapes: unpacking
-    the packed weights gives the parameters."""
+    the packed weights gives the parameters (at bf16 compute, whose pack
+    rounds the weights; tests/test_torch_port_f32.py holds the float32
+    pack)."""
     gen = torch.Generator().manual_seed(5)
-    net = (DepthMipMLP if depth_head else MipMLP)(hidden_size=hidden,
-                                                  generator=gen)
+    net = (DepthMipMLP if depth_head else MipMLP)(
+        hidden_size=hidden, compute_dtype=torch.bfloat16, generator=gen)
     kw = fk.pack_weights(net)
     back = fk.unpack_grads(net, kw, kw.w.float(), kw.b)
     assert list(back) == [name for name, _ in net.named_parameters()]

@@ -9,7 +9,8 @@ plain versions at every width, below one tile and above 132 tiles, bitwise
 repeatable (also around a call with other weights), in a train step; and
 the train step captured into a CUDA graph against the eager step, bit for
 bit, through the step classes and through the loop with a stop and a
-resume.  Marked ``cuda``;
+resume; the float32 kernels against their plain versions and a float32
+train step through them.  Marked ``cuda``;
 without a GPU every test here skips (the decision is made in a fixture,
 at run time).
 
@@ -70,8 +71,17 @@ def test_kernel_matches_plain_version(device, depth_head, hidden, rays, k):
 
 
 def test_kernel_rejects_float32_compute(device):
+    """A float32 network runs the float32 kernel (counted as such); a
+    network of any other dtype but bfloat16 raises."""
     net = MipMLP(hidden_size=64).to(device)
-    with pytest.raises(ValueError, match="bf16"):
+    before = dict(fk.LAUNCHES)
+    out = fk.fused_mlp_forward(net, torch.zeros(4, 96, device=device),
+                               torch.zeros(1, 27, device=device), 4)
+    assert torch.isfinite(out).all()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "fused_mlp_fwd_f32": 1}
+    net.compute_dtype = torch.float16
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         fk.fused_mlp_forward(net, torch.zeros(4, 96, device=device),
                              torch.zeros(1, 27, device=device), 4)
 
@@ -156,9 +166,11 @@ def test_enc_kernel_checks_its_inputs_and_never_falls_back(device):
         fk.fused_enc_mlp_forward(net, means, covs, dirs[:2], 4)
     with pytest.raises(ValueError, match="whole rays"):
         fk.fused_enc_mlp_forward(net, means[:11], covs[:11], dirs, 4)
-    with pytest.raises(ValueError, match="computes in bf16"):
-        fk.fused_enc_mlp_forward(MipMLP(hidden_size=64).to(device), means,
-                                 covs, dirs, 4)
+    fk._check_net(MipMLP(hidden_size=64).to(device), means.device)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        fk.fused_enc_mlp_forward(
+            MipMLP(hidden_size=64, compute_dtype=torch.float16).to(device),
+            means, covs, dirs, 4)
     with pytest.raises(ValueError, match="up to 512"):
         fk.fused_enc_mlp_forward(
             MipMLP(hidden_size=513, compute_dtype=torch.bfloat16).to(device),
@@ -373,15 +385,18 @@ def test_backward_repeats_bitwise_after_a_call_with_other_weights(device,
 
 def test_backward_rejects_float32_compute_and_never_falls_back(device,
                                                                monkeypatch):
-    """On CUDA tensors the backward launches its kernel or raises: an
-    f32-compute network raises, and neither a kernel nor the plain version
-    runs in its place."""
+    """On CUDA tensors the backward launches its kernel or raises: a
+    float32 network passes the kernels' check (it has kernels of its own),
+    a float16 one raises, and neither a kernel nor the plain version runs
+    in its place."""
     from ddnerf_tpu_torch.kernels import reference as ref
 
     gen = torch.Generator().manual_seed(0)
     net = MipMLP(hidden_size=64, generator=gen).to(device)
     rays, k = 4, 3
     ipe = torch.rand(rays * k, 96, generator=gen).to(device)
+    fk._check_net(net, ipe.device)
+    net.compute_dtype = torch.float16
     dirs = torch.rand(rays, 27, generator=gen).to(device)
     g = torch.randn(rays * k, 4, generator=gen).to(device)
     _, stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
@@ -389,7 +404,7 @@ def test_backward_rejects_float32_compute_and_never_falls_back(device,
     called = []
     monkeypatch.setattr(fk, "fused_mlp_backward_reference",
                         lambda *a, **kw: called.append(a))
-    with pytest.raises(ValueError, match="computes in bf16"):
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
     assert not called and fk.LAUNCHES == before
 
@@ -480,8 +495,8 @@ def test_mipnerf_step_sums_two_kernel_backwards_on_the_shared_net(
         return pipe, state, metrics, launched
 
     pipe, state, metrics, launched = step(False)
-    assert launched == {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 2,
-                        "fused_mlp_bwd": 2, "fused_enc_mlp_fwd": 0}
+    assert launched == {**dict.fromkeys(fk.LAUNCHES, 0),
+                        "fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2}
     assert packs == [pipe.coarse]  # one pack served both cycles and B2
     train_step(cfg, pipe, state, batch)
     assert packs == [pipe.coarse] * 2  # Adam changed the weights: repacked
@@ -615,8 +630,9 @@ def test_captured_step_equals_eager_step_bitwise(device, nerf_type):
         runs[mode] = (pipe, state, gen)
         names = stepper.names
     assert launched["graph"] == launched["eager"] == {
-        "fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
-        "fused_mlp_bwd": 2 * GRAPH_STEPS, "fused_enc_mlp_fwd": 0}
+        **dict.fromkeys(fk.LAUNCHES, 0),
+        "fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
+        "fused_mlp_bwd": 2 * GRAPH_STEPS}
     assert ("dp_loss" in names) == (nerf_type == "DDNerfModel")
     assert torch.isfinite(rows["eager"]).all()
     for j, name in enumerate(names):
@@ -732,3 +748,100 @@ def test_captured_step_refuses_what_it_cannot_capture(device, tmp_path):
     with pytest.raises(ValueError, match="step_mode='graph'"):
         train(_graph_cfg("DDNerfModel", tmp_path), max_iters=2, device="cpu",
               step_mode="graph")
+
+
+# The float32 kernels (csrc/fused_mlp_f32.cu): f32 on both sides, summation
+# order only: chip_smoke.py phase 18's limits (B1, B3, B1s max |kernel -
+# plain|; B2 per gradient, norm-relative).
+F32_OUT_TOL, F32_GRAD_TOL = 1e-5, 1e-5
+
+
+@pytest.mark.parametrize("hidden,rays,k", [(256, 129, 33), (64, 50, 5),
+                                           (96, 77, 3), (512, 40, 32),
+                                           (192, 3, 1)])
+@pytest.mark.parametrize("depth_head", [False, True])
+def test_f32_kernels_match_plain_versions(device, depth_head, hidden, rays,
+                                          k):
+    """B1, B3 and B1s against their plain versions at float32 (B1s bit for
+    bit B1), B2 in both dirs settings against its plain version and
+    bitwise repeatable; each counted under its ``_f32`` name only."""
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    gen = torch.Generator().manual_seed(hidden + rays)
+    net = (DepthMipMLP if depth_head else MipMLP)(
+        hidden_size=hidden, generator=gen).to(device)
+    n = rays * k
+    means = (torch.rand(n, 3, generator=gen) * 6 - 3).to(device)
+    covs = (10.0 ** (torch.rand(n, 3, generator=gen) * 6 - 7)).to(device)
+    ipe = integrated_pos_enc((means, covs), double_angle=False)
+    dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+    g = torch.randn(n, net.out_dim, generator=gen).to(device)
+    before = dict(fk.LAUNCHES)
+    b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+    b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+    b1s, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+    grads = {per_ray: fk.fused_mlp_backward(net, ipe, dirs, g, k, stash,
+                                            per_ray)
+             for per_ray in (False, True)}
+    again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
+    torch.cuda.synchronize()
+    assert {k_: fk.LAUNCHES[k_] - before[k_] for k_ in before} == {
+        **dict.fromkeys(before, 0), "fused_mlp_fwd_f32": 1,
+        "fused_enc_mlp_fwd_f32": 1, "fused_mlp_fwd_stash_f32": 1,
+        "fused_mlp_bwd_f32": 3}
+    assert stash.trunk.dtype == stash.h.dtype == torch.float32
+    assert torch.equal(b1, b1s)
+    assert (b1 - fused_mlp_reference(net, ipe, dirs, k)).abs().max() \
+        <= F32_OUT_TOL
+    assert (b3 - fused_enc_mlp_reference(net, means, covs, dirs, k)) \
+        .abs().max() <= F32_OUT_TOL
+    _, p_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+    assert (stash.trunk[..., :hidden] - p_stash.trunk).abs().max() \
+        <= F32_OUT_TOL
+    assert not stash.trunk[..., hidden:].any()
+    assert (stash.h - p_stash.h).abs().max() <= F32_OUT_TOL
+    for per_ray, got in grads.items():
+        plain = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash,
+                                                 per_ray)
+        for name in plain:
+            rel = ((got[name] - plain[name]).norm()
+                   / plain[name].norm()).item()
+            assert rel <= F32_GRAD_TOL, (per_ray, name, rel)
+    assert all(torch.equal(again[name], grads[False][name])
+               for name in again)
+
+
+def test_f32_pipeline_trains_through_the_f32_kernels(device):
+    """``parallel.compute_dtype: float32`` under ``pallas_mlp: auto`` on
+    the card: the pipeline builds (no refusal), and a DDNeRF train step
+    launches the f32 stash forward and backward once per network and no
+    bf16 kernel; its gradients are finite."""
+    from ddnerf_tpu_torch.config import Config
+    from ddnerf_tpu_torch.models.nerf import NerfPipeline
+    from ddnerf_tpu_torch.train.state import TrainState
+    from ddnerf_tpu_torch.train.step import train_step
+
+    cfg = Config.from_dict({
+        "nerf": {"type": "DDNerfModel", "coarse_hidden_size": 64,
+                 "fine_hidden_size": 128,
+                 "train": {"num_coarse": 16, "num_fine": 16,
+                           "num_random_rays": 128}},
+        "parallel": {"compute_dtype": "float32", "pallas_mlp": "auto"},
+    }).resolved()
+    pipe = NerfPipeline(cfg, device, seed=0)
+    state = TrainState(cfg, pipe)
+    rng = torch.Generator().manual_seed(2)
+    rd = torch.randn(128, 3, generator=rng)
+    batch = {"origins": (torch.randn(128, 3, generator=rng) * 0.3).to(device),
+             "directions": (rd / rd.norm(dim=-1, keepdim=True)).to(device),
+             "radii": torch.full((128, 1), 1e-3, device=device),
+             "rgb": torch.rand(128, 3, generator=rng).to(device)}
+    before = dict(fk.LAUNCHES)
+    metrics = train_step(cfg, pipe, state, batch,
+                         torch.Generator(device=device).manual_seed(3))
+    torch.cuda.synchronize()
+    assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "fused_mlp_fwd_stash_f32": 2,
+        "fused_mlp_bwd_f32": 2}
+    assert torch.isfinite(metrics["loss"])
+    assert all(torch.isfinite(p.grad).all() for p in pipe.parameters())

@@ -173,5 +173,8 @@ def test_wrapper_checks_its_inputs_and_never_falls_back():
     # Off the CPU the wrapper launches its kernel or raises.
     with pytest.raises(ValueError, match="no fused MLP kernel"):
         fk.fused_mlp_forward(net, ipe.to("meta"), dirs.to("meta"), 4)
-    with pytest.raises(ValueError, match="computes in bf16"):
+    # The kernels take float32 and bfloat16 networks, nothing else.
+    fk._check_net(net, torch.device("cpu"))
+    net.compute_dtype = torch.float16
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
         fk._check_net(net, torch.device("cpu"))

@@ -207,7 +207,9 @@ def test_cli_writes_video_frames_and_launch_counts(logdir, capsys):
     line = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
     launches = json.loads(line[-1][len("kernel launches: "):])
     assert launches == {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0,
-                        "fused_mlp_bwd": 0, "fused_enc_mlp_fwd": 0}
+                        "fused_mlp_bwd": 0, "fused_enc_mlp_fwd": 0,
+                        "fused_mlp_fwd_f32": 0, "fused_mlp_fwd_stash_f32": 0,
+                        "fused_mlp_bwd_f32": 0, "fused_enc_mlp_fwd_f32": 0}
     savedir = os.path.join(logdir, "video")
     frames, fps = read_avi(os.path.join(savedir, "video.avi"))
     assert frames.shape == (3, 64, 128, 3) and fps == 24
