@@ -308,12 +308,14 @@ def phase_build():
         print(f"[build]   {r.name}: {r.registers} registers, "
               f"{r.spill_bytes} spill bytes"
               + "".join(f"; {a}" for a in r.advisories))
-        # Widths from 128 up (a kernel's first template argument) and the
-        # small kernels must neither spill nor draw an advisory: a wgmma
-        # kernel that does runs its products one at a time.  Width 64 of
-        # the forward is known to draw C7520.
+        # Widths from 128 up (a kernel's first template argument), the
+        # small kernels and every float32 kernel (float_*, tf32_*) must
+        # neither spill nor draw an advisory: a wgmma kernel that does runs
+        # its products one at a time.  Width 64 of the bf16 forward is known
+        # to draw C7520.
         width = re.search(r"<(\d+)", r.name)
-        if (not width or int(width.group(1)) >= 128) and (
+        f32 = r.name.startswith(("float_", "tf32_"))
+        if (f32 or not width or int(width.group(1)) >= 128) and (
                 r.spill_bytes or r.advisories):
             bad.append(r.name)
     if bad:
@@ -752,7 +754,9 @@ def _b2_slabs(torch, ws, n, hid):
 def _packed_mats(kw, t, hid):
     """The 12 matrices of the packed layout (``pack_weights``) in ``t`` (the
     weights or the weight gradients), as float64 ``[rows, cols]``."""
-    rows = (hid,) * 9 + (144, 16, 128)
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    rows = fk.packed_rows(hid)
     ends = (*kw.w_off[1:], t.numel())
     return [t[o:e].double().view(r, -1)
             for o, e, r in zip(kw.w_off, ends, rows)]
@@ -1008,13 +1012,16 @@ def phase_widths(torch):
 # in both dirs settings.  Each limit must sit between the sound readings
 # and three faults injected at width 256: the kernels built single-pass
 # TF32 (F32_ONE_PASS), the weight pack rounded to bf16, the dirs rounded to
-# bf16 (phase 18 fails if a fault reads inside a limit).  Readings
-# (scripts/f32_kernels.py; NVIDIA H100 80GB HBM3, 700 W): B1 and B3 <=
-# 1.8e-7, B1s <= 1.2e-6, B2 <= 7.8e-6 (fc_alpha.bias, a sum of 67,584
-# random cotangents that nearly cancel; the plain version sits 1.5e-6 from
-# float64 there), every other leaf <= 4.5e-6; single-pass TF32 reads 8.5e-5
-# on B1's outputs, inside the JAX package's f32 kernel tolerance of 1e-4
-# (tests/test_fused_mlp.py), so the forward limit here is 1e-5.
+# bf16 (phase 18 fails if a fault reads inside a limit); first the TF32
+# split of the weight pack, bit for bit its plain version.  Readings
+# (scripts/f32_kernels.py; NVIDIA H100 80GB HBM3, 700 W; the wgmma
+# kernels): B1 and B3 <= 6.6e-7, B1s <= 6.3e-6, B2 <= 7.8e-6 (fc_alpha.bias,
+# a sum of 67,584 random cotangents that nearly cancel; the plain version
+# sits 1.5e-6 from float64 there), every other leaf <= 4.5e-6; single-pass
+# TF32 reads 1.0e-4 on B1's outputs (8.5e-5 with the mma.sync kernels that
+# came before), about
+# the JAX package's f32 kernel tolerance of 1e-4 (tests/test_fused_mlp.py),
+# so the forward limit here is 1e-5.
 F32_OUT_TOL = 1e-5
 F32_GRAD_TOL = 1e-5
 F32_ONE_PASS = ("-DDDNERF_F32_ONE_PASS",)
@@ -1063,9 +1070,10 @@ def _f32_fault(fault, nets=()):
         lib = build.load_library(F32_ONE_PASS)
         build.load_library = lambda flags=(): lib
     elif fault == "bf16-weights":
-        def rounded(net):
+        def rounded(net):  # the pack rounded, then split into its planes
             kw = saved[1](net)
-            return kw._replace(w=kw.w.bfloat16().float())
+            return fk.with_tf32_planes(
+                kw._replace(w=kw.w.bfloat16().float(), planes=None))
         fk.pack_weights = rounded
     for net in nets:
         fk.forget_packed(net)
@@ -1107,9 +1115,61 @@ def _f32_readings(torch, net, fwd, train, dirs_fault=False):
     return {name: float(v) for name, v in out.items()}
 
 
+def _f32_split_check(torch):
+    """The TF32 split of the float32 weight pack (``csrc/fused_mlp_f32.cu::
+    tf32_split_kernel``, :func:`~ddnerf_tpu_torch.kernels.fused_mlp.
+    with_tf32_planes`) against its plain version (``kernels/reference.py::
+    tf32_split_pack_reference``), bit for bit: the pack of a network at
+    each of :data:`F32_WIDTHS` and, at 256, a pack-sized buffer of special
+    values (ties of the rounding, subnormals, values that round past the
+    largest TF32 to infinity, random bit patterns of both signs).  Prints
+    the split's time at 256."""
+    import numpy as np
+
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP
+
+    for hidden in F32_WIDTHS:
+        net = DepthMipMLP(hidden_size=hidden, compute_dtype=torch.float32,
+                          generator=torch.Generator().manual_seed(hidden))
+        kw = fk.pack_weights(net.to("cuda"))
+        cases = [("pack", kw)]
+        if hidden == 256:
+            rng = np.random.default_rng(12)
+            size = kw.w.numel()
+            bits = rng.integers(0, 0x7F800000, size, dtype=np.int64)
+            x = bits.astype(np.uint32).view(np.float32).copy()
+            units = np.ldexp(1.0, rng.integers(-126, 118, 4096) - 10)
+            x[:4096] = (rng.integers(1024, 2048, 4096) + 0.5) * units  # ties
+            x[4096:8192] = rng.integers(1, 1 << 23, 4096).astype(
+                np.uint32).view(np.float32)  # subnormals
+            x[8192:8256] = np.float32(np.finfo(np.float32).max)
+            x *= np.where(rng.random(size) < 0.5, -1, 1).astype(np.float32)
+            cases.append(("special values", kw._replace(
+                w=torch.from_numpy(x).to("cuda"), planes=None)))
+        for what, k in cases:
+            got = fk.with_tf32_planes(k._replace(planes=None)).planes
+            want = fk.with_tf32_planes(fk.KernelWeights(
+                k.w.cpu(), k.b.cpu(), k.w_off, k.b_off)).planes
+            equal = torch.equal(got.cpu(), want)
+            print(f"[f32] tf32_split H={hidden} {what}: {k.w.numel()} "
+                  f"weights into {len(fk.TF32_PLANES) - 1} planes, bit for "
+                  f"bit the plain split: {equal}", flush=True)
+            if not equal:
+                fail(f"the TF32 split kernel differs from its plain version "
+                     f"(H={hidden}, {what})")
+        if hidden == 256:
+            ms = _event_ms(torch, lambda: fk.with_tf32_planes(kw._replace(
+                planes=None)))
+            print(f"[f32] tf32_split H=256: {ms:.4f} ms per pack "
+                  f"(CUDA-event median of {TIMING_REPS})", flush=True)
+
+
 def phase_f32_kernels(torch):
-    """Phase 18: B1, B3, B1s and B2 at float32 (see :data:`F32_OUT_TOL`)
-    at each of :data:`F32_WIDTHS`, both heads, on the main paths' shapes
+    """Phase 18: the TF32 split of the weight pack bit for bit its plain
+    version (:func:`_f32_split_check`); B1, B3, B1s and B2 at float32 (see
+    :data:`F32_OUT_TOL`) at each of :data:`F32_WIDTHS`, both heads, on the
+    main paths' shapes
     (B1 and B3 on a render chunk, B1s and B2 on a training batch, K = 32
     and, at 256, 33) and on a ragged 333 x 33; then each width's times
     beside their bounds and the three faults' readings at 256.  Returns
@@ -1120,6 +1180,7 @@ def phase_f32_kernels(torch):
     from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
 
     dev = torch.device("cuda")
+    _f32_split_check(torch)
     worst = dict.fromkeys(F32_NAMES, 0.0)
     times, main = {}, {}
     for hidden in F32_WIDTHS:

@@ -185,6 +185,9 @@ def load_library(flags: tuple = ()) -> ctypes.CDLL:
                  "fused_mlp_bwd_workspace"):
         bf16, f32 = (getattr(lib, f"ddnerf_{name}{sfx}") for sfx in ("", "_f32"))
         f32.argtypes, f32.restype = bf16.argtypes, bf16.restype
+    # w (the float32 pack's planes), hidden, w_off, stream
+    lib.ddnerf_tf32_split.argtypes = [ptr, i32, offs[0], ptr]
+    lib.ddnerf_tf32_split.restype = i32
     lib.ddnerf_cuda_error_string.argtypes = [i32]
     lib.ddnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -8,8 +8,8 @@
 //   ddnerf_tpu/kernels/fused_mlp.py::fused_enc_mlp_forward
 //     -> float_fwd_kernel<H, true>
 //   ddnerf_tpu/kernels/fused_mlp_bwd.py::fused_mlp_backward (and the custom
-//     VJP fused_mlp_train_apply) -> float_chain_kernel<H>, float_wgrad_kernel and
-//     the fixed-order reductions below.
+//     VJP fused_mlp_train_apply) -> float_chain_kernel<H>, float_wgrad_kernel
+//     and the fixed-order reductions below.
 // What it computes is the bf16 kernels' network (see the tops of
 // fused_mlp_fwd.cu and fused_mlp_bwd.cu) with every operand, activation,
 // stash slab and cotangent in float32: matmul operands are f32, products
@@ -20,72 +20,96 @@
 // weight gradient takes g_dproj[ray] = the f32 sum of g_h over the ray's
 // rows in row order, then dirs^T g_dproj, for both.
 //
-// The rate the products run at: 3xTF32 on the tensor cores with
-// mma.sync.m16n8k8 (warp-level, fragments loaded from shared memory).
-// Every f32 operand x is split as big = tf32(x) (cvt.rna) and small =
-// tf32(x - big) (x - big is exact in f32), and a product is
-// small*big + big*small + big*big accumulated in f32 (the small*small term
-// is below f32's rounding): about f32 accuracy at a third of the TF32 rate,
-// 495 / 3 = 165 TFLOP/s dense on an H100 SXM.  A row costs 8 H^2 + 321 H +
-// 640 multiply-adds (~0.61 M at width 256): the forward is bound by the
-// operations (3.9 ms per 524,288 rows at 256 at that rate) and by the
-// instructions around them (two cvt and a subtraction per operand element
-// that a warp loads, measured 4.2x the bound; PERF.md); stash mode adds
+// The products are 3xTF32 on the tensor cores: every f32 operand x is split
+// as big = tf32(x) (cvt.rna, ties away from zero) and small = tf32(x - big)
+// (x - big is exact in f32), and a product is small*big + big*small +
+// big*big accumulated in f32 (the small*small term is below f32's
+// rounding): about f32 accuracy at a third of the TF32 rate, 495 / 3 = 165
+// TFLOP/s dense on an H100 SXM.  Compiled with -DDDNERF_F32_ONE_PASS the
+// kernels take the big*big term alone (single-pass TF32): the fault
+// chip_smoke.py reads to show that its limits separate the two.
+//
+// What bounds each kernel on this card.  A row costs 8 H^2 + 321 H + 640
+// multiply-adds (~0.61 M at width 256): at 165 TFLOP/s the forward is
+// bound by the operations (3.9 ms per 524,288 rows at 256); stash mode adds
 // 4 (9 H + 128) bytes of writes per row.  The backward is twice the
-// operations plus the f32 cotangent slabs that the chain writes and the
-// weight gradients read (4 (9 H + 160) bytes per row each way) and the
-// stash, read by both.
+// operations plus the cotangent slabs the chain writes and the weight
+// gradients read.  Every tile reads all of a network's weights from L2 as
+// two TF32 planes: 8 bytes per multiply-add of a row over the tile's rows,
+// 38 KB per row in 128-row tiles at 256 (20 GB per B1 call of 524,288
+// rows), 283 KB per row in 64-row tiles at 512.
 //
-// Where trouble lies, and what the design does about it:
-// * wgmma takes TF32 operands K-major only (operand transposition exists for
-//   16-bit types; hopper_common.cuh's MN-major descriptor is bf16 only).
-//   The backward's chain reads the packed [out, in] weights as a [K, N]
-//   operand and the weight gradients read both operands along the row axis,
-//   so neither carries over from the bf16 kernels.  Here every product is
-//   mma.sync, whose fragments are loaded element by element from shared
-//   memory in whatever layout the tile has (row strides chosen so that the
-//   loads of a fragment hit 32 distinct banks).
-// * A single TF32 product keeps about three decimal digits, and over eight
-//   layers that misses the 1e-4 of the JAX package's own f32 kernel tests:
-//   hence 3xTF32.  Compiled with -DDDNERF_F32_ONE_PASS the kernels take the
-//   big*big term alone (single-pass TF32): the fault chip_smoke.py reads to
-//   show that its limits separate the two.
-// * The tensor cores add a product into the accumulator with truncation,
-//   and the bias that leaves grows with the count of products accumulated:
-//   a weight gradient summed over ~10^4 rows in the accumulator read 7.6e-5
-//   off the plain version.  Every 16-deep slice goes into a zeroed partial
-//   sum that a rounded f32 addition adds to the accumulator (see
-//   slice_products).
-// * Shared memory doubles at f32.  A block's tile is 64 rows up to width
-//   256 and 32 above, and each layer's output is written over its input
-//   once every warp has finished the layer's products (the sums live in
-//   registers until then): one [rows, H] activation tile.  Weights come
-//   through two stages of 16 k-columns copied by cp.async, one slice ahead.
-//   A static_assert holds every plan within a block's shared memory.
-// * Nothing is rounded to bf16 anywhere: no cast in this file, and the
-//   wrappers (kernels/fused_mlp.py) pass f32 weights, IPE and dirs.
-//
-// Layout of a block: 256 threads, 8 warps.  In the forward and the chain,
-// each warp owns 32 rows (two m16 tiles) and every WN-th n8 tile of each
-// product (Tiling below): 64 accumulators a thread at widths 256 and 512.
-// One block per tile.  The weight gradients are [out, in] = act^T g over
-// the rows: 128 x 128 output tiles, 4 x 2 warps of 32 x 64, the rows split
-// so that about two blocks per SM are busy; the splits' partials are summed
-// in a fixed order, so every result is bitwise repeatable.
+// The design, against what held the first (mma.sync) design back:
+// * The split happens once per pack, not once per warp: tf32_split_kernel
+//   turns the packed f32 weights into four planes beside them (big, small,
+//   and both with each matrix transposed to [in, out]) when the pack is
+//   made (kernels/fused_mlp.py::with_tf32_planes; inside a captured graph,
+//   at every step).  Two planes stream twice the bytes of one f32 plane;
+//   splitting a streamed slice in shared memory per CTA would cost a
+//   warpgroup's instructions and a shared-memory pass per slice instead.
+// * Every product is wgmma.mma_async m64nNk8 .tf32 (wgmma_tf32.cuh), three
+//   per k8 step (small*big, big*small, big*big).  TF32 takes K-major
+//   operands only: B (the weights) is a K-major shared tile by descriptor,
+//   the [out, in] planes for the forward and the transposed [in, out] ones
+//   for the chain.  A (the activations, the cotangents) comes from
+//   registers, loaded from an f32 tile and split once per k8 step per
+//   warpgroup for the whole N of the product.
+// * Weights stream as [n_out, 8] slices of both planes, one TMA box each
+//   (two above 256 rows), 32-byte rows under TMA's 32-byte swizzle, through
+//   a ring of up to 16 stages with a full and an empty mbarrier each, kept
+//   in flight by one producer thread across layer and tile boundaries.
+// * Persistent CTAs (one per SM) of three warpgroups: the producer and two
+//   consumers of 64 rows.  Up to width 256: 128-row tiles, consumer w owns
+//   rows 64 w .. 64 w + 63, and a warp multiplies and rewrites only its own
+//   16 rows, so no barrier is needed between products.  At 384 and 512 (the
+//   N-split plan of the bf16 kernels) a tile is 64 rows and consumer w
+//   computes half of every product's columns, meeting the other consumer
+//   before and after a write-back.
+// * Activation and cotangent tiles are f32 [rows, 32]-column blocks of
+//   128-byte rows under TMA's 128-byte swizzle (the IPE tile comes by TMA in
+//   that layout, the stash leaves by TMA stores from it); a warp's
+//   A-fragment loads hit 32 distinct banks.
+// * The tensor cores add with truncation.  A forward layer accumulates
+//   straight into the wgmma accumulator from the bias (readings <= 6.3e-6
+//   of the 1e-5 limit).  The chain's cotangents pass through ten products,
+//   and one accumulator per product read above the limit: the chain takes
+//   zeroed partials of CHUNK k8 steps (wgmma's scale-d = 0) added in f32, so
+//   a consumer holds two accumulators and takes its columns in passes of 128
+//   at widths 128 and 256 (64 at the others), in the registers that
+//   setmaxnreg moves from the producer warpgroup.  A pass before the last keeps its results in
+//   an L2-resident scratch until the write-back.  The weight gradients sum
+//   ~10^4 rows in 32-row partials the same way.
+// * The chain writes its cotangent slabs transposed ([columns, rows]) and
+//   already split: the weight gradients dW^T [in, out] = act^T g take B = g
+//   K-major along the rows by TMA, and A = act^T from the stash through TMA
+//   tiles of [32 rows, 128 in] into registers; the result goes back to the
+//   [out, in] layout of the packed gradients.
+// * The bias gradients stay f32 sums on the CUDA cores in a fixed order: a
+//   partial row per 64 rows (the heads' and alpha's columns summed row
+//   after row, bitwise as before), then float_bias_reduce_kernel.  The
+//   splits of the weight gradients are summed in a fixed order: B2 is
+//   bitwise repeatable.
 
 #include "hopper_common.cuh"
+#include "wgmma_tf32.cuh"
+
+#include <type_traits>
 
 namespace {
 
 using namespace ddnerf;
 
-constexpr int THREADS = 256;
-constexpr int KS = 16;    // k depth of a weight slice (two k8 steps)
+constexpr int WG_ROWS = 64;        // rows of one wgmma (m64)
+constexpr int NTHREADS = 384;      // producer warpgroup + 2 consumer warpgroups
+constexpr int NENCODERS = 96;      // ENC mode: warps 1..3 of the producer warpgroup
+constexpr int KS = 8;              // k depth of a streamed weight slice
+constexpr int SLICE_ROW = KS * 4;  // its row: 32 bytes
+constexpr int MAX_STAGES = 16;
 constexpr int L_FEAT = W_FEAT, L_DIR = W_DIR, L_HEAD = W_HEAD, NLAYER = 11;
-constexpr int IPE_LD = IPE + 4;  // row strides: a stride / 4 that is odd
-constexpr int GS_W = 16, GS_LD = GS_W + 4;  // keeps A-fragment loads apart
+constexpr int MAX_BOX_ROWS = 256;  // TMA's largest box dimension
+constexpr int BAR_BYTES = 512;
 
-// ------------------------------------------------------------ 3xTF32 mma
+// ------------------------------------------------------------------ 3xTF32
 
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
@@ -101,18 +125,7 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big,
   small = to_tf32(x - __uint_as_float(big));
 }
 
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragments of m16n8k8, split: A (row-major) a0 (g, t), a1 (g + 8, t), a2
-// (g, t + 4), a3 (g + 8, t + 4); B (col-major) b0 (k = t, n = g), b1 (t + 4,
-// g); D d0, d1 (g, 2t, 2t + 1), d2, d3 (g + 8, ...); g = lane / 4, t = lane
-// % 4.
+// A fragment of an m64 k8 product (wgmma_tf32.cuh's layout), split.
 struct AFrag {
   uint32_t big[4], small[4];
   __device__ __forceinline__ void set(float a0, float a1, float a2, float a3) {
@@ -123,25 +136,59 @@ struct AFrag {
   }
 };
 
-struct BFrag {
-  uint32_t big[2], small[2];
-  __device__ __forceinline__ void set(float b0, float b1) {
-    split_tf32(b0, big[0], small[0]);
-    split_tf32(b1, big[1], small[1]);
-  }
-};
-
-// d += a b in 3xTF32 (or the big*big term alone under DDNERF_F32_ONE_PASS).
-__device__ __forceinline__ void mma3(float (&d)[4], const AFrag& a,
-                                     const BFrag& b) {
+// d (+)= a b in 3xTF32 (the big*big term alone under DDNERF_F32_ONE_PASS);
+// `acc` 0: the first product overwrites d.
+template <int N>
+__device__ __forceinline__ void mma3(float (&d)[N / 2], const AFrag& a,
+                                     uint64_t b_big, uint64_t b_small,
+                                     int acc = 1) {
 #ifndef DDNERF_F32_ONE_PASS
-  mma_tf32(d, a.small, b.big);
-  mma_tf32(d, a.big, b.small);
+  wgmma_tf32<N>(d, a.small, b_big, acc);
+  wgmma_tf32<N>(d, a.big, b_small, 1);
+  wgmma_tf32<N>(d, a.big, b_big, 1);
+#else
+  wgmma_tf32<N>(d, a.big, b_big, acc);
 #endif
-  mma_tf32(d, a.big, b.big);
 }
 
-// Sum over the 8 row groups g = lane / 4 of a warp (the other lanes' bits).
+// Byte offset of element (r, c) of an f32 tile of `rows` rows stored as
+// [rows, 32]-column blocks of 128-byte rows with the 128-byte swizzle (16-byte
+// chunk j of row r at chunk j ^ (r % 8)): TMA's CU_TENSOR_MAP_SWIZZLE_128B
+// layout of a box 32 f32 wide.
+__device__ __forceinline__ uint32_t tile_off(int rows, int r, int c) {
+  return (uint32_t)((c >> 5) * rows * 128 + r * 128 +
+                    ((((c & 31) >> 2) ^ (r & 7)) << 4) + ((c & 3) << 2));
+}
+
+// Shared-memory accesses by 32-bit address (one register, not a generic
+// pointer's two).
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" :: "r"(addr), "f"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts2(uint32_t addr, float2 v) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(addr), "f"(v.x), "f"(v.y) : "memory");
+}
+
+// The warp's A fragment of k8 step k0 .. k0 + 7 of a row-major tile at
+// shared address `tile`: its rows r, r + 8 (r = its first row + g),
+// columns k0 + t, k0 + t + 4.
+__device__ __forceinline__ void load_a(AFrag& f, uint32_t tile, int rows,
+                                       int r, int k0, int t) {
+  f.set(lds(tile + tile_off(rows, r, k0 + t)),
+        lds(tile + tile_off(rows, r + 8, k0 + t)),
+        lds(tile + tile_off(rows, r, k0 + t + 4)),
+        lds(tile + tile_off(rows, r + 8, k0 + t + 4)));
+}
+
+// Sum over the 8 row groups g = lane / 4 of a warp.
 __device__ __forceinline__ float sum_rows(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);
   v += __shfl_xor_sync(0xffffffffu, v, 8);
@@ -149,201 +196,123 @@ __device__ __forceinline__ float sum_rows(float v) {
   return v;
 }
 
-// The work of a block of the forward and of the chain: BM rows, in row
-// groups of 32 (two m16 tiles); warp w takes row group w / WN and, of every
-// product of N outputs, the n8 tiles j = w % WN + WN jj (jj < NTW), each
-// B fragment loaded and split once for both m16 tiles.  64 rows up to
-// width 256, 32 above (a thread's accumulators: 2 NTW 4 floats, 64 at
-// widths 256 and 512).
-__host__ __device__ constexpr int tile_rows(int hidden) {
-  return hidden > 256 ? 32 : 64;
+__host__ __device__ constexpr uint32_t round1024(uint32_t x) {
+  return (x + 1023u) / 1024u * 1024u;
 }
 
-template <int H>
-struct Tiling {
-  static constexpr int BM = tile_rows(H);
-  static constexpr int RG = BM / 32;
-  static constexpr int WN = 8 / RG;
-  template <int N>
-  struct Cols {
-    static constexpr int TILES = N / 8;
-    static constexpr int NTW = (TILES + WN - 1) / WN;
-  };
+// The ring depth shared memory leaves beside `fixed` bytes.
+__host__ __device__ constexpr int ring_stages(size_t fixed, uint32_t stage) {
+  return (MAX_SMEM - fixed) / stage > MAX_STAGES
+             ? MAX_STAGES
+             : (int)((MAX_SMEM - fixed) / stage);
+}
+
+// A layer's shape in the packed layout (mma_common.cuh): rows (outputs)
+// and columns (inputs) of matrix l at width H.
+__host__ __device__ constexpr int mat_rows(int l, int H) {
+  return l <= L_FEAT ? H : (l == L_DIR ? DHP : (l == L_HEAD ? NHEAD : DH));
+}
+__host__ __device__ constexpr int mat_cols(int l, int H) {
+  return l == 0 ? IPE
+                : (l == SKIP ? IPE + H
+                             : (l == L_HEAD ? DH : (l == W_DIRS ? DIRS_LD : H)));
+}
+
+// Barriers among the consumers: 1 + w, warpgroup w's 128 threads; 3 + i,
+// warp i of each consumer (64 threads).
+__device__ __forceinline__ void wg_bar(int wg) { named_bar_sync(1 + wg, 128); }
+__device__ __forceinline__ void pair_bar(int warp) {
+  named_bar_sync(3 + warp, 64);
+}
+
+// --------------------------------------------------------------- the split
+
+struct SplitParams {
+  const float* w;  // the f32 pack (plane 0)
+  float* big;      // planes 1..4, each `plane` floats
+  float* small;
+  float* big_t;
+  float* small_t;
+  long long plane;
+  long long off[NW + 1];  // matrix offsets, then the plane's end
+  int rows[NW];
 };
 
-// The warp's place in the block.
-struct Warp {
-  int row;  // its first row in the tile (a multiple of 32)
-  int cg;   // its column group
-  int g, t;
-};
-
-template <int H>
-__device__ __forceinline__ Warp warp_of(int tid) {
-  const int warp = tid >> 5, lane = tid & 31;
-  return {warp / Tiling<H>::WN * 32, warp % Tiling<H>::WN, lane >> 2,
-          lane & 3};
-}
-
-// acc += A [the warp's 32 rows, k columns 0 .. 15 of `a`] x B for the
-// warp's n8 tiles; A rows `lda` floats apart; B(k, n) = b[n * bn + k * bk].
-// The tensor cores add a product to the accumulator with truncation, not
-// rounding to nearest, and that bias grows with the number of products
-// accumulated (a B2 weight gradient sums ~10^4 rows): so a slice's six
-// products per tile go into a zeroed partial sum, which a rounded float
-// addition then adds to acc.
-template <int N, int WN>
-__device__ __forceinline__ void slice_products(
-    float (&acc)[2][(N / 8 + WN - 1) / WN][4], const float* a, int lda,
-    const float* b, int bn, int bk, const Warp& w) {
-  constexpr int TILES = N / 8, NTW = (TILES + WN - 1) / WN;
-  AFrag af[2][2];  // [k8 step][m16 tile]
-#pragma unroll
-  for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const float* r = a + (w.row + mi * 16 + w.g) * lda + ks * 8 + w.t;
-      af[ks][mi].set(r[0], r[8 * lda], r[4], r[8 * lda + 4]);
-    }
-#pragma unroll
-  for (int jj = 0; jj < NTW; ++jj) {
-    const int j = w.cg + WN * jj;
-    if (TILES % WN != 0 && j >= TILES) continue;
-    float part[2][4] = {};
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-      const float* bp = b + (j * 8 + w.g) * bn + (ks * 8 + w.t) * bk;
-      BFrag bf;
-      bf.set(bp[0], bp[4 * bk]);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma3(part[mi], af[ks][mi], bf);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][jj][e] += part[mi][e];
-  }
-}
-
-// 16-byte copies global -> shared that run beside the products, one group
-// per weight slice (cp.async).
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_u32(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Every packed weight into its TF32 big and small parts, in place and
+// transposed (matrix l [rows, cols] -> [cols, rows] at the same offset).
+__global__ void tf32_split_kernel(const __grid_constant__ SplitParams p) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= p.plane) return;
+  int l = 0;
+  while (l + 1 < NW && e >= p.off[l + 1]) ++l;
+  const long long local = e - p.off[l];
+  const int cols = (int)((p.off[l + 1] - p.off[l]) / p.rows[l]);
+  const long long r = local / cols, c = local % cols;
+  uint32_t big, small;
+  split_tf32(p.w[e], big, small);
+  p.big[e] = __uint_as_float(big);
+  p.small[e] = __uint_as_float(small);
+  const long long te = p.off[l] + c * p.rows[l] + r;
+  p.big_t[te] = __uint_as_float(big);
+  p.small_t[te] = __uint_as_float(small);
 }
 
 // ---------------------------------------------------------------- forward
 
+struct FMaps {
+  CUtensorMap wb[NLAYER];  // layer l's big plane [n_out, k_in], box [KS, rows]
+  CUtensorMap ws[NLAYER];  // its small plane
+  CUtensorMap ipe;         // [n, 96], box [32, BM]
+  CUtensorMap stash;       // [9, n, H], box [32, 16, 1]
+  CUtensorMap stash_h;     // [n, 128], box [32, 16]
+};
+
 struct FParams {
-  const float* ipe;    // [n, 96]; null in ENC mode
   const float* means;  // [n, 3]; ENC mode only
   const float* covs;   // [n, 3]; ENC mode only
-  const float* w;      // packed weights (f32)
   const float* b;      // packed biases
   const float* dproj;  // [n / samples, 128]
   float* out;          // [n, out_dim]
-  float* stash;        // [9, n, H] or null
-  float* stash_h;      // [n, 128] or null
   long long n;
   int samples;
   int out_dim;
-  long long w_off[NW];
+  int stash;           // 1: store the activations through the stash maps
   long long b_off[NB_OFF];
 };
 
 template <int H>
-struct FShape : Tiling<H> {
+struct FShape {
   static_assert(H % 64 == 0 && H <= 512, "no float32 forward plan");
-  using Tiling<H>::BM;
+  static constexpr bool SPLIT = H > 256;  // the N-split plan
+  static constexpr int BM = SPLIT ? WG_ROWS : 2 * WG_ROWS;
+  static constexpr int NW = SPLIT ? H / 2 : H;  // trunk columns per consumer
   static constexpr int ACT_W = H > DH ? H : DH;  // the trunk, later h
-  static constexpr int ACT_LD = ACT_W + 4;
+  static constexpr uint32_t ACT_BYTES = ACT_W * BM * 4;
+  static constexpr uint32_t IPE_BYTES = IPE * BM * 4;
   static constexpr int MAXN = H > DHP ? H : DHP;
-  static constexpr int WS_LD = KS + 4;  // stage rows: output n, k columns
-  static constexpr int STAGE = MAXN * WS_LD;  // floats; two stages
-  static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)BM * ACT_LD + BM * IPE_LD + 2 * STAGE);
-  static_assert(SMEM <= MAX_SMEM, "the plan exceeds a block's shared memory");
-  __host__ __device__ static constexpr int nout(int l) {
-    return l <= L_FEAT ? H : (l == L_DIR ? DHP : NHEAD);
+  static constexpr uint32_t PLANE_BYTES = round1024(MAXN * SLICE_ROW);
+  static constexpr uint32_t STAGE_BYTES = 2 * PLANE_BYTES;
+  // 1024 spare bytes to start the tiles on a 1024-byte boundary.
+  static constexpr size_t FIXED = 1024 + ACT_BYTES + IPE_BYTES + BAR_BYTES;
+  static constexpr int STAGES = ring_stages(FIXED, STAGE_BYTES);
+  static_assert(STAGES >= 2, "the plan leaves no room for a weight ring");
+  static constexpr size_t SMEM = FIXED + STAGES * STAGE_BYTES;
+  __host__ __device__ static constexpr int nout(int l) { return mat_rows(l, H); }
+  __host__ __device__ static constexpr int kin(int l) { return mat_cols(l, H); }
+  __host__ __device__ static constexpr int boxes(int l) {
+    return nout(l) > MAX_BOX_ROWS ? 2 : 1;
   }
-  __host__ __device__ static constexpr int kin(int l) {
-    return l == 0 ? IPE : (l == SKIP ? IPE + H : (l == L_HEAD ? DH : H));
-  }
-  // Slices that meet the IPE tile come first (layer 0 and the skip layer).
-  __host__ __device__ static constexpr int ipe_slices(int l) {
+  // Layer l's k8 steps: first those that meet the IPE tile.
+  __host__ __device__ static constexpr int ipe_steps(int l) {
     return l == 0 || l == SKIP ? IPE / KS : 0;
   }
-  __host__ __device__ static constexpr int slices(int l) { return kin(l) / KS; }
+  __host__ __device__ static constexpr int steps(int l) { return kin(l) / KS; }
 };
 
-// Slice i of layer l, columns KS i .. KS i + 15 of W_l [nout, kin] (the
-// IPE part of the skip layer is its first six slices), copied into `stage`
-// as float4s, thread tid taking tid, tid + 256, ...
-template <int H>
-__device__ __forceinline__ void copy_fwd(float* stage, const FParams& p,
-                                         int l, int i, int tid) {
-  using S = FShape<H>;
-  const int nout = S::nout(l), kin = S::kin(l);
-  const float* src = p.w + p.w_off[l] + i * KS;
-  for (int q = tid; q < nout * (KS / 4); q += THREADS)
-    cp_async16(stage + (q >> 2) * S::WS_LD + 4 * (q & 3),
-               src + (long long)(q >> 2) * kin + 4 * (q & 3));
-  cp_commit();
-}
-
-// The warp's rows times layer l's weights (N outputs), slice by slice: acc
-// starts at the bias.  Slice `it` (counted over the tile's layers) is in
-// stage it % 2; after the barrier that makes it visible the next one (the
-// next layer's first after the last) is copied into the other stage, which
-// every warp has finished reading.  Returns after a barrier past the last
-// products, so that the caller may write the layer's output over its
-// input.
-template <int H, int N>
-__device__ __forceinline__ void fwd_products(
-    float (&acc)[2][Tiling<H>::template Cols<N>::NTW][4], int l,
-    const float* bias, int& it, const FParams& p, const float* act,
-    const float* ipe, float* ws, const Warp& w, int tid) {
-  using S = FShape<H>;
-  using C = typename Tiling<H>::template Cols<N>;
-#pragma unroll
-  for (int jj = 0; jj < C::NTW; ++jj) {
-    const int j = w.cg + S::WN * jj;
-    if (C::TILES % S::WN != 0 && j >= C::TILES) continue;
-    const float2 bb = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * w.t);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      acc[mi][jj][0] = acc[mi][jj][2] = bb.x;
-      acc[mi][jj][1] = acc[mi][jj][3] = bb.y;
-    }
-  }
-  const int ni = S::ipe_slices(l), ns = S::slices(l);
-#pragma unroll 1
-  for (int i = 0; i < ns; ++i, ++it) {
-    cp_wait_all();
-    __syncthreads();  // slice it (and the caller's tiles) visible to all
-    float* next = ws + ((it + 1) & 1) * S::STAGE;
-    if (i + 1 < ns)
-      copy_fwd<H>(next, p, l, i + 1, tid);
-    else if (l + 1 < NLAYER)
-      copy_fwd<H>(next, p, l + 1, 0, tid);
-    const float* stage = ws + (it & 1) * S::STAGE;
-    if (i < ni)
-      slice_products<N, S::WN>(acc, ipe + i * KS, IPE_LD, stage, S::WS_LD, 1,
-                               w);
-    else
-      slice_products<N, S::WN>(acc, act + (i - ni) * KS, S::ACT_LD, stage,
-                               S::WS_LD, 1, w);
-  }
-  __syncthreads();  // every warp is done with the layer's input
-}
+struct FSmem {
+  uint32_t act, ipe, ring;                    // tiles
+  uint32_t full, empty, ipe_full, ipe_empty;  // mbarriers
+};
 
 // ENC mode: the tile's IPE from the raw means and covariances, in the
 // direct form of the TPU kernel's _enc_kernel and of core/math.py::
@@ -363,18 +332,22 @@ __device__ __forceinline__ float wrap_trig(float y) {
 }
 
 template <int BM>
-__device__ __forceinline__ void encode_tile(const FParams& p, float* ipe,
-                                            long long r0, int tid) {
+__device__ __forceinline__ void encode_tile(const FParams& p,
+                                            unsigned char* ipe, long long r0,
+                                            int tid) {
   constexpr int HALF = IPE / 2;  // 16 levels x 3 coordinates
   constexpr int LPI = 8;         // levels per item
   constexpr float HALF_PI = 1.57079632679489661923f;
-  for (int c = tid; c < BM * 3 * 2; c += THREADS) {
+  auto at = [&](int r, int c) -> float& {
+    return *reinterpret_cast<float*>(ipe + tile_off(BM, r, c));
+  };
+  for (int c = tid; c < BM * 3 * 2; c += NENCODERS) {
     const int l0 = c / (BM * 3) * LPI, rem = c % (BM * 3);
     const int r = rem / 3, j = rem % 3;
-    float* dst = ipe + r * IPE_LD + l0 * 3 + j;
+    const int col = l0 * 3 + j;
     if (r0 + r >= p.n) {
 #pragma unroll
-      for (int i = 0; i < LPI; ++i) dst[i * 3] = dst[HALF + i * 3] = 0.f;
+      for (int i = 0; i < LPI; ++i) at(r, col + i * 3) = at(r, HALF + col + i * 3) = 0.f;
       continue;
     }
     const float f = (float)(1 << l0);
@@ -383,135 +356,296 @@ __device__ __forceinline__ void encode_tile(const FParams& p, float* ipe,
 #pragma unroll
     for (int i = 0; i < LPI; ++i) {
       const float att = expf(-0.5f * v);
-      dst[i * 3] = att * sinf(wrap_trig(y));
-      dst[HALF + i * 3] = att * sinf(wrap_trig(y + HALF_PI));
+      at(r, col + i * 3) = att * sinf(wrap_trig(y));
+      at(r, HALF + col + i * 3) = att * sinf(wrap_trig(y + HALF_PI));
       y *= 2.f;
       v *= 4.f;
     }
   }
 }
 
+// The producer: every TMA load of this CTA's tiles, in the order the
+// consumers use them, as far ahead as the ring (and the IPE tile) allow.
 template <int H, bool ENC>
-__global__ void __launch_bounds__(THREADS, 1)
-    float_fwd_kernel(const __grid_constant__ FParams p) {
+__device__ __forceinline__ void fwd_produce(const FMaps& maps, const FSmem& s,
+                                            long long tiles) {
   using S = FShape<H>;
-  extern __shared__ float4 smem_f4[];
-  float* act = reinterpret_cast<float*>(smem_f4);
-  float* ipe = act + S::BM * S::ACT_LD;
-  float* ws = ipe + S::BM * IPE_LD;
-  const int tid = threadIdx.x;
-  const Warp w = warp_of<H>(tid);
-  const long long r0 = (long long)blockIdx.x * S::BM;
-
-  copy_fwd<H>(ws, p, 0, 0, tid);
-  int it = 0;
-  if (ENC) {
-    encode_tile<S::BM>(p, ipe, r0, tid);
-  } else {
-    for (int q = tid; q < S::BM * (IPE / 4); q += THREADS) {
-      const int r = q / (IPE / 4), c4 = q % (IPE / 4);
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (r0 + r < p.n)
-        v = __ldg(reinterpret_cast<const float4*>(p.ipe + (r0 + r) * IPE) + c4);
-      *reinterpret_cast<float4*>(ipe + r * IPE_LD + 4 * c4) = v;
+  uint32_t it = 0, round = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++round) {
+    if (!ENC) {
+      mbar_wait(s.ipe_empty, (round & 1) ^ 1);
+      mbar_arrive_expect_tx(s.ipe_full, S::IPE_BYTES);
+#pragma unroll
+      for (int b = 0; b < IPE / 32; ++b)
+        tma_load_2d(s.ipe + b * S::BM * 128, &maps.ipe, b * 32,
+                    (int)(tile * S::BM), s.ipe_full);
     }
-  }
-
-  // The thread's four rows: w.row + 16 mi + 8 h2 + g.
-  auto row_of = [&](int mi, int h2) { return w.row + mi * 16 + h2 * 8 + w.g; };
-
-  // Trunk and fc_feat: bias (+ relu) back into act, and into the stash.
-  {
-    using C = typename Tiling<H>::template Cols<H>;
-    float acc[2][C::NTW][4];
 #pragma unroll 1
-    for (int l = 0; l <= L_FEAT; ++l) {
-      const float* bias =
-          p.b + (l < NTRUNK ? p.b_off[0] + l * H : p.b_off[1]);
-      fwd_products<H, H>(acc, l, bias, it, p, act, ipe, ws, w, tid);
-      const bool relu = l < NTRUNK;
-#pragma unroll
-      for (int jj = 0; jj < C::NTW; ++jj) {
-        const int col = (w.cg + S::WN * jj) * 8 + 2 * w.t;
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int h2 = 0; h2 < 2; ++h2) {
-            const int row = row_of(mi, h2);
-            float2 v = make_float2(acc[mi][jj][2 * h2], acc[mi][jj][2 * h2 + 1]);
-            if (relu) v = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
-            *reinterpret_cast<float2*>(act + row * S::ACT_LD + col) = v;
-            if (p.stash != nullptr && r0 + row < p.n)
-              *reinterpret_cast<float2*>(
-                  p.stash + ((long long)l * p.n + r0 + row) * H + col) = v;
-          }
+    for (int l = 0; l < NLAYER; ++l) {
+      const int ni = S::ipe_steps(l), ns = S::steps(l);
+      const int box_rows = S::nout(l) / S::boxes(l);
+#pragma unroll 1
+      for (int i = 0; i < ns; ++i, ++it) {
+        const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
+        mbar_wait(s.empty + 8 * stage, parity ^ 1);
+        const uint32_t full = s.full + 8 * stage;
+        mbar_arrive_expect_tx(full, 2 * S::nout(l) * SLICE_ROW);
+        const int col = i < ni ? i * KS : (l == SKIP ? IPE : 0) + (i - ni) * KS;
+        const uint32_t dst = s.ring + stage * S::STAGE_BYTES;
+        for (int b = 0; b < S::boxes(l); ++b) {
+          tma_load_2d(dst + b * box_rows * SLICE_ROW, &maps.wb[l], col,
+                      b * box_rows, full);
+          tma_load_2d(dst + S::PLANE_BYTES + b * box_rows * SLICE_ROW,
+                      &maps.ws[l], col, b * box_rows, full);
+        }
       }
     }
   }
-  // The dir layer (alpha rides it as output column 128): h = relu(. +
-  // dproj[ray]) back into act columns 0..127 and the stash; alpha to out.
-  {
-    using C = typename Tiling<H>::template Cols<DHP>;
-    float acc[2][C::NTW][4];
-    fwd_products<H, DHP>(acc, L_DIR, p.b + p.b_off[2], it, p, act, ipe, ws, w,
-                         tid);
+}
+
+// ENC mode, one of the NENCODERS threads: every tile's IPE, as soon as the
+// skip layer of the previous tile has read the IPE tile.
+template <int H>
+__device__ __forceinline__ void fwd_encode(const FParams& p, const FSmem& s,
+                                           unsigned char* ipe,
+                                           long long tiles, int tid) {
+  using S = FShape<H>;
+  uint32_t round = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++round) {
+    mbar_wait(s.ipe_empty, (round & 1) ^ 1);
+    encode_tile<S::BM>(p, ipe, tile * S::BM, tid);
+    mbar_arrive(s.ipe_full);
+  }
+}
+
+// acc = bias + A @ W_l^T for the warpgroup's 64 rows and the N outputs from
+// the one whose weight row is at byte `w_rows` of a plane, over layer l's
+// k8 steps as the ring delivers them.  A is read from the IPE tile, then
+// the activation tile, and split in registers; two fragments alternate, so
+// that a step's loads and split run under the previous step's products.  A
+// stage is released (one arrival per warp) once its products have
+// finished.
+template <int H, int N>
+__device__ __forceinline__ void fwd_products(float (&acc)[N / 2], int l,
+                                             const float* bias, uint32_t& it,
+                                             const FSmem& s, int arow,
+                                             uint32_t w_rows, int lane) {
+  using S = FShape<H>;
+  const int t = lane & 3;
 #pragma unroll
-    for (int jj = 0; jj < C::NTW; ++jj) {
-      const int j = w.cg + S::WN * jj;
-      if (C::TILES % S::WN != 0 && j >= C::TILES) continue;
-      const int col = j * 8 + 2 * w.t;
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 bb = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * t);
+    acc[4 * j] = acc[4 * j + 2] = bb.x;
+    acc[4 * j + 1] = acc[4 * j + 3] = bb.y;
+  }
+  const int ni = S::ipe_steps(l), ns = S::steps(l);
+  uint32_t prev = 0;
+  AFrag a[2];
+  auto step = [&](int i, AFrag& f) {
+    const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
+    if (i < ni)
+      load_a(f, s.ipe, S::BM, arow, i * KS, t);
+    else
+      load_a(f, s.act, S::BM, arow, (i - ni) * KS, t);
+    mbar_wait(s.full + 8 * stage, parity);
+    const uint32_t b = s.ring + stage * S::STAGE_BYTES + w_rows;
+    wgmma_fence();
+    mma3<N>(acc, f, smem_desc_k<32>(b), smem_desc_k<32>(b + S::PLANE_BYTES));
+    wgmma_commit();
+    if (i > 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(s.empty + 8 * prev);
+    }
+    prev = stage;
+    ++it;
+  };
+#pragma unroll 1
+  for (int i = 0; i < ns; i += 2) {  // every layer has an even step count
+    step(i, a[0]);
+    step(i + 1, a[1]);
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(s.empty + 8 * prev);
+}
+
+template <int H, bool ENC>
+__device__ __forceinline__ void fwd_consume(const FParams& p,
+                                            const FMaps& maps, const FSmem& s,
+                                            long long tiles, int wg, int tid) {
+  using S = FShape<H>;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  // The narrow plan: this warpgroup's rows; the N-split plan: every row of
+  // the tile and the trunk columns NW wg .. NW wg + NW - 1.
+  const int row0 = S::SPLIT ? 0 : wg * WG_ROWS;
+  const int col0 = S::SPLIT ? wg * S::NW : 0;
+  const bool lead = !S::SPLIT || wg == 0;  // writes the dir layer and heads
+  const int wrow = row0 + warp * 16;  // the warp's first row in the tile
+  const int arow = wrow + g;          // the thread's rows: arow, arow + 8
+
+  // The TMA stores of the warp's previous write-back have read the tile.
+  auto stores_read = [&]() {
+    if (p.stash) {
+      if (lane == 0) bulk_wait_read();
+      __syncwarp();
+    }
+  };
+  // The warp's rows of activation blocks [blk0, blk1) to `map` (3D: slab l).
+  auto store_rows = [&](const CUtensorMap* map, int blk0, int blk1, int l,
+                        long long r) {
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0 && r < p.n) {
+      for (int blk = blk0; blk < blk1; ++blk) {
+        const uint32_t src = s.act + blk * S::BM * 128 + wrow * 128;
+        if (l >= 0)
+          tma_store_3d(map, src, blk * 32, (int)r, l);
+        else
+          tma_store_2d(map, src, blk * 32, (int)r);
+      }
+      bulk_commit();
+    }
+  };
+
+  uint32_t it = 0, round = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++round) {
+    const long long r0 = tile * S::BM;
+    mbar_wait(s.ipe_full, round & 1);
+
+    // Trunk and fc_feat: bias (+ relu) back into act, and into the stash.
+    {
+      float acc[S::NW / 2];
+#pragma unroll 1
+      for (int l = 0; l <= L_FEAT; ++l) {
+        fwd_products<H, S::NW>(
+            acc, l,
+            p.b + (l < NTRUNK ? p.b_off[0] + l * H : p.b_off[1]) + col0, it,
+            s, arow, col0 * SLICE_ROW, lane);
+        if (l == SKIP && lane == 0) mbar_arrive(s.ipe_empty);
+        stores_read();
+        if (S::SPLIT) pair_bar(warp);  // the other consumer read the input
+        const bool relu = l < NTRUNK;  // fc_feat has none
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+        for (int j = 0; j < S::NW / 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            float2 v = make_float2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]);
+            if (relu) v = make_float2(fmaxf(v.x, 0.f), fmaxf(v.y, 0.f));
+            sts2(s.act + tile_off(S::BM, arow + 8 * h2, col0 + j * 8 + 2 * q),
+                 v);
+          }
+        if (p.stash)
+          store_rows(&maps.stash, col0 / 32, (col0 + S::NW) / 32, l,
+                     r0 + wrow);
+        if (S::SPLIT) pair_bar(warp);  // published to the other consumer
+      }
+    }
+    // The dir layer (alpha rides it as output column 128): h = relu(. +
+    // dproj[ray]) back into act columns 0..127 and the stash; alpha to out.
+    {
+      float acc[DHP / 2];
+      fwd_products<H, DHP>(acc, L_DIR, p.b + p.b_off[2], it, s, arow, 0,
+                           lane);
+      stores_read();
+      if (S::SPLIT) pair_bar(warp);
+      if (lead) {
+        const long long grow[2] = {r0 + arow, r0 + arow + 8};
+        // h into acc's first 128 columns (every dproj load before the
+        // first shared store, whose asm orders memory), then into act.
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
-          const int row = row_of(mi, h2);
-          const long long grow = r0 + row;
-          const float2 v =
-              make_float2(acc[mi][jj][2 * h2], acc[mi][jj][2 * h2 + 1]);
-          if (col < DH) {
+          const bool valid = grow[h2] < p.n;
+          const float* dp = p.dproj + (valid ? grow[h2] / p.samples : 0) * DH;
+          if (q == 0 && valid)
+            p.out[grow[h2] * p.out_dim + 3] = acc[4 * (DH / 8) + 2 * h2];
+#pragma unroll
+          for (int j = 0; j < DH / 8; ++j) {
             float2 h = make_float2(0.f, 0.f);
-            if (grow < p.n) {
-              const float2 d = *reinterpret_cast<const float2*>(
-                  p.dproj + grow / p.samples * DH + col);
-              h = make_float2(fmaxf(v.x + d.x, 0.f), fmaxf(v.y + d.y, 0.f));
-              if (p.stash_h != nullptr)
-                *reinterpret_cast<float2*>(p.stash_h + grow * DH + col) = h;
+            if (valid) {
+              const float2 d =
+                  *reinterpret_cast<const float2*>(dp + j * 8 + 2 * q);
+              h = make_float2(fmaxf(acc[4 * j + 2 * h2] + d.x, 0.f),
+                              fmaxf(acc[4 * j + 2 * h2 + 1] + d.y, 0.f));
             }
-            *reinterpret_cast<float2*>(act + row * S::ACT_LD + col) = h;
-          } else if (col == DH && grow < p.n) {
-            p.out[grow * p.out_dim + 3] = v.x;
+            acc[4 * j + 2 * h2] = h.x;
+            acc[4 * j + 2 * h2 + 1] = h.y;
           }
         }
+#pragma unroll
+        for (int j = 0; j < DH / 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            sts2(s.act + tile_off(S::BM, arow + 8 * h2, j * 8 + 2 * q),
+                 make_float2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]));
+        if (p.stash) store_rows(&maps.stash_h, 0, DH / 32, -1, r0 + wrow);
+      }
+      if (S::SPLIT) pair_bar(warp);
     }
-  }
-  // Heads: rgb -> out[:, 0:3], (mu, sigma) -> out[:, 4:6].
-  {
-    using C = typename Tiling<H>::template Cols<NHEAD>;
-    float acc[2][C::NTW][4];
-    fwd_products<H, NHEAD>(acc, L_HEAD, p.b + p.b_off[3], it, p, act, ipe,
-                           ws, w, tid);
+    // Heads: rgb -> out[:, 0:3], (mu, sigma) -> out[:, 4:6].
+    {
+      float acc[NHEAD / 2];
+      fwd_products<H, NHEAD>(acc, L_HEAD, p.b + p.b_off[3], it, s, arow, 0,
+                             lane);
+      const long long grow[2] = {r0 + arow, r0 + arow + 8};
 #pragma unroll
-    for (int jj = 0; jj < C::NTW; ++jj) {
-      const int j = w.cg + S::WN * jj;
-      if (C::TILES % S::WN != 0 && j >= C::TILES) continue;
+      for (int h2 = 0; h2 < 2; ++h2) {
+        if (!lead || grow[h2] >= p.n) continue;
+        float* o = p.out + grow[h2] * p.out_dim;
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int h2 = 0; h2 < 2; ++h2) {
-          const long long grow = r0 + row_of(mi, h2);
-          if (grow >= p.n) continue;
-          float* o = p.out + grow * p.out_dim;
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int col = j * 8 + 2 * w.t + e;
-            const float v = acc[mi][jj][2 * h2 + e];
+            const int col = j * 8 + 2 * q + e;
+            const float v = acc[4 * j + 2 * h2 + e];
             if (col < 3)
               o[col] = v;
             else if (col < 5 && p.out_dim == 6)
               o[col + 1] = v;
           }
-        }
+      }
     }
+  }
+  if (p.stash && lane == 0) bulk_wait();
+}
+
+template <int H, bool ENC>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    float_fwd_kernel(const FParams p, const __grid_constant__ FMaps maps) {
+  using S = FShape<H>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  FSmem s;
+  s.act = base;
+  s.ipe = s.act + S::ACT_BYTES;
+  s.ring = s.ipe + S::IPE_BYTES;
+  s.full = s.ring + S::STAGES * S::STAGE_BYTES;
+  s.empty = s.full + 8 * MAX_STAGES;
+  s.ipe_full = s.empty + 8 * MAX_STAGES;
+  s.ipe_empty = s.ipe_full + 8;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(s.full + 8 * i, 1);   // the producer's arrive.expect_tx
+      mbar_init(s.empty + 8 * i, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init(s.ipe_full, ENC ? NENCODERS : 1);
+    mbar_init(s.ipe_empty, 8);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if (threadIdx.x == 0) fwd_produce<H, ENC>(maps, s, tiles);
+    if constexpr (ENC) {
+      if (threadIdx.x >= 128 - NENCODERS)
+        fwd_encode<H>(p, s, smem + S::ACT_BYTES, tiles,
+                      threadIdx.x - (128 - NENCODERS));
+    }
+  } else {
+    fwd_consume<H, ENC>(p, maps, s, tiles, wg - 1, threadIdx.x - wg * 128);
   }
 }
 
@@ -539,281 +673,589 @@ __global__ void float_dir_proj_kernel(const float* dirs, const float* wdirs,
   }
 }
 
+// ---------------------------------------------------------- tensor maps
+
+// An f32 tensor map of rank 2 or 3 (dims and box innermost first, strides
+// in elements for every dimension but the innermost), `swizzle`,
+// out-of-range elements read as zero and never written.
+bool make_map_f32(CUtensorMap* map, const void* ptr, int rank,
+                  const cuuint64_t* dims, const cuuint64_t* strides,
+                  const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  cuuint64_t bytes[2] = {0, 0};
+  for (int i = 0; i + 1 < rank; ++i) bytes[i] = strides[i] * sizeof(float);
+  const cuuint32_t ones[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
+                const_cast<void*>(ptr), dims, bytes, box, ones,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool map2(CUtensorMap* map, const void* ptr, cuuint64_t cols, cuuint64_t rows,
+          cuuint64_t ld, cuuint32_t box_cols, cuuint32_t box_rows,
+          CUtensorMapSwizzle sw) {
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {ld};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  return make_map_f32(map, ptr, 2, dims, strides, box, sw);
+}
+
+bool map3(CUtensorMap* map, const void* ptr, cuuint64_t cols, cuuint64_t rows,
+          cuuint64_t slabs, cuuint64_t ld, cuuint32_t box_cols,
+          cuuint32_t box_rows, CUtensorMapSwizzle sw) {
+  const cuuint64_t dims[3] = {cols, rows, slabs}, strides[2] = {ld, ld * rows};
+  const cuuint32_t box[3] = {box_cols, box_rows, 1};
+  return make_map_f32(map, ptr, 3, dims, strides, box, sw);
+}
+
+// The packed plane count and its planes (pointers into the pack buffer).
+long long plane_floats(const long long* w_off) {
+  return w_off[W_DIRS] + (long long)DH * DIRS_LD;
+}
+
 template <int H, bool ENC>
-cudaError_t launch_fwd(const FParams& p, cudaStream_t st) {
+cudaError_t launch_fwd(const FParams& p, const float* w,
+                       const long long* w_off, const float* ipe, float* stash,
+                       float* stash_h, cudaStream_t st) {
   using S = FShape<H>;
+  const long long plane = plane_floats(w_off);
+  FMaps maps = {};
+  bool ok = true;
+  for (int l = 0; l < NLAYER; ++l) {
+    const cuuint32_t rows = S::nout(l) / S::boxes(l);
+    ok = ok && map2(&maps.wb[l], w + plane + w_off[l], S::kin(l), S::nout(l),
+                    S::kin(l), KS, rows, CU_TENSOR_MAP_SWIZZLE_32B);
+    ok = ok && map2(&maps.ws[l], w + 2 * plane + w_off[l], S::kin(l),
+                    S::nout(l), S::kin(l), KS, rows, CU_TENSOR_MAP_SWIZZLE_32B);
+  }
+  const cuuint64_t n = (cuuint64_t)p.n;
+  if (!ENC)
+    ok = ok && map2(&maps.ipe, ipe, IPE, n, IPE, 32, S::BM,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  if (p.stash) {
+    ok = ok && map3(&maps.stash, stash, H, n, NTRUNK + 1, H, 32, 16,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+    ok = ok && map2(&maps.stash_h, stash_h, DH, n, DH, 32, 16,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
   // The opt-in to S::SMEM bytes of dynamic shared memory: once per process
   // and instantiation, not per launch.
   static const cudaError_t setup = cudaFuncSetAttribute(
       float_fwd_kernel<H, ENC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)S::SMEM);
   if (setup != cudaSuccess) return setup;
-  const unsigned grid = (unsigned)((p.n + S::BM - 1) / S::BM);
-  float_fwd_kernel<H, ENC><<<grid, THREADS, S::SMEM, st>>>(p);
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  float_fwd_kernel<H, ENC><<<grid, NTHREADS, S::SMEM, st>>>(p, maps);
   return cudaGetLastError();
 }
 
 template <bool ENC>
-cudaError_t run_fwd(FParams& p, const void* dirs, int hidden,
+cudaError_t run_fwd(FParams& p, const void* ipe, const void* dirs,
+                    const void* w, void* stash, void* stash_h, int hidden,
                     const long long* w_off, const long long* b_off,
                     cudaStream_t st) {
-  for (int i = 0; i < NW; ++i) p.w_off[i] = w_off[i];
+  if (p.n > 0x7fffffffLL - 128) return cudaErrorInvalidValue;  // TMA: 32 bits
   for (int i = 0; i < NB_OFF; ++i) p.b_off[i] = b_off[i];
+  const float* wp = static_cast<const float*>(w);
   const long long rays = p.n / p.samples;
   float_dir_proj_kernel<<<(unsigned)((rays + DIR_RAYS - 1) / DIR_RAYS), DH, 0,
-                        st>>>(static_cast<const float*>(dirs),
-                              p.w + w_off[W_DIRS], const_cast<float*>(p.dproj),
-                              rays);
+                          st>>>(static_cast<const float*>(dirs),
+                                wp + w_off[W_DIRS], const_cast<float*>(p.dproj),
+                                rays);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
+  const float* ip = static_cast<const float*>(ipe);
+  float* sp = static_cast<float*>(stash);
+  float* hp = static_cast<float*>(stash_h);
   switch (hidden) {
-    case 64: return launch_fwd<64, ENC>(p, st);
-    case 128: return launch_fwd<128, ENC>(p, st);
-    case 192: return launch_fwd<192, ENC>(p, st);
-    case 256: return launch_fwd<256, ENC>(p, st);
-    case 384: return launch_fwd<384, ENC>(p, st);
-    case 512: return launch_fwd<512, ENC>(p, st);
+    case 64: return launch_fwd<64, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 128: return launch_fwd<128, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 192: return launch_fwd<192, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 256: return launch_fwd<256, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 384: return launch_fwd<384, ENC>(p, wp, w_off, ip, sp, hp, st);
+    case 512: return launch_fwd<512, ENC>(p, wp, w_off, ip, sp, hp, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // ------------------------------------------------------------------ chain
 
+struct CMaps {
+  CUtensorMap wb[NLAYER];  // layer l's transposed big plane [k_in, n_out]
+  CUtensorMap ws[NLAYER];  // its small plane; box [KS, rows]
+};
+
 struct CParams {
   const float* g;        // [n, out_dim]
-  const float* w;        // packed weights (f32)
   const float* stash;    // [9, n, H]
   const float* stash_h;  // [n, 128]
-  float* gs;             // [n, 16]: g_rgb | g_mu, g_sigma | 0
-  float* gd;             // [n, 144]: g_h | g_alpha | 0
-  float* gt;             // [9, n, H]: g_0 .. g_7, g_feat
-  float* bpart;          // [tiles, nb] bias-gradient partial rows
-  long long n;
+  float* gtb;            // [9, H, ldt] g_0 .. g_7, g_feat: big, transposed
+  float* gts;            //   and small
+  float* gdb;            // [144, ldt] g_h | g_alpha | 0
+  float* gds;
+  float* gsb;            // [16, ldt] g_rgb | g_mu, g_sigma | 0
+  float* gss;
+  float* ghf;            // [n, 128] g_h
+  float* bpart;          // [n / 64 rounded up, nb] bias-gradient partial rows
+  float* scratch;        // per CTA: the passes a write-back waits for
+  long long n, ldt;
   int out_dim;
   int nb;
-  long long w_off[NW];
   long long b_off[NB_OFF];
 };
 
+constexpr int NQ = 10;  // chain products: heads, dir, feat, W7..W1
+constexpr int GS_W = NHEAD;
+constexpr int CHUNK = 4;  // k8 steps per zeroed partial sum
+
+// The chain's plan.  A product's sum is taken in zeroed partials of CHUNK
+// k8 steps added in f32 (the tensor cores add with truncation, and the
+// chain's cotangents pass through ten products; one accumulator per
+// product read above the 1e-5 limit), so a consumer holds two accumulators
+// and takes its columns in passes of NP columns.  A is loaded from the f32
+// cotangent tile and split in registers.
+// * Up to width 256 (NARROW) a tile is 128 rows and consumer w owns rows
+//   64 w .. 64 w + 63 and every column: a warp reads and rewrites only its
+//   own 16 rows, and every weight slice serves 128 rows.
+// * At 384 and 512 a tile is 64 rows and consumer w computes columns NW w
+//   .. NW w + NW - 1 of every product (of g_h, 64 w .. 64 w + 63); warp i
+//   of each consumer meets warp i of the other before and after a
+//   write-back.
+// * A pass before the last keeps its results in an L2-resident scratch
+//   until the write-back, since the product's input is its output's
+//   place.
 template <int H>
-struct CShape : Tiling<H> {
+struct CShape {
   static_assert(H % 64 == 0 && H <= 512, "no float32 backward plan");
-  using Tiling<H>::BM;
-  using Tiling<H>::RG;
-  static constexpr int G_W = H > DHP ? H : DHP;  // the cotangent tile
-  static constexpr int G_LD = G_W + 4;
-  static constexpr int MAXN = H > DH ? H : DH;  // product widths: 128, H
-  // Stage rows: k (the weights' output rows), n columns; a row stride of
-  // 8 modulo 32 keeps B-fragment loads apart.  Two stages.
-  static constexpr int STAGE = KS * (MAXN + 8);
-  static constexpr size_t SMEM =
-      sizeof(float) * ((size_t)BM * G_LD + BM * GS_LD + 2 * STAGE +
-                       RG * MAXN + 32);
-  static_assert(SMEM <= MAX_SMEM, "the plan exceeds a block's shared memory");
-  // Product q multiplies by layer(q)'s weights [K = its outputs, N = its
-  // inputs from col0]: heads, dir, fc_feat, then W7 .. W1 (x-part of W5).
+  static constexpr bool NARROW = H <= 256;
+  static constexpr int BM = NARROW ? 2 * WG_ROWS : WG_ROWS;
+  static constexpr int NW = NARROW ? H : H / 2;    // columns per consumer
+  static constexpr int NH = NARROW ? DH : DH / 2;  // g_h columns per consumer
+  // Columns per pass: 128 where the narrow plan's columns allow (two
+  // 64-register accumulators, in the registers setmaxnreg gives a
+  // consumer), else 64.
+  static constexpr int NP = NARROW && H % 128 == 0 ? 128 : 64;
+  static constexpr int PASSES = NW / NP;
+  static constexpr int NB = NARROW ? 1 : 2;  // boxes per plane: per consumer
+  // The cotangent tile: g_h | g_alpha | 0 (160 columns), later H wide.
+  static constexpr int G_W = H > 160 ? H : 160;
+  static constexpr uint32_t G_BYTES = G_W * BM * 4;
+  static constexpr uint32_t GS_BYTES = 32 * BM * 4;  // the small tile
+  static constexpr uint32_t PLANE_BYTES = round1024(NB * NP * SLICE_ROW);
+  static constexpr uint32_t STAGE_BYTES = 2 * PLANE_BYTES;
+  // Per consumer and parity: a row of column sums per warp, then 32 floats.
+  static constexpr int RED_W = NP;
+  static constexpr int RED_FLOATS = 4 * RED_W + 32;
+  static constexpr uint32_t RED_BYTES = 2 * 2 * RED_FLOATS * 4;
+  static constexpr size_t FIXED =
+      1024 + G_BYTES + GS_BYTES + RED_BYTES + BAR_BYTES;
+  static constexpr int STAGES = ring_stages(FIXED, STAGE_BYTES);
+  static_assert(STAGES >= 2, "the plan leaves no room for a weight ring");
+  static constexpr size_t SMEM = FIXED + STAGES * STAGE_BYTES;
+  // Floats of a CTA's scratch: the passes before the last, per thread.
+  static constexpr int SCRATCH = 256 * (PASSES - 1) * (NP / 2);
+  // Product q multiplies by layer(q)'s weights, K = its outputs, N = its
+  // inputs from nrow0 on (the x-part of W5): heads, dir, fc_feat, W7 .. W1.
   __host__ __device__ static constexpr int layer(int q) { return L_HEAD - q; }
   __host__ __device__ static constexpr int kdim(int q) {
     return q == 0 ? NHEAD : (q == 1 ? DHP : H);
   }
-  __host__ __device__ static constexpr int ndim(int q) { return q == 0 ? DH : H; }
-  __host__ __device__ static constexpr int kin(int q) {
-    return q == 0 ? DH : (layer(q) == SKIP ? IPE + H : H);
-  }
-  __host__ __device__ static constexpr int col0(int q) {
+  __host__ __device__ static constexpr int nrow0(int q) {
     return layer(q) == SKIP ? IPE : 0;
+  }
+  __host__ __device__ static constexpr int passes(int q) {
+    return q == 0 ? NH / NP : PASSES;
   }
 };
 
-constexpr int NQ = 10;
+struct CSmem {
+  uint32_t g, gs, ring, full, empty;  // cotangent and small tiles, ring
+};
 
-// Slice s of product q, weight rows KS s .. KS s + 15 and N columns, copied
-// into `stage` (rows N + 8 floats apart).
 template <int H>
-__device__ __forceinline__ void copy_chain(float* stage, const CParams& p,
-                                           int q, int s, int tid) {
+__device__ __forceinline__ void chain_produce(const CMaps& maps,
+                                              const CSmem& s,
+                                              long long tiles) {
   using S = CShape<H>;
-  const int n4 = S::ndim(q) / 4, kin = S::kin(q), ld = S::ndim(q) + 8;
-  const float* src = p.w + p.w_off[S::layer(q)] + (long long)s * KS * kin +
-                     S::col0(q);
-  for (int e = tid; e < KS * n4; e += THREADS)
-    cp_async16(stage + (e / n4) * ld + 4 * (e % n4),
-               src + (long long)(e / n4) * kin + 4 * (e % n4));
-  cp_commit();
+  uint32_t it = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#pragma unroll 1
+    for (int q = 0; q < NQ; ++q) {
+      const int l = S::layer(q), ns = S::kdim(q) / KS, br = S::NP;
+      const int cstep = q == 0 ? S::NH : S::NW;  // consumer 1's first column
+#pragma unroll 1
+      for (int pass = 0; pass < S::passes(q); ++pass)
+#pragma unroll 1
+        for (int i = 0; i < ns; ++i, ++it) {
+          const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
+          mbar_wait(s.empty + 8 * stage, parity ^ 1);
+          const uint32_t full = s.full + 8 * stage;
+          mbar_arrive_expect_tx(full, 2 * S::NB * br * SLICE_ROW);
+          const uint32_t dst = s.ring + stage * S::STAGE_BYTES;
+          for (int c = 0; c < S::NB; ++c) {
+            const int row = S::nrow0(q) + c * cstep + pass * br;
+            tma_load_2d(dst + c * br * SLICE_ROW, &maps.wb[l], i * KS, row,
+                        full);
+            tma_load_2d(dst + S::PLANE_BYTES + c * br * SLICE_ROW,
+                        &maps.ws[l], i * KS, row, full);
+          }
+        }
+    }
+  }
 }
 
-// acc = A [the warp's rows, K] @ W slices for its n8 tiles of N; A is the
-// small tile for the heads, the cotangent tile otherwise.  The stage
-// discipline is fwd_products'.
-template <int H, int N>
-__device__ __forceinline__ void chain_products(
-    float (&acc)[2][Tiling<H>::template Cols<N>::NTW][4], int q, int& it,
-    const CParams& p, const float* a_tile, int lda, float* ws, const Warp& w,
-    int tid) {
+// STEPS k8 steps of a product into the zeroed partial `part` (wgmma's
+// scale-d = 0 on the first product), then a rounded f32 addition into acc.
+// A is loaded from the f32 tile at `a_tile` and split in registers, two
+// fragments in turn (as in fwd_products); a stage is released (one arrival
+// per warp) once its products have finished.
+template <int H, int N, int STEPS>
+__device__ __forceinline__ void chain_chunk(float (&acc)[N / 2],
+                                            float (&part)[N / 2], int k0,
+                                            uint32_t& it, const CSmem& s,
+                                            uint32_t a_tile, int arow,
+                                            uint32_t w_rows, int lane) {
   using S = CShape<H>;
-  using C = typename Tiling<H>::template Cols<N>;
+  AFrag a[2];
+  uint32_t prev = 0;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+  for (int i = 0; i < STEPS; ++i) {
+    const uint32_t stage = it % S::STAGES, parity = (it / S::STAGES) & 1;
+    load_a(a[i & 1], a_tile, S::BM, arow, k0 + i * KS, lane & 3);
+    mbar_wait(s.full + 8 * stage, parity);
+    const uint32_t b = s.ring + stage * S::STAGE_BYTES + w_rows;
+    wgmma_fence();
+    mma3<N>(part, a[i & 1], smem_desc_k<32>(b),
+            smem_desc_k<32>(b + S::PLANE_BYTES), i > 0);
+    wgmma_commit();
+    if (i > 0) {
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(s.empty + 8 * prev);
+    }
+    prev = stage;
+    ++it;
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(s.empty + 8 * prev);
 #pragma unroll
-    for (int jj = 0; jj < C::NTW; ++jj)
-      acc[mi][jj][0] = acc[mi][jj][1] = acc[mi][jj][2] = acc[mi][jj][3] = 0.f;
-  const int ns = S::kdim(q) / KS;
+  for (int j = 0; j < N / 2; ++j) acc[j] += part[j];
+}
+
+// acc = A [the warpgroup's 64 rows, NS k8 steps] @ W slices for N columns
+// from the one at byte `w_rows` of a plane, in zeroed partials of CHUNK
+// steps; A is the small tile for the heads, the cotangent tile otherwise.
+template <int H, int N, int NS>
+__device__ __forceinline__ void chain_products(float (&acc)[N / 2],
+                                               float (&part)[N / 2],
+                                               uint32_t& it, const CSmem& s,
+                                               uint32_t a_tile, int arow,
+                                               uint32_t w_rows, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 2; ++j) acc[j] = 0.f;
 #pragma unroll 1
-  for (int s = 0; s < ns; ++s, ++it) {
-    cp_wait_all();
-    __syncthreads();
-    float* next = ws + ((it + 1) & 1) * S::STAGE;
-    if (s + 1 < ns)
-      copy_chain<H>(next, p, q, s + 1, tid);
-    else if (q + 1 < NQ)
-      copy_chain<H>(next, p, q + 1, 0, tid);
-    slice_products<N, S::WN>(acc, a_tile + s * KS, lda,
-                             ws + (it & 1) * S::STAGE, 1, N + 8, w);
+  for (int c = 0; c < NS / CHUNK; ++c)
+    chain_chunk<H, N, CHUNK>(acc, part, c * CHUNK * KS, it, s, a_tile, arow,
+                             w_rows, lane);
+  if constexpr (NS % CHUNK != 0)
+    chain_chunk<H, N, NS % CHUNK>(acc, part, NS / CHUNK * CHUNK * KS, it, s,
+                                  a_tile, arow, w_rows, lane);
+}
+
+// The column sums of the warp's 16 rows of an epilogue's NC columns into
+// row `warp` of red (shared; RED_W floats a row).
+template <int NC, int RED_W>
+__device__ __forceinline__ void col_sums(const float (&acc)[NC / 2],
+                                         uint32_t red, int warp, int g,
+                                         int q) {
+#pragma unroll
+  for (int j = 0; j < NC / 8; ++j) {
+    const float s0 = sum_rows(acc[4 * j] + acc[4 * j + 2]);
+    const float s1 = sum_rows(acc[4 * j + 1] + acc[4 * j + 3]);
+    if (g == 0)
+      sts2(red + 4 * (warp * RED_W + j * 8 + 2 * q), make_float2(s0, s1));
+  }
+}
+
+template <int H>
+__device__ __forceinline__ void chain_consume(const CParams& p, const CSmem& s,
+                                              uint32_t red0, long long tiles,
+                                              int wg, int tid) {
+  using S = CShape<H>;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
+  // The narrow plan: this consumer's rows; the N-split plan: every row.
+  const int row0 = S::NARROW ? wg * WG_ROWS : 0;
+  const int arow = row0 + warp * 16 + g;  // the thread's rows: arow, arow + 8
+  const int ctid = wg * 128 + tid;        // among both consumers
+  // The threads that share a tile's rows: a consumer, or both.
+  auto rows_bar = [&]() {
+    if constexpr (S::NARROW)
+      wg_bar(wg);
+    else
+      named_bar_sync(7, 256);
+  };
+  // Around a write-back over a product's input: in the N-split plan warp
+  // `warp` of each consumer reads the rows that both write.
+  auto pair = [&]() {
+    if constexpr (!S::NARROW) pair_bar(warp);
+  };
+  auto at = [&](uint32_t tile, int r, int c) {
+    return tile + tile_off(S::BM, r, c);
+  };
+  // v, column col and row r of the tile, into a transposed slab pair.
+  auto put_t = [&](float* big, float* small, int col, long long r, float v) {
+    uint32_t hb, hs;
+    split_tf32(v, hb, hs);
+    big[col * p.ldt + r] = __uint_as_float(hb);
+    small[col * p.ldt + r] = __uint_as_float(hs);
+  };
+  // The first column of this consumer's share of a product: w_cols, and
+  // the byte offset of its weight rows in a stage.
+  const int w_cols = S::NARROW ? 0 : wg * S::NW;
+  const uint32_t w_rows = S::NARROW ? 0 : wg * S::NP * SLICE_ROW;
+
+  uint32_t it = 0, parity_red = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long r0 = tile * S::BM;
+    // This consumer's 64-row partial row of bias gradients.
+    float* bp = p.bpart + (S::NARROW ? 2 * tile + wg : tile) * p.nb;
+    // The small tile (g_heads) and g_alpha with the zero columns after it
+    // in the cotangent tile (columns 128..159), and their transposed slabs.
+    const int fill_tid = S::NARROW ? tid : ctid;
+    for (int e = fill_tid; e < WG_ROWS * 16; e += S::NARROW ? 128 : 256) {
+      const int r = row0 + e / 16, c = 2 * (e % 16);
+      const long long gr = r0 + r;
+      float2 v = make_float2(0.f, 0.f), va = make_float2(0.f, 0.f);
+      if (gr < p.n) {
+        const float* gg = p.g + gr * p.out_dim;
+        auto head = [&](int col) {
+          return col < 3 ? gg[col]
+                         : (col < 5 && p.out_dim == 6 ? gg[col + 1] : 0.f);
+        };
+        v = make_float2(head(c), head(c + 1));
+        if (c == 0) va.x = gg[3];
+      }
+      sts2(at(s.gs, r, c), v);
+      if (c < GS_W) {
+        put_t(p.gsb, p.gss, c, gr, v.x);
+        put_t(p.gsb, p.gss, c + 1, gr, v.y);
+      }
+      sts2(at(s.g, r, DH + c), va);
+      if (c < DHP - DH) {
+        put_t(p.gdb, p.gds, DH + c, gr, va.x);
+        put_t(p.gdb, p.gds, DH + c + 1, gr, va.y);
+      }
+    }
+    rows_bar();
+    // d_b_heads, d_b_alpha: column sums of the small tile and of g_alpha
+    // over the consumer's 64 rows, row after row (consumer 0 in the N-split
+    // plan), after the column-sum rows of red's first parity.
+    if ((S::NARROW || wg == 0) && tid < GS_W + 1) {
+      float sum = 0.f;
+      for (int r = row0; r < row0 + WG_ROWS; ++r)
+        sum += lds(tid < GS_W ? at(s.gs, r, tid) : at(s.g, r, DH));
+      sts(red0 + 4 * (4 * S::RED_W + tid), sum);
+    }
+    // The warpgroup's four rows of red in order into the partial row at
+    // `dst` (after col_sums).
+    auto bias_rows = [&](int nc, int c0, float* dst, uint32_t r_) {
+      wg_bar(wg);
+      for (int c = tid; c < nc; c += 128)
+        dst[c0 + c] = ((lds(r_ + 4 * c) + lds(r_ + 4 * (S::RED_W + c))) +
+                       lds(r_ + 4 * (2 * S::RED_W + c))) +
+                      lds(r_ + 4 * (3 * S::RED_W + c));
+    };
+
+    // Heads: g_h = mask(h > 0, g_heads @ W_heads) -> tile columns 0..127,
+    // ghf, the transposed gd slabs, d_b_dir; its input is the small tile,
+    // so each pass writes back at once.
+    {
+      constexpr int NC = S::NP;
+      float acc[NC / 2], part[NC / 2];
+#pragma unroll 1
+      for (int pass = 0; pass < S::NH / NC; ++pass) {
+        const int c0 = (S::NARROW ? 0 : wg * S::NH) + pass * NC;
+        chain_products<H, NC, NHEAD / KS>(acc, part, it, s, s.gs, arow,
+                                          w_rows, lane);
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            const int r = arow + 8 * h2, col = c0 + j * 8 + 2 * q4;
+            const long long gr = r0 + r;
+            float2 v =
+                make_float2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]);
+            float2 m = make_float2(0.f, 0.f);
+            if (gr < p.n)
+              m = *reinterpret_cast<const float2*>(p.stash_h + gr * DH + col);
+            v = make_float2(m.x > 0.f ? v.x : 0.f, m.y > 0.f ? v.y : 0.f);
+            acc[4 * j + 2 * h2] = v.x;
+            acc[4 * j + 2 * h2 + 1] = v.y;
+            if (gr < p.n)
+              *reinterpret_cast<float2*>(p.ghf + gr * DH + col) = v;
+            put_t(p.gdb, p.gds, col, gr, v.x);
+            put_t(p.gdb, p.gds, col + 1, gr, v.y);
+          }
+        // Into the tile after every mask load (a shared store's asm orders
+        // memory).
+#pragma unroll
+        for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2)
+            sts2(at(s.g, arow + 8 * h2, c0 + j * 8 + 2 * q4),
+                 make_float2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]));
+        const uint32_t red = red0 + 4 * (parity_red & 1) * S::RED_FLOATS;
+        col_sums<NC, S::RED_W>(acc, red, warp, g, q4);
+        bias_rows(NC, c0, bp + p.b_off[2], red);
+        ++parity_red;
+      }
+      // The small sums, made visible by bias_rows' barrier.
+      const uint32_t small_sums = red0 + 4 * 4 * S::RED_W;
+      if ((S::NARROW || wg == 0) && tid < DHP - DH)
+        bp[p.b_off[2] + DH + tid] = tid == 0 ? lds(small_sums + 4 * GS_W) : 0.f;
+      if ((S::NARROW || wg == 0) && tid < NHEAD)
+        bp[p.b_off[3] + tid] = lds(small_sums + 4 * tid);
+      pair();  // g_h published to the other consumer
+    }
+    // The dir layer (g_feat, no mask), fc_feat and W7 .. W1 (masks x7 ..
+    // x0), each in PASSES passes of NP columns.  The dir product's K is
+    // 144, the others' H.
+    {
+      constexpr int NC = S::NP;
+      float acc[NC / 2], part[NC / 2];
+      auto product = [&](auto steps, int q) {
+        // Product q >= 2 gives g_i, i = layer(q) - 1, masked by x_i; the
+        // dir product gives g_feat (slab 8).
+        const int slab = q == 1 ? NTRUNK : S::layer(q) - 1;
+#pragma unroll 1
+        for (int pass = 0; pass < S::PASSES; ++pass) {
+          chain_products<H, NC, decltype(steps)::value>(acc, part, it, s, s.g,
+                                                        arow, w_rows, lane);
+          const int c0 = w_cols + pass * NC;
+          const float* mask = p.stash + slab * p.n * H;
+          float* big = p.gtb + (long long)slab * H * p.ldt;
+          float* small = p.gts + (long long)slab * H * p.ldt;
+#pragma unroll
+          for (int j = 0; j < NC / 8; ++j) {
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2) {
+              const int r = arow + 8 * h2, col = c0 + j * 8 + 2 * q4;
+              const long long gr = r0 + r;
+              float2 v =
+                  make_float2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]);
+              float2 m = make_float2(0.f, 0.f);
+              if (gr < p.n)
+                m = q == 1
+                        ? make_float2(1.f, 1.f)
+                        : *reinterpret_cast<const float2*>(mask + gr * H + col);
+              v = make_float2(m.x > 0.f ? v.x : 0.f, m.y > 0.f ? v.y : 0.f);
+              acc[4 * j + 2 * h2] = v.x;
+              acc[4 * j + 2 * h2 + 1] = v.y;
+              put_t(big, small, col, gr, v.x);
+              put_t(big, small, col + 1, gr, v.y);
+            }
+          }
+          const uint32_t red = red0 + 4 * (parity_red & 1) * S::RED_FLOATS;
+          col_sums<NC, S::RED_W>(acc, red, warp, g, q4);
+          bias_rows(NC, c0,
+                    bp + (q == 1 ? p.b_off[1] : p.b_off[0] + slab * H), red);
+          ++parity_red;
+          // This thread's scratch, interleaved over the 256 threads.
+          float* scratch =
+              p.scratch + (long long)blockIdx.x * S::SCRATCH + ctid;
+          if (pass + 1 < S::PASSES) {
+#pragma unroll
+            for (int j = 0; j < NC / 2; ++j)
+              scratch[(pass * (NC / 2) + j) * 256] = acc[j];
+            continue;
+          }
+          // The write-back, once the input is read: this pass from the
+          // registers, the earlier ones from the scratch.
+          pair();
+#pragma unroll
+          for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+            for (int h2 = 0; h2 < 2; ++h2)
+              sts2(at(s.g, arow + 8 * h2, c0 + j * 8 + 2 * q4),
+                   make_float2(acc[4 * j + 2 * h2], acc[4 * j + 2 * h2 + 1]));
+#pragma unroll
+          for (int pb = 0; pb + 1 < S::PASSES; ++pb) {
+            float v[NC / 2];  // loaded before the stores' asm orders memory
+#pragma unroll
+            for (int j = 0; j < NC / 2; ++j)
+              v[j] = scratch[(pb * (NC / 2) + j) * 256];
+#pragma unroll
+            for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+              for (int h2 = 0; h2 < 2; ++h2)
+                sts2(at(s.g, arow + 8 * h2,
+                        w_cols + pb * NC + j * 8 + 2 * q4),
+                     make_float2(v[4 * j + 2 * h2], v[4 * j + 2 * h2 + 1]));
+          }
+          pair();
+        }
+      };
+      product(std::integral_constant<int, DHP / KS>{}, 1);
+#pragma unroll 1
+      for (int q = 2; q < NQ; ++q)
+        product(std::integral_constant<int, H / KS>{}, q);
+    }
+    // The set-up of the next tile rewrites the small tile and columns
+    // 128.. of the cotangent tile, which other warps may still read.
+    rows_bar();
+  }
+}
+
+template <int H>
+__global__ void __launch_bounds__(NTHREADS, 1)
+    float_chain_kernel(const CParams p, const __grid_constant__ CMaps maps) {
+  using S = CShape<H>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  CSmem s;
+  s.g = base;
+  s.gs = s.g + S::G_BYTES;
+  s.ring = s.gs + S::GS_BYTES;
+  const uint32_t red = s.ring + S::STAGES * S::STAGE_BYTES;
+  s.full = red + S::RED_BYTES;
+  s.empty = s.full + 8 * MAX_STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < S::STAGES; ++i) {
+      mbar_init(s.full + 8 * i, 1);
+      mbar_init(s.empty + 8 * i, 8);
+    }
+    fence_mbar_init();
   }
   __syncthreads();
-}
-
-// The epilogue of a product of width N: relu mask (from `mask`, [n, ld_m]
-// f32, or none), the result back into the cotangent tile and out to `slab`
-// ([n, ld_s]), and the warp's column sums into red[row group][column].
-template <int H, int N>
-__device__ __forceinline__ void chain_epilogue(
-    float (&acc)[2][Tiling<H>::template Cols<N>::NTW][4], const float* mask,
-    int ld_m, float* slab, int ld_s, float* gtile, float* red, long long r0,
-    long long n, const Warp& w, int lane) {
-  using S = CShape<H>;
-  using C = typename Tiling<H>::template Cols<N>;
-#pragma unroll
-  for (int jj = 0; jj < C::NTW; ++jj) {
-    const int col = (w.cg + S::WN * jj) * 8 + 2 * w.t;
-    float2 sum = make_float2(0.f, 0.f);
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int row = w.row + mi * 16 + h2 * 8 + w.g;
-        const long long grow = r0 + row;
-        float2 v = make_float2(acc[mi][jj][2 * h2], acc[mi][jj][2 * h2 + 1]);
-        if (mask != nullptr) {
-          float2 m = make_float2(0.f, 0.f);
-          if (grow < n)
-            m = *reinterpret_cast<const float2*>(mask + grow * ld_m + col);
-          v = make_float2(m.x > 0.f ? v.x : 0.f, m.y > 0.f ? v.y : 0.f);
-        }
-        *reinterpret_cast<float2*>(gtile + row * S::G_LD + col) = v;
-        if (grow < n)
-          *reinterpret_cast<float2*>(slab + grow * ld_s + col) = v;
-        sum.x += v.x;
-        sum.y += v.y;
-      }
-    sum.x = sum_rows(sum.x);
-    sum.y = sum_rows(sum.y);
-    if (lane < 4) {
-      red[w.row / 32 * S::MAXN + col] = sum.x;
-      red[w.row / 32 * S::MAXN + col + 1] = sum.y;
-    }
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
+  const int wg = threadIdx.x / 128;
+  // The producer warpgroup gives registers to the consumers: 128 x 40 +
+  // 256 x 232 = 384 x 168, the CTA's allocation.
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) chain_produce<H>(maps, s, tiles);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    chain_consume<H>(p, s, red + (wg - 1) * 2 * S::RED_FLOATS * 4, tiles,
+                     wg - 1, threadIdx.x - wg * 128);
   }
 }
 
-template <int H>
-__global__ void __launch_bounds__(THREADS, 1)
-    float_chain_kernel(const __grid_constant__ CParams p) {
-  using S = CShape<H>;
-  constexpr int BM = S::BM;
-  extern __shared__ float4 smem_f4[];
-  float* gtile = reinterpret_cast<float*>(smem_f4);
-  float* gsmall = gtile + BM * S::G_LD;
-  float* ws = gsmall + BM * GS_LD;
-  float* red = ws + 2 * S::STAGE;
-  float* small_sums = red + S::RG * S::MAXN;  // the small tile's 17 sums
-  const int tid = threadIdx.x, lane = tid & 31;
-  const Warp w = warp_of<H>(tid);
-  const long long tile = blockIdx.x, r0 = tile * BM;
-  float* bp = p.bpart + tile * p.nb;
-
-  copy_chain<H>(ws, p, 0, 0, tid);
-  int it = 0;
-  // The small tile (g_heads) and g_alpha with the zero columns after it in
-  // the cotangent tile (columns 128..143, read by the dir product).
-  for (int e = tid; e < BM * GS_W; e += THREADS) {
-    const int r = e / GS_W, c = e % GS_W;
-    const long long gr = r0 + r;
-    float v = 0.f;
-    if (gr < p.n) {
-      const float* gg = p.g + gr * p.out_dim;
-      if (c < 3)
-        v = gg[c];
-      else if (c < 5 && p.out_dim == 6)
-        v = gg[c + 1];
-      p.gs[gr * GS_W + c] = v;
-    }
-    gsmall[r * GS_LD + c] = v;
-    gtile[r * S::G_LD + DH + c] =
-        (c == 0 && gr < p.n) ? p.g[gr * p.out_dim + 3] : 0.f;
-  }
-
-  // A partial row, after a barrier: column c of red summed over the row
-  // groups in order.
-  auto bias_rows = [&](int n, float* dst) {
-    for (int c = tid; c < n; c += THREADS) {
-      float s = red[c];
-#pragma unroll
-      for (int rg = 1; rg < S::RG; ++rg) s += red[rg * S::MAXN + c];
-      dst[c] = s;
-    }
-  };
-
-  // Heads: g_h = mask(h > 0, g_heads @ W_heads) -> tile columns 0..127, gd.
-  {
-    float acc[2][Tiling<H>::template Cols<DH>::NTW][4];
-    chain_products<H, DH>(acc, 0, it, p, gsmall, GS_LD, ws, w, tid);
-    // d_b_heads, d_b_alpha: column sums of the small tile and of g_alpha,
-    // row after row.
-    if (tid < GS_W + 1) {
-      float s = 0.f;
-      for (int r = 0; r < BM; ++r)
-        s += tid < GS_W ? gsmall[r * GS_LD + tid] : gtile[r * S::G_LD + DH];
-      small_sums[tid] = s;
-    }
-    chain_epilogue<H, DH>(acc, p.stash_h, DH, p.gd, DHP, gtile, red, r0, p.n,
-                          w, lane);
-    __syncthreads();
-    bias_rows(DH, bp + p.b_off[2]);
-    if (tid < DHP - DH) {
-      bp[p.b_off[2] + DH + tid] = tid == 0 ? small_sums[GS_W] : 0.f;
-      for (int r = 0; r < BM; ++r)  // gd's columns 128..143
-        if (r0 + r < p.n)
-          p.gd[(r0 + r) * DHP + DH + tid] = gtile[r * S::G_LD + DH + tid];
-    }
-    if (tid < NHEAD) bp[p.b_off[3] + tid] = small_sums[tid];
-  }
-  // The dir layer (g_feat, no mask), fc_feat and W7 .. W1 (masks x7 .. x0).
-  {
-    float acc[2][Tiling<H>::template Cols<H>::NTW][4];
-#pragma unroll 1
-    for (int q = 1; q < NQ; ++q) {
-      chain_products<H, H>(acc, q, it, p, gtile, S::G_LD, ws, w, tid);
-      // Product q >= 2 gives g_i, i = layer(q) - 1, masked by x_i; the dir
-      // product gives g_feat (slab 8).
-      const int slab = q == 1 ? NTRUNK : S::layer(q) - 1;
-      chain_epilogue<H, H>(acc, q == 1 ? nullptr : p.stash + slab * p.n * H,
-                           H, p.gt + slab * p.n * H, H, gtile, red, r0, p.n,
-                           w, lane);
-      __syncthreads();
-      bias_rows(H, bp + (q == 1 ? p.b_off[1] : p.b_off[0] + slab * H));
-    }
-  }
-}
-
-// g_dproj[ray, c] = the sum over the ray's rows of g_h[row, c] (gd's
-// columns 0..127), in row order, in f32.
-__global__ void float_dproj_grad_kernel(const float* gd, float* gdp,
-                                      int samples) {
+// g_dproj[ray, c] = the sum over the ray's rows of g_h[row, c], in row
+// order, in f32.
+__global__ void float_dproj_grad_kernel(const float* ghf, float* gdp,
+                                        int samples) {
   const long long ray = blockIdx.x;
   const int c = threadIdx.x;
-  const float* src = gd + ray * samples * DHP + c;
+  const float* src = ghf + ray * samples * DH + c;
   float s = 0.f;
-  for (int k = 0; k < samples; ++k) s += src[(long long)k * DHP];
+  for (int k = 0; k < samples; ++k) s += src[(long long)k * DH];
   gdp[ray * DH + c] = s;
 }
 
@@ -822,13 +1264,14 @@ __global__ void float_dproj_grad_kernel(const float* gd, float* gdp,
 constexpr int DG_RAYS = 16;
 
 __global__ void float_dirs_grad_partial_kernel(const float* gdp,
-                                             const float* dirs, float* part,
-                                             long long rays) {
+                                               const float* dirs, float* part,
+                                               long long rays) {
   __shared__ float d[DG_RAYS][DIRS];
   const long long r0 = (long long)blockIdx.x * DG_RAYS;
   const int c = threadIdx.x;
   const int here = (int)(rays - r0 < DG_RAYS ? rays - r0 : DG_RAYS);
-  for (int i = c; i < here * DIRS; i += DH) d[i / DIRS][i % DIRS] = dirs[r0 * DIRS + i];
+  for (int i = c; i < here * DIRS; i += DH)
+    d[i / DIRS][i % DIRS] = dirs[r0 * DIRS + i];
   __syncthreads();
   float acc[DIRS];
 #pragma unroll
@@ -843,12 +1286,13 @@ __global__ void float_dirs_grad_partial_kernel(const float* gdp,
   for (int j = 0; j < DIRS; ++j) out[j * DH] = acc[j];
 }
 
-__global__ void float_dirs_grad_reduce_kernel(const float* part, float* gw_dirs,
-                                            int blocks) {
+__global__ void float_dirs_grad_reduce_kernel(const float* part,
+                                              float* gw_dirs, int blocks) {
   const int j = blockIdx.x, c = threadIdx.x;
   float s = 0.f;
   if (j < DIRS)
-    for (int b = 0; b < blocks; ++b) s += part[((long long)b * DIRS + j) * DH + c];
+    for (int b = 0; b < blocks; ++b)
+      s += part[((long long)b * DIRS + j) * DH + c];
   gw_dirs[c * DIRS_LD + j] = s;
 }
 
@@ -857,7 +1301,7 @@ __global__ void float_dirs_grad_reduce_kernel(const float* part, float* gw_dirs,
 constexpr int BR_COLS = 32, BR_GROUPS = 8;
 
 __global__ void float_bias_reduce_kernel(const float* bpart, float* gb,
-                                       long long rows, int nb) {
+                                         long long rows, int nb) {
   __shared__ float part[BR_GROUPS][BR_COLS];
   const int c = blockIdx.x * BR_COLS + threadIdx.x % BR_COLS;
   const int grp = threadIdx.x / BR_COLS;
@@ -876,22 +1320,39 @@ __global__ void float_bias_reduce_kernel(const float* bpart, float* gb,
 
 // ---------------------------------------------------------- weight grads
 
-constexpr int WT = 128;        // output tile: WT rows (out) x WT columns (in)
-constexpr int WLD = WT + 8;    // stage row stride: 8 modulo 32
-constexpr int WPRE = KS * WT / 4 / THREADS;  // float4s per thread and operand
+// dW^T [in, out] = act^T g over the rows, one [128 in, 128 out] tile and
+// one split of the rows per CTA: A = act^T (the activation the layer
+// reads, [rows, in]) in registers from TMA tiles of [32 rows, 128 in], B =
+// g (the transposed cotangent planes, [out, rows]) K-major from TMA tiles
+// of [128 out, 32 rows]; two consumers of 64 in-rows each.
+constexpr int WT = 128;    // output tile: WT in x WT out
+constexpr int WK = 32;     // rows per stage
+constexpr int W_STAGES = 4;
 constexpr int MAX_MATS = 12;
+constexpr uint32_t WA_BYTES = WT * WK * 4;        // [32 rows, 128 in]
+constexpr uint32_t WB_PLANE = WT * WK * 4;        // [128 out, 32 rows]
+constexpr uint32_t W_STAGE_BYTES = WA_BYTES + 2 * WB_PLANE;
+constexpr size_t W_SMEM = 1024 + W_STAGES * W_STAGE_BYTES + BAR_BYTES;
+static_assert(W_SMEM <= MAX_SMEM, "the plan exceeds a block's shared memory");
 
-// dst[m * ld_dst + c] = sum over rows r of a[r, m] * b[r, c], m < M, c < nc:
-// act^T g for one packed weight matrix (a the cotangent slab, b the
-// activation the layer reads).
+enum { A_IPE = 0, A_STASH = 1, A_H = 2, NA_MAPS = 3 };
+enum { B_GT = 0, B_GD = 1, B_GS = 2, NB_MAPS = 3 };
+
+struct WMaps {
+  CUtensorMap a[NA_MAPS];      // ipe {96, n}, stash {H, n, 9}, h {128, n}
+  CUtensorMap b[2][NB_MAPS];   // [big, small] gt {ldt, H, 9}, gd, gs
+};
+
+// One packed weight matrix: dst[o * ld_dst + i] = sum over rows of
+// g[r, o] act[r, i], o < outs, i < ins.
 struct WMat {
-  const float* a;
-  const float* b;
-  long long part;  // float offset of its partials [splits, M, nc]
-  long long dst;   // float offset into gw
-  long long elem_begin;  // first element of the matrix in the reduce launch
-  int lda, ldb, m, nc, ld_dst;
-  int ctiles, cta_begin;
+  int a_map, a_slab, a_col0;  // act columns from a_col0
+  int b_map, b_slab;
+  int outs, ins, ld_dst;
+  int otiles, itiles, cta_begin;
+  long long part;        // float offset of its partials [splits, outs, ins]
+  long long dst;         // float offset into gw
+  long long elem_begin;  // its first element in the reduce launch
 };
 
 struct WParams {
@@ -902,127 +1363,141 @@ struct WParams {
   float* gw;
 };
 
-__device__ __forceinline__ void fetch_wgrad(float4 (&pa)[WPRE],
-                                            float4 (&pb)[WPRE], const WMat& M,
-                                            long long r, long long r_end,
-                                            int m0, int c0, int tid) {
-#pragma unroll
-  for (int j = 0; j < WPRE; ++j) {
-    const int e = tid + j * THREADS, k = e / (WT / 4), c4 = e % (WT / 4);
-    const bool in = r + k < r_end;
-    pa[j] = in && m0 + 4 * c4 < M.m
-                ? __ldg(reinterpret_cast<const float4*>(
-                      M.a + (r + k) * M.lda + m0 + 4 * c4))
-                : make_float4(0.f, 0.f, 0.f, 0.f);
-    pb[j] = in && c0 + 4 * c4 < M.nc
-                ? __ldg(reinterpret_cast<const float4*>(
-                      M.b + (r + k) * M.ldb + c0 + 4 * c4))
-                : make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ void wgrad_a_load(const WMaps& maps, const WMat& M,
+                                             uint32_t dst, int i0, long long r,
+                                             uint32_t bar) {
+  for (int b = 0; b < WT / 32; ++b) {
+    const uint32_t at = dst + b * WK * 128;
+    if (M.a_map == A_STASH)
+      tma_load_3d(at, &maps.a[A_STASH], M.a_col0 + i0 + 32 * b, (int)r,
+                  M.a_slab, bar);
+    else
+      tma_load_2d(at, &maps.a[M.a_map], M.a_col0 + i0 + 32 * b, (int)r, bar);
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-    float_wgrad_kernel(const __grid_constant__ WParams P) {
-  __shared__ __align__(16) float as[KS * WLD];
-  __shared__ __align__(16) float bs[KS * WLD];
+__global__ void __launch_bounds__(NTHREADS, 1)
+    float_wgrad_kernel(const __grid_constant__ WParams P,
+                       const __grid_constant__ WMaps maps) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + W_STAGES * W_STAGE_BYTES;
+  const uint32_t empty = full + 8 * W_STAGES;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < W_STAGES; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
   int mi = 0;
   while (mi + 1 < P.nmat && (int)blockIdx.x >= P.mat[mi + 1].cta_begin) ++mi;
   const WMat& M = P.mat[mi];
   const int local = blockIdx.x - M.cta_begin;
   const int split = local % P.splits, tile = local / P.splits;
-  const int m0 = tile / M.ctiles * WT, c0 = tile % M.ctiles * WT;
+  const int i0 = tile / M.otiles * WT, o0 = tile % M.otiles * WT;
   const long long rb = split * P.rows_per_split;
   const long long re = min(P.n, rb + P.rows_per_split);
+  const int chunks = rb < re ? (int)((re - rb + WK - 1) / WK) : 0;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = (warp >> 1) * 32, wc = (warp & 1) * 64;
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  float4 pa[WPRE], pb[WPRE];
-  auto store = [&]() {
-#pragma unroll
-    for (int j = 0; j < WPRE; ++j) {
-      const int e = tid + j * THREADS, k = e / (WT / 4), c4 = e % (WT / 4);
-      *reinterpret_cast<float4*>(as + k * WLD + 4 * c4) = pa[j];
-      *reinterpret_cast<float4*>(bs + k * WLD + 4 * c4) = pb[j];
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if (threadIdx.x != 0) return;
+    const int bslab = M.b_map == B_GT ? M.b_slab : 0;
+    for (int c = 0; c < chunks; ++c) {
+      const uint32_t stage = c % W_STAGES, parity = (c / W_STAGES) & 1;
+      mbar_wait(empty + 8 * stage, parity ^ 1);
+      const uint32_t bar = full + 8 * stage;
+      mbar_arrive_expect_tx(bar, W_STAGE_BYTES);
+      const uint32_t dst = base + stage * W_STAGE_BYTES;
+      const long long r = rb + (long long)c * WK;
+      wgrad_a_load(maps, M, dst, i0, r, bar);
+      for (int pl = 0; pl < 2; ++pl) {
+        const uint32_t at = dst + WA_BYTES + pl * WB_PLANE;
+        if (M.b_map == B_GT)
+          tma_load_3d(at, &maps.b[pl][B_GT], (int)r, o0, bslab, bar);
+        else
+          tma_load_2d(at, &maps.b[pl][M.b_map], (int)r, o0, bar);
+      }
     }
+    return;
+  }
+  const int tid = threadIdx.x - wg * 128, c = wg - 1;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  // The thread's in-rows of the tile: irow, irow + 8.
+  const int irow = c * 64 + warp * 16 + g;
+  float acc[WT / 2], part[WT / 2];
+#pragma unroll
+  for (int j = 0; j < WT / 2; ++j) acc[j] = 0.f;
+  // A fragment of k8 step k of a stage: act^T [in irow (+8), rows k + t
+  // (+4)], element (row, in) of the [32, 128] tile of [32 rows, 32 in]
+  // blocks.
+  auto a_el = [&](const unsigned char* a, int i, int k) {
+    return *reinterpret_cast<const float*>(
+        a + (i >> 5) * WK * 128 + k * 128 +
+        ((((i & 31) >> 2) ^ (k & 7)) << 4) + ((i & 3) << 2));
   };
-  if (rb < re) {
-    fetch_wgrad(pa, pb, M, rb, re, m0, c0, tid);
-    store();
-  }
-  __syncthreads();
-#pragma unroll 1
-  for (long long r = rb; r < re; r += KS) {
-    if (r + KS < re) fetch_wgrad(pa, pb, M, r + KS, re, m0, c0, tid);
-    AFrag af[2][2];  // [k8 step][m16 tile]
+  AFrag af[2];
+  for (int ch = 0; ch < chunks; ++ch) {
+    const uint32_t stage = ch % W_STAGES, parity = (ch / W_STAGES) & 1;
+    const unsigned char* a = smem + stage * W_STAGE_BYTES;
+    const uint32_t b = base + stage * W_STAGE_BYTES + WA_BYTES;
+    mbar_wait(full + 8 * stage, parity);
+    // The chunk's products into a zeroed partial sum, then a rounded f32
+    // add: these sums run over ~10^4 rows, and the tensor cores add with
+    // truncation.
 #pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float* a = as + (ks * 8 + t) * WLD + wm + i * 16 + g;
-        af[ks][i].set(a[0], a[8], a[4 * WLD], a[4 * WLD + 8]);
-      }
-    // A chunk's products into a zeroed partial sum, then a rounded add (see
-    // slice_products): these sums run over ~10^4 rows.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      float part[2][4] = {};
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const float* b = bs + (ks * 8 + t) * WLD + wc + j * 8 + g;
-        BFrag bf;
-        bf.set(b[0], b[4 * WLD]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma3(part[i], af[ks][i], bf);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][e];
+    for (int k8 = 0; k8 < WK / 8; ++k8) {
+      AFrag& f = af[k8 & 1];
+      const int k = k8 * 8 + t;
+      f.set(a_el(a, irow, k), a_el(a, irow + 8, k), a_el(a, irow, k + 4),
+            a_el(a, irow + 8, k + 4));
+      wgmma_fence();
+      mma3<WT>(part, f, smem_desc_k<128>(b + 32 * k8),
+               smem_desc_k<128>(b + WB_PLANE + 32 * k8), k8 > 0);
+      wgmma_commit();
+      if (k8 > 0) wgmma_wait<1>();
     }
-    __syncthreads();
-    if (r + KS < re) {
-      store();
-      __syncthreads();
-    }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+#pragma unroll
+    for (int j = 0; j < WT / 2; ++j) acc[j] += part[j];
   }
 
-  float* out = P.part + M.part + (long long)split * M.m * M.nc;
+  // acc element (in irow (+8), out 8 j + 2 t (+1)) -> the [outs, ins]
+  // partial of this split.
+  float* out = P.part + M.part + (long long)split * M.outs * M.ins;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int i = i0 + irow + 8 * h2;
+    if (i >= M.ins) continue;
 #pragma unroll
-    for (int h2 = 0; h2 < 2; ++h2) {
-      const int m = m0 + wm + i * 16 + g + 8 * h2;
-      if (m >= M.m) continue;
+    for (int j = 0; j < WT / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = c0 + wc + j * 8 + 2 * t;
-        if (c < M.nc)
-          *reinterpret_cast<float2*>(out + (long long)m * M.nc + c) =
-              make_float2(acc[i][j][2 * h2], acc[i][j][2 * h2 + 1]);
+      for (int e = 0; e < 2; ++e) {
+        const int o = o0 + j * 8 + 2 * t + e;
+        if (o < M.outs) out[(long long)o * M.ins + i] = acc[4 * j + 2 * h2 + e];
       }
-    }
+  }
 }
 
 // Every matrix's partials summed over the splits in order, into gw.
 __global__ void float_wgrad_reduce_kernel(const __grid_constant__ WParams P,
-                                        long long elems) {
+                                          long long elems) {
   const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= elems) return;
   int mi = 0;
   while (mi + 1 < P.nmat && e >= P.mat[mi + 1].elem_begin) ++mi;
   const WMat& M = P.mat[mi];
-  const long long local = e - M.elem_begin, count = (long long)M.m * M.nc;
+  const long long local = e - M.elem_begin, count = (long long)M.outs * M.ins;
   const float* src = P.part + M.part + local;
   float s = 0.f;
   for (int sp = 0; sp < P.splits; ++sp) s += src[sp * count];
-  P.gw[M.dst + local / M.nc * M.ld_dst + local % M.nc] = s;
+  P.gw[M.dst + local / M.ins * M.ld_dst + local % M.ins] = s;
 }
 
 // ------------------------------------------------------------------ host
@@ -1034,68 +1509,76 @@ bool known_width(int hidden) {
          hidden == 384 || hidden == 512;
 }
 
+int chain_rows(int hidden) { return hidden <= 256 ? 2 * WG_ROWS : WG_ROWS; }
+
+// CShape<hidden>::SCRATCH, on the host.
+long long chain_scratch(int hidden) {
+  const int nw = hidden <= 256 ? hidden : hidden / 2;
+  const int np = hidden <= 256 && hidden % 128 == 0 ? 128 : 64;
+  return 256LL * (nw / np - 1) * (np / 2);
+}
+
 long long chain_tiles(long long n, int hidden) {
-  return (n + tile_rows(hidden) - 1) / tile_rows(hidden);
+  return (n + chain_rows(hidden) - 1) / chain_rows(hidden);
+}
+
+// The row stride of the transposed cotangent slabs: every row of every
+// chain tile (the rows past n hold zeros).
+long long slab_ld(long long n, int hidden) {
+  return chain_tiles(n, hidden) * chain_rows(hidden);
 }
 
 // The weight-gradient matrices in the packed layout (w_off may be null for
 // the workspace query: only the sizes are read then), their tiles, and the
-// split of the rows: about two blocks per SM over all tiles.
+// split of the rows: about one CTA per SM over all tiles.
 struct WPlan {
   WParams P;
   long long part_floats, elems;
   int ctas;
 };
 
-WPlan make_wplan(long long n, int hidden, int sms, const long long* w_off,
-                 const float* ipe, const float* stash, const float* stash_h,
-                 const float* gs, const float* gd, const float* gt) {
+WPlan make_wplan(long long n, int hidden, int sms, const long long* w_off) {
   WPlan W = {};
   WParams& P = W.P;
   static const long long no_off[NW] = {};
   const long long* wo = w_off != nullptr ? w_off : no_off;
-  const long long h = hidden, slab = n * h;
-  auto add = [&](const float* a, int lda, int m, const float* b, int ldb,
-                 int nc, long long dst, int ld_dst) {
+  auto add = [&](int a_map, int a_slab, int a_col0, int ins, int b_map,
+                 int b_slab, int outs, long long dst, int ld_dst) {
     WMat& M = P.mat[P.nmat++];
-    M.a = a;
-    M.lda = lda;
-    M.m = m;
-    M.b = b;
-    M.ldb = ldb;
-    M.nc = nc;
+    M.a_map = a_map;
+    M.a_slab = a_slab;
+    M.a_col0 = a_col0;
+    M.ins = ins;
+    M.b_map = b_map;
+    M.b_slab = b_slab;
+    M.outs = outs;
     M.dst = dst;
     M.ld_dst = ld_dst;
-    M.ctiles = (nc + WT - 1) / WT;
-  };
-  const float* gt_or0 = gt;  // null in the workspace query
-  auto at = [&](const float* base, long long off) {
-    return base != nullptr ? base + off : nullptr;
+    M.otiles = (outs + WT - 1) / WT;
+    M.itiles = (ins + WT - 1) / WT;
   };
   for (int i = 1; i < NTRUNK; ++i) {  // W_i [H, kin] from g_i, x_{i-1}
     const int kin = i == SKIP ? IPE + hidden : hidden;
-    add(at(gt_or0, i * slab), hidden, hidden, at(stash, (i - 1) * slab),
-        hidden, hidden, wo[i] + (i == SKIP ? IPE : 0), kin);
+    add(A_STASH, i - 1, 0, hidden, B_GT, i, hidden,
+        wo[i] + (i == SKIP ? IPE : 0), kin);
   }
-  add(at(gt_or0, SKIP * slab), hidden, hidden, ipe, IPE, IPE, wo[SKIP],
-      IPE + hidden);
-  add(gt_or0, hidden, hidden, ipe, IPE, IPE, wo[0], IPE);
-  add(at(gt_or0, NTRUNK * slab), hidden, hidden, at(stash, (NTRUNK - 1) * slab),
-      hidden, hidden, wo[W_FEAT], hidden);
-  // The dir layer [144, H]: g_h | g_alpha | 0 against feat.
-  add(gd, DHP, DHP, at(stash, NTRUNK * slab), hidden, hidden, wo[W_DIR],
+  add(A_IPE, 0, 0, IPE, B_GT, SKIP, hidden, wo[SKIP], IPE + hidden);
+  add(A_IPE, 0, 0, IPE, B_GT, 0, hidden, wo[0], IPE);
+  add(A_STASH, NTRUNK - 1, 0, hidden, B_GT, NTRUNK, hidden, wo[W_FEAT],
       hidden);
-  add(gs, GS_W, NHEAD, stash_h, DH, DH, wo[W_HEAD], DH);
+  // The dir layer [144, H]: g_h | g_alpha | 0 against feat; the heads [16,
+  // 128]: g_heads against h.
+  add(A_STASH, NTRUNK, 0, hidden, B_GD, 0, DHP, wo[W_DIR], hidden);
+  add(A_H, 0, 0, DH, B_GS, 0, NHEAD, wo[W_HEAD], DH);
 
   int tiles = 0;
-  for (int i = 0; i < P.nmat; ++i)
-    tiles += (P.mat[i].m + WT - 1) / WT * P.mat[i].ctiles;
-  int splits = (2 * sms + tiles - 1) / tiles;
-  const long long max_splits = (n + KS - 1) / KS;
+  for (int i = 0; i < P.nmat; ++i) tiles += P.mat[i].otiles * P.mat[i].itiles;
+  int splits = (sms + tiles / 2) / tiles;
+  const long long max_splits = (n + WK - 1) / WK;
   if (splits > max_splits) splits = (int)max_splits;
   if (splits < 1) splits = 1;
   P.splits = splits;
-  P.rows_per_split = ((n + splits - 1) / splits + KS - 1) / KS * KS;
+  P.rows_per_split = ((n + splits - 1) / splits + WK - 1) / WK * WK;
   P.n = n;
   long long part = 0, elems = 0;
   int ctas = 0;
@@ -1104,9 +1587,9 @@ WPlan make_wplan(long long n, int hidden, int sms, const long long* w_off,
     M.part = part;
     M.elem_begin = elems;
     M.cta_begin = ctas;
-    part += (long long)splits * M.m * M.nc;
-    elems += (long long)M.m * M.nc;
-    ctas += (M.m + WT - 1) / WT * M.ctiles * splits;
+    part += (long long)splits * M.outs * M.ins;
+    elems += (long long)M.outs * M.ins;
+    ctas += M.otiles * M.itiles * splits;
   }
   W.part_floats = part;
   W.elems = elems;
@@ -1115,11 +1598,13 @@ WPlan make_wplan(long long n, int hidden, int sms, const long long* w_off,
 }
 
 struct Layout {
-  size_t gs, gd, gt, bpart, gdp, dpart, part, total;
+  size_t gtb, gts, gdb, gds, gsb, gss, ghf, bpart, scratch, gdp, dpart, part,
+      total;
 };
 
-Layout layout(long long n, int samples, int hidden, long long part_floats) {
-  const long long rays = n / samples;
+Layout layout(long long n, int samples, int hidden, long long part_floats,
+              int sms) {
+  const long long rays = n / samples, ldt = slab_ld(n, hidden);
   const long long nb = 9LL * hidden + DHP + NHEAD;
   Layout L;
   size_t off = 0;
@@ -1128,10 +1613,16 @@ Layout layout(long long n, int samples, int hidden, long long part_floats) {
     off += align256(bytes);
     return at;
   };
-  L.gs = take(n * GS_W * sizeof(float));
-  L.gd = take(n * DHP * sizeof(float));
-  L.gt = take((size_t)(NTRUNK + 1) * n * hidden * sizeof(float));
-  L.bpart = take(chain_tiles(n, hidden) * nb * sizeof(float));
+  const size_t gt_bytes = (size_t)(NTRUNK + 1) * hidden * ldt * sizeof(float);
+  L.gtb = take(gt_bytes);
+  L.gts = take(gt_bytes);
+  L.gdb = take(DHP * ldt * sizeof(float));
+  L.gds = take(DHP * ldt * sizeof(float));
+  L.gsb = take(NHEAD * ldt * sizeof(float));
+  L.gss = take(NHEAD * ldt * sizeof(float));
+  L.ghf = take(n * DH * sizeof(float));
+  L.bpart = take((n + WG_ROWS - 1) / WG_ROWS * 2 * nb * sizeof(float));
+  L.scratch = take((size_t)sms * chain_scratch(hidden) * sizeof(float));
   L.gdp = take(rays * DH * sizeof(float));
   L.dpart = take((rays + DG_RAYS - 1) / DG_RAYS * DIRS * DH * sizeof(float));
   L.part = take(part_floats * sizeof(float));
@@ -1140,25 +1631,73 @@ Layout layout(long long n, int samples, int hidden, long long part_floats) {
 }
 
 template <int H>
-cudaError_t launch_chain(const CParams& p, cudaStream_t st) {
+cudaError_t launch_chain(const CParams& p, const float* w,
+                         const long long* w_off, cudaStream_t st) {
   using S = CShape<H>;
+  const long long plane = plane_floats(w_off);
+  CMaps maps = {};
+  bool ok = true;
+  for (int l = 1; l < NLAYER; ++l) {  // W0 meets no chain product
+    // Layer l transposed: [k_in, n_out], n_out (the chain's K) innermost;
+    // a box of the rows (columns of the product) of one consumer's pass.
+    const int rows = mat_cols(l, H), cols = mat_rows(l, H);
+    const cuuint32_t box_rows = S::NP;
+    ok = ok && map2(&maps.wb[l], w + 3 * plane + w_off[l], cols, rows, cols,
+                    KS, box_rows, CU_TENSOR_MAP_SWIZZLE_32B);
+    ok = ok && map2(&maps.ws[l], w + 4 * plane + w_off[l], cols, rows, cols,
+                    KS, box_rows, CU_TENSOR_MAP_SWIZZLE_32B);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
   static const cudaError_t setup = cudaFuncSetAttribute(
       float_chain_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)S::SMEM);  // once per process and instantiation
   if (setup != cudaSuccess) return setup;
-  float_chain_kernel<H><<<(unsigned)chain_tiles(p.n, H), THREADS, S::SMEM,
-                          st>>>(p);
+  const long long tiles = (p.n + S::BM - 1) / S::BM;
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  float_chain_kernel<H><<<grid, NTHREADS, S::SMEM, st>>>(p, maps);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// The four TF32 planes of a float32 weight pack, on `stream`: `w` holds
+// five planes of P = w_off[11] + 128 * 32 floats each, the first the
+// packed f32 weights of a network of width `hidden` (kernels/fused_mlp.py::
+// pack_weights); this writes the second and third (every weight's big and
+// small TF32 part, in the packed layout) and the fourth and fifth (the same,
+// each matrix transposed to [in, out] at its own offset).  Returns a
+// cudaError_t.
+extern "C" int ddnerf_tf32_split(void* w, int hidden, const long long* w_off,
+                                 void* stream) {
+  if (!known_width(hidden)) return cudaErrorInvalidValue;
+  SplitParams p = {};
+  p.plane = plane_floats(w_off);
+  float* base = static_cast<float*>(w);
+  p.w = base;
+  p.big = base + p.plane;
+  p.small = base + 2 * p.plane;
+  p.big_t = base + 3 * p.plane;
+  p.small_t = base + 4 * p.plane;
+  for (int l = 0; l < NW; ++l) {
+    p.off[l] = w_off[l];
+    p.rows[l] = mat_rows(l, hidden);
+  }
+  p.off[NW] = p.plane;
+  tf32_split_kernel<<<(unsigned)((p.plane + 255) / 256), 256, 0,
+                      static_cast<cudaStream_t>(stream)>>>(p);
+  return cudaGetLastError();
+}
+
 // The float32 forward on `stream`: the dir projection, then the network at
 // width `hidden`.  Device pointers: ipe [n, 96] f32, dirs [n / samples, 27]
-// f32, packed f32 weights and biases, dproj [n / samples, 128] f32 scratch,
-// out [n, 4|6] f32, and in stash mode stash [9, n, hidden] and stash_h
-// [n, 128] f32 (both null in render mode).  w_off (12 entries) and b_off
-// (4) are host arrays.  Returns a cudaError_t.
+// f32, w the float32 weight pack with its TF32 planes (ddnerf_tf32_split),
+// packed biases, dproj [n / samples, 128] f32 scratch, out [n, 4|6] f32,
+// and in stash mode stash [9, n, hidden] and stash_h [n, 128] f32 (both
+// null in render mode).  w_off (12 entries) and b_off (4) are host arrays.
+// Returns a cudaError_t.
 extern "C" int ddnerf_fused_mlp_fwd_f32(const void* ipe, const void* dirs,
                                         const void* w, const void* b,
                                         void* dproj, void* out, void* stash,
@@ -1170,17 +1709,14 @@ extern "C" int ddnerf_fused_mlp_fwd_f32(const void* ipe, const void* dirs,
   if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
   if ((stash == nullptr) != (stash_h == nullptr)) return cudaErrorInvalidValue;
   FParams p = {};
-  p.ipe = static_cast<const float*>(ipe);
-  p.w = static_cast<const float*>(w);
   p.b = static_cast<const float*>(b);
   p.dproj = static_cast<const float*>(dproj);
   p.out = static_cast<float*>(out);
-  p.stash = static_cast<float*>(stash);
-  p.stash_h = static_cast<float*>(stash_h);
   p.n = n;
   p.samples = samples;
   p.out_dim = depth_head ? 6 : 4;
-  return run_fwd<false>(p, dirs, hidden, w_off, b_off,
+  p.stash = stash != nullptr;
+  return run_fwd<false>(p, ipe, dirs, w, stash, stash_h, hidden, w_off, b_off,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -1200,15 +1736,14 @@ extern "C" int ddnerf_fused_enc_mlp_fwd_f32(const void* means,
   FParams p = {};
   p.means = static_cast<const float*>(means);
   p.covs = static_cast<const float*>(covs);
-  p.w = static_cast<const float*>(w);
   p.b = static_cast<const float*>(b);
   p.dproj = static_cast<const float*>(dproj);
   p.out = static_cast<float*>(out);
   p.n = n;
   p.samples = samples;
   p.out_dim = depth_head ? 6 : 4;
-  return run_fwd<true>(p, dirs, hidden, w_off, b_off,
-                       static_cast<cudaStream_t>(stream));
+  return run_fwd<true>(p, nullptr, dirs, w, nullptr, nullptr, hidden, w_off,
+                       b_off, static_cast<cudaStream_t>(stream));
 }
 
 // Bytes of device workspace that ddnerf_fused_mlp_bwd_f32 needs.
@@ -1218,15 +1753,15 @@ extern "C" long long ddnerf_fused_mlp_bwd_workspace_f32(long long n,
   if (n <= 0 || samples <= 0 || n % samples || !known_width(hidden)) return -1;
   int sms = 0;
   if (sm_count(&sms) != cudaSuccess) return -1;
-  const WPlan W = make_wplan(n, hidden, sms, nullptr, nullptr, nullptr,
-                             nullptr, nullptr, nullptr, nullptr);
-  return (long long)layout(n, samples, hidden, W.part_floats).total;
+  const WPlan W = make_wplan(n, hidden, sms, nullptr);
+  return (long long)layout(n, samples, hidden, W.part_floats, sms).total;
 }
 
 // Parameter gradients of the float32 network on `stream`.  Device
 // pointers: ipe [n, 96] f32, dirs [n / samples, 27] f32, g [n, 4|6] f32,
-// the forward's stash [9, n, hidden] and stash_h [n, 128] f32, packed f32
-// weights w; outputs gw (f32, laid out as w) and gb (f32, laid out as the
+// the forward's stash [9, n, hidden] and stash_h [n, 128] f32, w the
+// float32 weight pack with its TF32 planes (ddnerf_tf32_split); outputs gw
+// (f32, laid out as the pack's first plane) and gb (f32, laid out as the
 // packed biases); ws a workspace of ddnerf_fused_mlp_bwd_workspace_f32
 // bytes.  per_ray (kernel_per_ray_dirs) selects nothing here: at f32 both
 // settings are the same sum (see the top of the file).  w_off (12 entries)
@@ -1239,47 +1774,53 @@ extern "C" int ddnerf_fused_mlp_bwd_f32(
     void* stream) {
   (void)per_ray;
   if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
-  if (!known_width(hidden)) return cudaErrorInvalidValue;
+  if (!known_width(hidden) || n > 0x7fffffffLL - 512)
+    return cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  const long long rays = n / samples;
+  const long long rays = n / samples, ldt = slab_ld(n, hidden);
   const int nb = 9 * hidden + DHP + NHEAD;
   if (b_off[3] + NHEAD != nb) return cudaErrorInvalidValue;
-  const WPlan probe = make_wplan(n, hidden, sms, w_off, nullptr, nullptr,
-                                 nullptr, nullptr, nullptr, nullptr);
-  const Layout L = layout(n, samples, hidden, probe.part_floats);
+  WPlan W = make_wplan(n, hidden, sms, w_off);
+  const Layout L = layout(n, samples, hidden, W.part_floats, sms);
   if (ws_bytes < (long long)L.total) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   unsigned char* base = static_cast<unsigned char*>(ws);
+  auto at = [&](size_t off) { return reinterpret_cast<float*>(base + off); };
 
   CParams p = {};
   p.g = static_cast<const float*>(g);
-  p.w = static_cast<const float*>(w);
   p.stash = static_cast<const float*>(stash);
   p.stash_h = static_cast<const float*>(stash_h);
-  p.gs = reinterpret_cast<float*>(base + L.gs);
-  p.gd = reinterpret_cast<float*>(base + L.gd);
-  p.gt = reinterpret_cast<float*>(base + L.gt);
-  p.bpart = reinterpret_cast<float*>(base + L.bpart);
+  p.gtb = at(L.gtb);
+  p.gts = at(L.gts);
+  p.gdb = at(L.gdb);
+  p.gds = at(L.gds);
+  p.gsb = at(L.gsb);
+  p.gss = at(L.gss);
+  p.ghf = at(L.ghf);
+  p.bpart = at(L.bpart);
+  p.scratch = at(L.scratch);
   p.n = n;
+  p.ldt = ldt;
   p.out_dim = depth_head ? 6 : 4;
   p.nb = nb;
-  for (int i = 0; i < NW; ++i) p.w_off[i] = w_off[i];
   for (int i = 0; i < NB_OFF; ++i) p.b_off[i] = b_off[i];
+  const float* wp = static_cast<const float*>(w);
   switch (hidden) {
-    case 64: e = launch_chain<64>(p, st); break;
-    case 128: e = launch_chain<128>(p, st); break;
-    case 192: e = launch_chain<192>(p, st); break;
-    case 256: e = launch_chain<256>(p, st); break;
-    case 384: e = launch_chain<384>(p, st); break;
-    default: e = launch_chain<512>(p, st); break;
+    case 64: e = launch_chain<64>(p, wp, w_off, st); break;
+    case 128: e = launch_chain<128>(p, wp, w_off, st); break;
+    case 192: e = launch_chain<192>(p, wp, w_off, st); break;
+    case 256: e = launch_chain<256>(p, wp, w_off, st); break;
+    case 384: e = launch_chain<384>(p, wp, w_off, st); break;
+    default: e = launch_chain<512>(p, wp, w_off, st); break;
   }
   if (e != cudaSuccess) return e;
 
-  float* gdp = reinterpret_cast<float*>(base + L.gdp);
-  float* dpart = reinterpret_cast<float*>(base + L.dpart);
-  float_dproj_grad_kernel<<<(unsigned)rays, DH, 0, st>>>(p.gd, gdp, samples);
+  float* gdp = at(L.gdp);
+  float* dpart = at(L.dpart);
+  float_dproj_grad_kernel<<<(unsigned)rays, DH, 0, st>>>(p.ghf, gdp, samples);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   const int blocks = (int)((rays + DG_RAYS - 1) / DG_RAYS);
@@ -1292,19 +1833,36 @@ extern "C" int ddnerf_fused_mlp_bwd_f32(
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  WPlan W = make_wplan(n, hidden, sms, w_off, static_cast<const float*>(ipe),
-                       p.stash, p.stash_h, p.gs, p.gd, p.gt);
-  W.P.part = reinterpret_cast<float*>(base + L.part);
+  WMaps maps = {};
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  bool ok = map2(&maps.a[A_IPE], ipe, IPE, n, IPE, 32, WK, sw) &&
+            map3(&maps.a[A_STASH], stash, hidden, n, NTRUNK + 1, hidden, 32,
+                 WK, sw) &&
+            map2(&maps.a[A_H], stash_h, DH, n, DH, 32, WK, sw);
+  for (int pl = 0; pl < 2 && ok; ++pl) {
+    ok = map3(&maps.b[pl][B_GT], pl ? p.gts : p.gtb, ldt, hidden, NTRUNK + 1,
+              ldt, WK, WT, sw) &&
+         map2(&maps.b[pl][B_GD], pl ? p.gds : p.gdb, ldt, DHP, ldt, WK, WT,
+              sw) &&
+         map2(&maps.b[pl][B_GS], pl ? p.gss : p.gsb, ldt, NHEAD, ldt, WK, WT,
+              sw);
+  }
+  if (!ok) return cudaErrorInvalidValue;
+  W.P.part = at(L.part);
   W.P.gw = static_cast<float*>(gw);
-  float_wgrad_kernel<<<(unsigned)W.ctas, THREADS, 0, st>>>(W.P);
+  static const cudaError_t setup = cudaFuncSetAttribute(
+      float_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)W_SMEM);
+  if (setup != cudaSuccess) return setup;
+  float_wgrad_kernel<<<(unsigned)W.ctas, NTHREADS, W_SMEM, st>>>(W.P, maps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  float_wgrad_reduce_kernel<<<(unsigned)((W.elems + 255) / 256), 256, 0, st>>>(
-      W.P, W.elems);
+  float_wgrad_reduce_kernel<<<(unsigned)((W.elems + 255) / 256), 256, 0,
+                              st>>>(W.P, W.elems);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  float_bias_reduce_kernel<<<(nb + BR_COLS - 1) / BR_COLS, BR_COLS * BR_GROUPS, 0,
-                           st>>>(p.bpart, static_cast<float*>(gb),
-                                 chain_tiles(n, hidden), nb);
+  float_bias_reduce_kernel<<<(nb + BR_COLS - 1) / BR_COLS,
+                             BR_COLS * BR_GROUPS, 0, st>>>(
+      p.bpart, static_cast<float*>(gb), (n + WG_ROWS - 1) / WG_ROWS, nb);
   return cudaGetLastError();
 }

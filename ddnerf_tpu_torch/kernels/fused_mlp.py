@@ -4,7 +4,8 @@ covariances (the in-kernel IPE), the backward (``csrc/fused_mlp_bwd.cu``),
 and the ``autograd.Function`` that joins them for training.  Each wrapper
 dispatches on the network's compute dtype: bfloat16 runs those kernels,
 float32 their float32 counterparts (``csrc/fused_mlp_f32.cu``, counted
-under the same names with ``_f32`` appended), which round nothing.
+under the same names with ``_f32`` appended), which round nothing and
+read the float32 pack's TF32 planes (:func:`with_tf32_planes`).
 
 Replaces ``ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward`` (render
 mode, and ``stash=True``), ``fused_enc_mlp_forward`` (render only),
@@ -36,7 +37,7 @@ runs no Python that could notice a changed parameter.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -47,6 +48,7 @@ from ddnerf_tpu_torch.kernels.reference import (
     fused_mlp_backward_reference,
     fused_mlp_reference,
     fused_mlp_stash_reference,
+    tf32_split_pack_reference,
 )
 from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
 
@@ -129,6 +131,61 @@ class KernelWeights(NamedTuple):
     b: torch.Tensor  # f32 biases
     w_off: tuple  # 12 element offsets into w
     b_off: tuple  # 4 element offsets into b
+    # float32 only: w followed by its TF32 planes, one buffer whose first
+    # plane w views (:func:`with_tf32_planes`); None at bfloat16.
+    planes: Optional[torch.Tensor] = None
+
+
+# The float32 pack's planes: w itself, every weight's TF32 big and small
+# part (big = tf32(x), small = tf32(x - big); tf32 rounds to nearest, ties
+# away from zero), in the packed layout and transposed (matrix [out, in] ->
+# [in, out] at its own offset).
+TF32_PLANES = ("f32", "big", "small", "big_t", "small_t")
+
+
+def plane_size(w_off) -> int:
+    """Elements of one plane of a pack with offsets ``w_off``: its last
+    matrix, Wd_dirs, is [128, 32]."""
+    return w_off[-1] + DIR_HIDDEN * DIRS_LD
+
+
+def packed_rows(width: int) -> tuple:
+    """Rows (outputs) of the 12 packed matrices at kernel width ``width``."""
+    return (width,) * 9 + (DIR_LAYER_ROWS, HEAD_ROWS, DIR_HIDDEN)
+
+
+def with_tf32_planes(kw: KernelWeights) -> KernelWeights:
+    """``kw`` (a float32 pack) with its TF32 planes: one buffer of
+    ``len(TF32_PLANES)`` planes, the first ``kw.w``, the others made by the
+    split kernel (``csrc/fused_mlp_f32.cu::tf32_split_kernel``) on a card
+    and by its plain version on the CPU.  The float32 kernels read the
+    planes from the pack's address: the returned ``w`` is a view of the
+    buffer's first plane."""
+    plane = plane_size(kw.w_off)
+    width = (kw.w_off[1] - kw.w_off[0]) // IPE_DIM  # W0 is [width, 96]
+    buf = kw.w.new_empty(len(TF32_PLANES) * plane)
+    buf[:plane] = kw.w
+    if buf.is_cuda:
+        from ddnerf_tpu_torch.kernels import build
+
+        lib = build.load_library()
+        err = lib.ddnerf_tf32_split(
+            buf.data_ptr(), width, _offsets(kw)[0],
+            torch.cuda.current_stream(buf.device).cuda_stream)
+        build.check(lib, err, "tf32_split")
+    else:
+        tf32_split_pack_reference(buf, kw.w_off, packed_rows(width))
+    return kw._replace(w=buf[:plane], planes=buf)
+
+
+def _weights_ptr(kw: KernelWeights, cdt: torch.dtype) -> int:
+    """The address of the pack a kernel reads: a float32 pack's planes."""
+    if cdt != torch.float32:
+        return kw.w.data_ptr()
+    if kw.planes is None or kw.planes.data_ptr() != kw.w.data_ptr():
+        raise ValueError("a float32 pack must carry its TF32 planes "
+                         "(with_tf32_planes), its w their first plane")
+    return kw.planes.data_ptr()
 
 
 @torch.no_grad()
@@ -137,9 +194,10 @@ def pack_weights(net) -> KernelWeights:
     :func:`kernel_width`: a narrower network's trunk, fc_feat and dir-layer
     matrices and biases get zero rows and columns past its width.  Weights
     are cast to the network's compute dtype (bf16: round-to-nearest-even, as
-    the TPU kernel's ``astype``; float32: unchanged); biases stay f32.  The
-    backward kernel
-    writes its f32 gradients in the same layout (:func:`unpack_grads`)."""
+    the TPU kernel's ``astype``; float32: unchanged, with the TF32 planes
+    of :func:`with_tf32_planes` beside them); biases stay f32.  The backward
+    kernel writes its f32 gradients in the layout of ``w``
+    (:func:`unpack_grads`)."""
     hid, dh = net.hidden_size, net.dir_hidden
     width = kernel_width(hid)
     ref = net.fc_feat.weight
@@ -189,7 +247,8 @@ def pack_weights(net) -> KernelWeights:
     assert all(o % 8 == 0 for o in w_off), w_off
     w = torch.cat([m.reshape(-1) for m in mats]).to(net.compute_dtype)
     b = torch.cat([t.reshape(-1) for t in biases]).float()
-    return KernelWeights(w.contiguous(), b.contiguous(), w_off, b_off)
+    kw = KernelWeights(w.contiguous(), b.contiguous(), w_off, b_off)
+    return with_tf32_planes(kw) if net.compute_dtype == torch.float32 else kw
 
 
 def unpack_grads(net, kw: KernelWeights, gw: torch.Tensor,
@@ -353,7 +412,8 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     entry = (lib.ddnerf_fused_mlp_fwd_f32 if cdt == torch.float32
              else lib.ddnerf_fused_mlp_fwd)
     err = entry(
-        ipe_c.data_ptr(), dirs_c.data_ptr(), kw.w.data_ptr(), kw.b.data_ptr(),
+        ipe_c.data_ptr(), dirs_c.data_ptr(), _weights_ptr(kw, cdt),
+        kw.b.data_ptr(),
         dproj.data_ptr(), out.data_ptr(),
         acts.trunk.data_ptr() if stash else None,
         acts.h.data_ptr() if stash else None,
@@ -401,7 +461,8 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
              else lib.ddnerf_fused_enc_mlp_fwd)
     err = entry(
         means32.data_ptr(), covs32.data_ptr(), dirs_c.data_ptr(),
-        kw.w.data_ptr(), kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(),
+        _weights_ptr(kw, cdt), kw.b.data_ptr(), dproj.data_ptr(),
+        out.data_ptr(),
         n, k, kernel_width(net.hidden_size), int(net.depth_head),
         *_offsets(kw), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -479,7 +540,7 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     entry = lib.ddnerf_fused_mlp_bwd_f32 if f32 else lib.ddnerf_fused_mlp_bwd
     err = entry(
         ipe_c.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
-        trunk.data_ptr(), h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(),
+        trunk.data_ptr(), h.data_ptr(), _weights_ptr(kw, cdt), gw.data_ptr(),
         gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
         int(net.depth_head), int(per_ray_dirs), *_offsets(kw),
         torch.cuda.current_stream(dev).cuda_stream,

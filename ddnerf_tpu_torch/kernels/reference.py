@@ -10,7 +10,10 @@ interface: flat ray-major rows and per-ray view directions.
   fused_enc_mlp_forward``): the direct-form IPE, then the forward;
 * :func:`fused_mlp_backward_reference` — the backward (B2,
   ``ddnerf_tpu/kernels/fused_mlp_bwd.py::_bwd_kernel``), written out with
-  the kernel's rounding points.
+  the kernel's rounding points;
+* :func:`tf32_split_pack_reference` — the TF32 planes of a float32 weight
+  pack (``csrc/fused_mlp_f32.cu::tf32_split_kernel``), from
+  :func:`tf32_round` and :func:`tf32_split` on the float32 bits.
 
 The forward arithmetic is the module's own (:mod:`ddnerf_tpu_torch.models.
 mlp`: operands rounded to the compute dtype, float32 products and
@@ -30,6 +33,29 @@ import torch
 from ddnerf_tpu_torch.core.math import integrated_pos_enc
 
 NUM_STASH = 9  # x0..x7, feat: the first 7 slabs are the TPU split layout
+TF32_DROP = 13  # float32 mantissa bits below TF32's ten
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` of every element of float32 ``x``: the nearest
+    value with the low :data:`TF32_DROP` mantissa bits zero, ties away from
+    zero, in integer arithmetic on the bits (adding half of the dropped
+    unit to the magnitude, then clearing the dropped bits; a carry moves
+    into the exponent, up to infinity past the largest TF32 value).
+    Subnormals round the same way; infinities and NaNs stay as they are."""
+    bits = x.contiguous().view(torch.int32)
+    finite = (bits & 0x7F800000) != 0x7F800000
+    half = 1 << (TF32_DROP - 1)
+    rounded = (bits + half) & ~((1 << TF32_DROP) - 1)
+    return torch.where(finite, rounded, bits).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """``(big, small)``: ``big = tf32_round(x)``, ``small = tf32_round(x -
+    big)`` (``x - big`` is exact in float32), so that ``big + small`` is
+    ``x`` to within ``2**-22 |x|``."""
+    big = tf32_round(x)
+    return big, tf32_round(x - big)
 
 
 class Stash(NamedTuple):
@@ -158,3 +184,22 @@ def fused_mlp_backward_reference(net, ipe: torch.Tensor, dirs: torch.Tensor,
             w = q(net.layers_xyz[i].weight)
             gx = gi_c @ (w[:, ipe.shape[1]:] if i == net.skip_layer else w)
     return {name: grads[name] for name, _ in net.named_parameters()}
+
+
+@torch.no_grad()
+def tf32_split_pack_reference(buf: torch.Tensor, w_off, rows) -> None:
+    """Fill planes 1..4 of ``buf`` (five planes of a float32 weight pack,
+    the first the packed weights with matrix offsets ``w_off`` and row
+    counts ``rows``): every weight's big and small TF32 part in the packed
+    layout, then both with each matrix transposed to [in, out] at its own
+    offset."""
+    plane = buf.numel() // 5
+    w = buf[:plane]
+    big, small = tf32_split(w)
+    buf[plane:2 * plane] = big
+    buf[2 * plane:3 * plane] = small
+    ends = (*w_off[1:], plane)
+    for o, e, r in zip(w_off, ends, rows):
+        for i, part in ((3, big), (4, small)):
+            buf[i * plane + o:i * plane + e] = \
+                part[o:e].view(r, -1).T.reshape(-1)
