@@ -118,15 +118,30 @@ Run from the repository root.  Phases, each of which fails the run:
    iteration), eval of one image, one video frame through B1 and one
    through B3, that run's eval image and video frame through B1 and B3
    against the plain version by PSNR, 20 captured iterations against 20
-   eager ones bit for bit, and 20 steps kernel vs plain.
+   eager ones bit for bit, and 20 steps kernel vs plain;
+18. float32 compute (:func:`phase_f32_kernels` and the float32 CLI path);
+19. widths above 512 and the microbatched step: (a) the wide plan's B1,
+   B3, B1s and B2 (``csrc/fused_mlp_wide.cu``, counted ``wide_*``) at 600,
+   768 and 1024 in bf16 and float32 against their plain versions under
+   the gates of phases 17 and 18 on a ragged row count and, at 1024, on
+   the main paths' shapes, two faults at 1024 outside B2's stage limits,
+   three outside the float32 limits, the times at 1024 beside the bounds;
+   (b) a coarse-600 / fine-1024 run through the three CLIs in both dtypes,
+   its frames against the plain version, 20 captured iterations against 20
+   eager ones and 20 steps kernel vs plain, and the same at bf16 for a
+   coarse-256 / fine-1024 pair, whose one step runs both plans' kernels;
+   (c) 8192 rays a step in 4 microbatches of 2048,
+   captured against eager bit for bit (8 B1s + 8 B2 a step) in both
+   dtypes, its peak device memory below the monolithic 8192-ray step's.
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15,
-16 and 17 (over every rank), each counted from 0.  The single-process CLI
-runs of phases 5-10, 15 and 17 are calls of each CLI's ``main`` in one worker
+16, 17, 18 and 19 (over every rank), each counted from 0.  The
+single-process CLI runs of phases 5-10, 15 and 17-19 are calls of each
+CLI's ``main`` in one worker
 process, one after another, every count set to 0 before each call; the
 rehearsals and the torchrun launches are processes of their own.  Every
 Python process a phase starts, every rank included, lists its imports, and
@@ -721,14 +736,18 @@ def _b2_launch(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
     g32 = g.float().contiguous()
     gw = torch.empty(kw.w.numel(), dtype=torch.float32, device=dev)
     gb = torch.empty(kw.b.numel(), dtype=torch.float32, device=dev)
-    ws_bytes = lib.ddnerf_fused_mlp_bwd_workspace(n, k, hid)
+    wide = fk.is_wide(hid)
+    ws_bytes = (lib.ddnerf_wide_bwd_workspace(n, k, hid, 0) if wide
+                else lib.ddnerf_fused_mlp_bwd_workspace(n, k, hid))
     ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=dev)
     trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
-    err = lib.ddnerf_fused_mlp_bwd(
-        ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(), trunk.data_ptr(),
-        h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(), gb.data_ptr(),
-        ws.data_ptr(), ws_bytes, n, k, hid, int(net.depth_head), int(per_ray),
-        *fk._offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
+    args = (ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
+            trunk.data_ptr(), h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(),
+            gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
+            int(net.depth_head), int(per_ray))
+    tail = (*fk._offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
+    err = (lib.ddnerf_wide_bwd(*args, 0, *tail) if wide
+           else lib.ddnerf_fused_mlp_bwd(*args, *tail))
     build.check(lib, err, "fused_mlp_bwd")
     torch.cuda.synchronize()
     return gw, gb, ws, kw
@@ -736,7 +755,8 @@ def _b2_launch(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
 
 def _b2_slabs(torch, ws, n, hid):
     """The cotangents B2 left in its workspace, where ``layout()`` in
-    csrc/fused_mlp_bwd.cu puts them (regions 256-byte aligned): ``gs [n,
+    csrc/fused_mlp_bwd.cu (and ``bwd_layout()`` in csrc/fused_mlp_wide.cu)
+    puts them (regions 256-byte aligned): ``gs [n,
     64]`` bf16 (g_heads | 0 | g_alpha at column 16), ``gd [n, 128]`` bf16
     (bf16(g_h)), ``ghf [n, 128]`` f32 (g_h), ``gt [9, n, H]`` bf16
     (bf16(g_0) .. bf16(g_7), bf16(g_feat))."""
@@ -762,7 +782,8 @@ def _packed_mats(kw, t, hid):
             for o, e, r in zip(kw.w_off, ends, rows)]
 
 
-def b2_stage_readings(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
+def b2_stage_readings(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None,
+                      fault=None):
     """B2 held stage by stage against float64 arithmetic fed the kernel's
     own cotangent slabs, so that a bf16 rounding flipped upstream (which a
     comparison of the end results carries down the chain) cannot mask or
@@ -785,6 +806,10 @@ def b2_stage_readings(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
       and the dirs weight gradient (g_dproj summed in float32 from the
       kernel's g_h, in row order, as ``per_ray`` says, times the dirs).
 
+    ``fault``: a function ``(gw, gb, slabs, kw, hid) -> (gw, gb)`` applied
+    to the kernel's packed gradients before they are read (a fault
+    injected into its results, to show that the readings see it).
+
     Also returns the kernel's gradients by name, through ``unpack_grads``.
     """
     from ddnerf_tpu_torch.kernels import fused_mlp as fk
@@ -794,6 +819,8 @@ def b2_stage_readings(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
     gw, gb, ws, kw = _b2_launch(torch, net, ipe, dirs, g, k, stash, per_ray,
                                 lib)
     sl = _b2_slabs(torch, ws, n, hid)
+    if fault is not None:
+        gw, gb = fault(gw, gb, sl, kw, hid)
     w = _packed_mats(kw, kw.w, hid)
     grad_w = _packed_mats(kw, gw, hid)
     x = stash.trunk.double()  # x0..x7, feat
@@ -893,6 +920,24 @@ def _exact_case(torch, cls, hidden, rays, k, dev, seed):
     return (net.to(dev), *ints)
 
 
+def _hold_forwards(phase, tag, errs, worst, f32=False):
+    """Each forward kernel's |kernel - plain| (``errs``: name -> tensors)
+    within MAX_ABS_TOL / MEAN_ABS_TOL (``f32``: max within F32_OUT_TOL),
+    the largest kept in ``worst``."""
+    for name, e in errs.items():
+        max_err = max(x.max().item() for x in e)
+        mean_err = max(x.mean().item() for x in e)
+        worst[name] = max(worst[name], max_err)
+        ok = (max_err <= F32_OUT_TOL if f32 else
+              max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL)
+        print(f"[{phase}] {name} {tag}: max_abs {max_err:.3e} (tol "
+              f"{F32_OUT_TOL if f32 else MAX_ABS_TOL:g}), mean_abs "
+              f"{mean_err:.3e}" + ("" if f32 else f" (tol {MEAN_ABS_TOL:g})")
+              + f" {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with the plain version ({tag})")
+
+
 def phase_widths(torch):
     """B1, B3, B1s and B2 at each of :data:`WIDTHS`, both heads, on a
     ragged row count, against their plain versions under the gates of
@@ -939,17 +984,7 @@ def phase_widths(torch):
                 (a.float() - b.float()).abs() for a, b in
                 zip([b1s, *stash.trunk[..., :hidden], stash.h],
                     [want, *want_stash.trunk, want_stash.h])]
-            for name, e in errs.items():
-                max_err = max(x.max().item() for x in e)
-                mean_err = max(x.mean().item() for x in e)
-                worst[name] = max(worst[name], max_err)
-                ok = max_err <= MAX_ABS_TOL and mean_err <= MEAN_ABS_TOL
-                print(f"[widths] {name} {tag}: max_abs {max_err:.3e} (tol "
-                      f"{MAX_ABS_TOL:g}), mean_abs {mean_err:.3e} (tol "
-                      f"{MEAN_ABS_TOL:g}) {'ok' if ok else 'FAIL'}",
-                      flush=True)
-                if not ok:
-                    fail(f"{name} disagrees with the plain version ({tag})")
+            _hold_forwards("widths", tag, errs, worst)
             f64 = hidden in B2_FLOAT64_WIDTHS
             err = _check_backward(
                 torch, "widths", tag, net, ipe, dirs, g, k, stash,
@@ -1246,44 +1281,14 @@ def phase_f32_kernels(torch):
                 if not ok:
                     fail(f"fused_mlp_fwd_stash_f32 disagrees with the plain "
                          f"version ({tag})")
-                for per_ray in (False, True):
-                    mode = f"{tag} {'per-ray' if per_ray else 'per-sample'}"
-                    grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash,
-                                                  per_ray)
-                    again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash,
-                                                  per_ray)
-                    torch.cuda.synchronize()
-                    if not all(torch.equal(grads[x], again[x]) for x in grads):
-                        fail(f"fused_mlp_bwd_f32 is not bitwise repeatable "
-                             f"({mode})")
-                    plain = ref.fused_mlp_backward_reference(
-                        net, ipe, dirs, g, k, stash, per_ray)
-                    f64 = ref.fused_mlp_backward_reference(
-                        net, ipe, dirs, g, k, stash, per_ray,
-                        accumulate=torch.float64)
-                    rel = {x: _rel(grads[x], plain[x]) for x in plain}
-                    rel64 = max(_rel(grads[x], f64[x]) for x in plain)
-                    plain64 = max(_rel(plain[x], f64[x]) for x in plain)
-                    worst["fused_mlp_bwd_f32"] = max(
-                        worst["fused_mlp_bwd_f32"],
-                        max((grads[x] - plain[x]).abs().max().item()
-                            for x in plain))
-                    top = max(rel, key=rel.get)
-                    bad = [x for x in rel if not rel[x] <= F32_GRAD_TOL]
-                    print(f"[f32] fused_mlp_bwd_f32 {mode} dirs: "
-                          f"{len(rel)} gradients bitwise repeatable, largest "
-                          f"norm_rel {rel[top]:.3e} (d{top}; tol "
-                          f"{F32_GRAD_TOL:g}); against float64 accumulation "
-                          f"{rel64:.3e} (the plain version's own "
-                          f"{plain64:.3e}) {'ok' if not bad else bad}",
-                          flush=True)
-                    if bad:
-                        fail(f"fused_mlp_bwd_f32 disagrees with the plain "
-                             f"version ({mode}: {bad})")
-                    if (rays, k, per_ray) == (TRAIN_RAYS, SAMPLES, False) \
-                            and cls is DepthMipMLP:
-                        main[hidden]["train"] = (ipe, dirs, k, g, p_out,
-                                                 p_stash, stash, plain)
+                err, plain = _check_backward_f32(
+                    torch, "f32", "fused_mlp_bwd_f32", tag, net, ipe, dirs, g,
+                    k, stash)
+                worst["fused_mlp_bwd_f32"] = max(worst["fused_mlp_bwd_f32"],
+                                                 err)
+                if (rays, k) == (TRAIN_RAYS, SAMPLES) and cls is DepthMipMLP:
+                    main[hidden]["train"] = (ipe, dirs, k, g, p_out, p_stash,
+                                             stash, plain[False])
         # Times at the main paths' shapes (DepthMipMLP), beside the bounds.
         m = main[hidden]
         net = m["net"]
@@ -1340,43 +1345,392 @@ def phase_f32_kernels(torch):
     return worst, times
 
 
-def phase_wide_main_path(logroot):
-    """The coarse-192 / fine-512 run (:data:`WIDE_TRAIN_OPTS`) through the
-    CLIs in the worker: training under the captured step (2 B1s + 2 B2 per
-    iteration), eval of one image, one video frame through B1 (``mlp``)
-    and one through B3 (``ipe2``); then that run's eval image and video
-    frame through B1 and B3 against the plain version.  Returns the runs'
-    launch counts, summed."""
+def phase_cli_path(logroot, tag, opts, iters, what):
+    """A config's run (``opts``: overrides) through the CLIs in the worker:
+    ``iters`` iterations of training under the captured step (2 B1s + 2 B2
+    per iteration, of the plan and dtype the config takes), eval of one
+    image, one video frame through B1 (``mlp``) and one through B3
+    (``ipe2``); then that run's eval image and video frame through B1 and
+    B3 against the plain version.  Phases 17 (coarse-192 / fine-512), 18
+    (float32) and 19 (coarse-600 / fine-1024, both dtypes; coarse-256 /
+    fine-1024, both plans).  Returns the
+    runs' launch counts, summed."""
     from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
 
-    logdir, train = phase_train_main_path(logroot, "wide-train",
-                                          WIDE_TRAIN_OPTS, run="wide_smoke",
-                                          iters=WIDE_ITERS)
-    evals = phase_main_path(logdir, "wide-eval", images=1)
-    video = phase_video_main_path(logdir, "wide-video", 1, VIDEO_HW,
-                                  WIDE_ITERS)
-    _frame_vs_plain(load_config_snapshot(logdir), "wide-frames",
-                    "coarse-192 / fine-512", logdir=logdir)
-    return _sum_launches(train, evals, video)
-
-
-def phase_f32_main_path(logroot):
-    """The float32 path (:data:`F32_TRAIN_OPTS`) through the CLIs in the
-    worker: training under the captured step (2 B1s-f32 + 2 B2-f32 per
-    iteration, its events read back), eval of one image, one video frame
-    through B1-f32 (``mlp``) and one through B3-f32 (``ipe2``); then that
-    run's eval image and video frame through both against the plain
-    version.  Returns the runs' launch counts, summed."""
-    from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
-
-    logdir, train = phase_train_main_path(logroot, "f32-train",
-                                          F32_TRAIN_OPTS, run="f32_smoke",
-                                          iters=F32_ITERS)
-    evals = phase_main_path(logdir, "f32-eval", images=1)
-    video = phase_video_main_path(logdir, "f32-video", 1, VIDEO_HW, F32_ITERS)
-    _frame_vs_plain(load_config_snapshot(logdir), "f32-frames", "float32",
+    logdir, train = phase_train_main_path(logroot, f"{tag}-train", opts,
+                                          run=f"{tag}_smoke", iters=iters)
+    evals = phase_main_path(logdir, f"{tag}-eval", images=1)
+    video = phase_video_main_path(logdir, f"{tag}-video", 1, VIDEO_HW, iters)
+    _frame_vs_plain(load_config_snapshot(logdir), f"{tag}-frames", what,
                     logdir=logdir)
     return _sum_launches(train, evals, video)
+
+
+# Phase 19, the wide plan (csrc/fused_mlp_wide.cu, counted as ``wide_*``):
+# every width above the fused plans' 512, one GEMM launch per layer, in
+# both compute dtypes.  (a) B1, B3, B1s and B2 at widths 600 (run at 640),
+# 768 and 1024, both heads, on the ragged 333 x 33, under the gates of
+# phases 17 and 18: bf16 outputs within MAX_ABS_TOL / MEAN_ABS_TOL, B1s and
+# B3 bit for bit B1, B2 stage by stage (B2_STAGE_LIMITS) in both dirs
+# settings and on exact-integer data, its end result held, as at 512,
+# against the plain version accumulating in float64 to B2_FLOAT64_TRUNK_TOL
+# (against the float32 plain version the trunk leaves read 1.0e-3 at 600
+# and 1.4-1.6e-3 at 1024, where the float32 plain version itself moves
+# away from float64: the ``[wide] B2 ... trunk`` lines print all three);
+# float32 within F32_OUT_TOL / F32_GRAD_TOL, B1s bit for bit B1, bitwise
+# repeatable, the pack's TF32 planes bit for bit the plain split.  Two
+# faults applied to the bf16 kernel's own results at 1024 must read outside
+# the stage limits: the weight gradients rounded to bf16, and the bias
+# gradients summed from the rounded cotangent slabs.  Then, at 1024 on the
+# main paths' shapes (B1 and B3 on a render chunk, B1s and B2 on a training
+# batch), the same gates in both dtypes, phase 18's three float32 faults
+# (the single-pass TF32 build, the pack and the dirs rounded to bf16), each
+# of which must read outside F32_OUT_TOL / F32_GRAD_TOL, and each kernel's
+# time beside its bound and its plain version's time.
+WIDE_PLAN_WIDTHS = (600, 768, 1024)
+WIDE_NAMES = tuple(f"wide_{base}{sfx}" for sfx in ("", "_f32")
+                   for base in ("mlp_fwd", "enc_mlp_fwd", "mlp_fwd_stash",
+                                "mlp_bwd"))
+WIDE_TIMING_WIDTH, WIDE_TIMING_REPS = 1024, 5
+# (b) the coarse-600 / fine-1024 pair: the three CLIs at bf16 and at
+# float32 under the captured step, frames against the plain version,
+# captured vs eager, and kernel vs plain on the config's schedule.  The CLI
+# runs start without the lr delay, so that the loss must fall in BIG_ITERS
+# iterations, but at lr_init 1e-4: at the config's 5e-4 from step 0 the
+# fine network's density dies within 40 iterations at every width tried
+# (256 / 256, 192 / 512, 600 / 1024; the plain path's the same), its
+# render is black and the eval's ssim_v2 (data range max - min) is NaN.
+BIG_OPTS = ("nerf.coarse_hidden_size", "600", "nerf.fine_hidden_size",
+            "1024")
+BIG_TRAIN_OPTS = (*BIG_OPTS, "optimizer.lr_delay_steps", "0",
+                  "optimizer.lr_init", "1e-4")
+BIG_ITERS, BIG_GRAPH_STEPS = 40, 20
+# A pair whose networks take different plans (coarse on the fused plan,
+# fine on the wide one): one captured step launches both plans' kernels.
+# Its CLI run keeps the config's schedule (the lr delay): from step 0 at
+# lr_init 1e-4 both MSEs fall but the dp loss rises, on the plain path as
+# with the kernels, so the summed loss does not fall in BIG_ITERS
+# iterations, and at 2e-4 (as at 5e-4) this run's fine render goes black
+# and the eval's ssim_v2 is NaN.
+MIXED_OPTS = ("nerf.coarse_hidden_size", "256", "nerf.fine_hidden_size",
+              "1024")
+# (c) the microbatched step: 8192 rays a step in chunks of 2048 (k = 4)
+# captured against eager, and against the captured monolithic 8192-ray
+# step's peak device memory.
+MB_OPTS = ("nerf.train.num_random_rays", "8192",
+           "parallel.microbatch_rays", "2048")
+MB_WHOLE_OPTS = ("nerf.train.num_random_rays", "8192")
+MB_GRAPH_STEPS = 20
+
+
+def _wide_b2_faults():
+    """The two faults of phase 19 as :func:`b2_stage_readings` hooks."""
+    def weights_bf16(gw, gb, sl, kw, hid):
+        return gw.bfloat16().float(), gb
+
+    def biases_rounded(gw, gb, sl, kw, hid):
+        gb = gb.clone()
+        trunk = sl["gt"].float().sum(1)  # [9, hid]: bf16(g_0..g_7), g_feat
+        o0, o1 = kw.b_off[0], kw.b_off[1]
+        gb[o0:o0 + 8 * hid] = trunk[:8].reshape(-1)
+        gb[o1:o1 + hid] = trunk[8]
+        return gw, gb
+
+    return {"weight gradients rounded to bf16": weights_bf16,
+            "biases summed from the rounded cotangents": biases_rounded}
+
+
+def _check_backward_f32(torch, phase, name, tag, net, ipe, dirs, g, k,
+                        stash):
+    """B2 at float32 (kernel ``name``) against its plain version in both
+    dirs settings: bitwise repeatable, every gradient within F32_GRAD_TOL
+    of the plain version's norm.  Returns (the largest |kernel - plain|,
+    {per_ray: the plain gradients})."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    worst, plains = 0.0, {}
+    for per_ray in (False, True):
+        mode = f"{tag} {'per-ray' if per_ray else 'per-sample'}"
+        grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, per_ray)
+        again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, per_ray)
+        torch.cuda.synchronize()
+        if not all(torch.equal(grads[x], again[x]) for x in grads):
+            fail(f"{name} is not bitwise repeatable ({mode})")
+        plain = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash,
+                                                 per_ray)
+        f64 = ref.fused_mlp_backward_reference(net, ipe, dirs, g, k, stash,
+                                               per_ray,
+                                               accumulate=torch.float64)
+        plains[per_ray] = plain
+        rel = {x: _rel(grads[x], plain[x]) for x in plain}
+        rel64 = max(_rel(grads[x], f64[x]) for x in plain)
+        plain64 = max(_rel(plain[x], f64[x]) for x in plain)
+        worst = max(worst, max((grads[x] - plain[x]).abs().max().item()
+                               for x in plain))
+        top = max(rel, key=rel.get)
+        bad = [x for x in rel if not rel[x] <= F32_GRAD_TOL]
+        print(f"[{phase}] {name} {mode} dirs: {len(rel)} gradients bitwise "
+              f"repeatable, largest norm_rel {rel[top]:.3e} (d{top}; tol "
+              f"{F32_GRAD_TOL:g}); against float64 accumulation "
+              f"{rel64:.3e} (the plain version's own {plain64:.3e}) "
+              f"{'ok' if not bad else bad}", flush=True)
+        if bad:
+            fail(f"{name} disagrees with the plain version ({mode}: {bad})")
+    return worst, plains
+
+
+def _hold_wide(torch, net, fwd, train, tag, worst):
+    """B1 and B3 of the wide plan on ``fwd`` = (means, covs, ipe, dirs, k),
+    B1s and B2 on ``train`` = (ipe, dirs, k, g) (the same rows, or a
+    training batch), each launched once and held against its plain version
+    under phase 19's gates; the largest |kernel - plain| of each kernel is
+    kept in ``worst``.  Returns, at bf16, the kernel's stash; at float32
+    (fwd, train) with the plain results, as :func:`_f32_readings` takes
+    them."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    f32 = net.compute_dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    hidden = net.hidden_size
+    means, covs, ipe, dirs, k = fwd
+    t_ipe, t_dirs, t_k, g = train
+    before = dict(fk.LAUNCHES)
+    b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+    b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+    b1s, stash = fk.fused_mlp_forward(net, t_ipe, t_dirs, t_k, stash=True)
+    torch.cuda.synchronize()
+    launched = {x: fk.LAUNCHES[x] - before[x] for x in before
+                if fk.LAUNCHES[x] != before[x]}
+    if launched != {f"wide_mlp_fwd{sfx}": 1, f"wide_mlp_fwd_stash{sfx}": 1,
+                    f"wide_enc_mlp_fwd{sfx}": 1}:
+        fail(f"the forwards at {tag} launched {launched}, not the wide "
+             f"plan's kernels once each")
+    b1_t = b1 if t_ipe is ipe else fk.fused_mlp_forward(net, t_ipe, t_dirs,
+                                                         t_k)
+    if not torch.equal(b1_t, b1s) or (not f32 and not torch.equal(b1, b3)):
+        fail(f"B1s or B3 is not bit for bit B1 ({tag})")
+    if stash.trunk[..., hidden:].any():
+        fail(f"the stash's padded columns are not zero ({tag})")
+    p1 = ref.fused_mlp_reference(net, ipe, dirs, k)
+    p3 = ref.fused_enc_mlp_reference(net, means, covs, dirs, k)
+    p_out, p_stash = ref.fused_mlp_stash_reference(net, t_ipe, t_dirs, t_k)
+    _hold_forwards("wide", tag, {
+        f"wide_mlp_fwd{sfx}": [(b1 - p1).abs()],
+        f"wide_enc_mlp_fwd{sfx}": [(b3 - p3).abs()],
+        f"wide_mlp_fwd_stash{sfx}": [
+            (a.float() - b.float()).abs() for a, b in
+            zip([b1s, *stash.trunk[..., :hidden], stash.h],
+                [p_out, *p_stash.trunk, p_stash.h])]}, worst, f32)
+    if f32:
+        err, plains = _check_backward_f32(torch, "wide", "wide_mlp_bwd_f32",
+                                          tag, net, t_ipe, t_dirs, g, t_k,
+                                          stash)
+        worst["wide_mlp_bwd_f32"] = max(worst["wide_mlp_bwd_f32"], err)
+        return ((means, covs, ipe, dirs, k, p1, p3),
+                (t_ipe, t_dirs, t_k, g, p_out, p_stash, stash, plains[False]))
+    err = _check_backward(
+        torch, "wide", tag, net, t_ipe, t_dirs, g, t_k, stash, verbose=False,
+        limits=(B2_FLOAT64_TRUNK_TOL, GRAD_NORM_REL_TOL_HEADS),
+        accumulate=torch.float64)
+    worst["wide_mlp_bwd"] = max(worst["wide_mlp_bwd"], err)
+    # The cause of the trunk readings: float32 accumulation.
+    kern = fk.fused_mlp_backward(net, t_ipe, t_dirs, g, t_k, stash)
+    p32 = ref.fused_mlp_backward_reference(net, t_ipe, t_dirs, g, t_k, stash)
+    p64 = ref.fused_mlp_backward_reference(net, t_ipe, t_dirs, g, t_k, stash,
+                                           accumulate=torch.float64)
+    trunk = [x for x in p32 if x.startswith("layers_xyz.")]
+    print(f"[wide] B2 {tag}: trunk leaves, largest norm_rel: kernel vs the "
+          f"float32 plain version "
+          f"{max(_rel(kern[x], p32[x]) for x in trunk):.3e}, kernel vs "
+          f"float64 accumulation "
+          f"{max(_rel(kern[x], p64[x]) for x in trunk):.3e}, the float32 "
+          f"plain version vs float64 "
+          f"{max(_rel(p32[x], p64[x]) for x in trunk):.3e}", flush=True)
+    return stash
+
+
+def phase_wide_plan(torch):
+    """Phase 19 (a), see :data:`WIDE_PLAN_WIDTHS`.  Returns (the largest
+    |kernel - plain| of each wide kernel, over the ragged and the main
+    paths' shapes, {kernel: (ms, plain ms)} at width
+    :data:`WIDE_TIMING_WIDTH`)."""
+    from ddnerf_tpu_torch.core.math import integrated_pos_enc
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+    from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
+
+    dev = torch.device("cuda")
+    worst = dict.fromkeys(WIDE_NAMES, 0.0)
+    rays, k = 333, 33
+    n = rays * k
+    for hidden in WIDE_PLAN_WIDTHS:
+        width = fk.kernel_width(hidden)
+        for cls in (DepthMipMLP, MipMLP):
+            for cdt in (torch.bfloat16, torch.float32):
+                f32 = cdt == torch.float32
+                gen = torch.Generator().manual_seed(hidden + 19 + f32)
+                net = cls(hidden_size=hidden, compute_dtype=cdt,
+                          generator=gen).to(dev)
+                tag = (f"{cls.__name__} H={hidden} (kernel width {width}) "
+                       f"{'float32' if f32 else 'bf16'} N={n} K={k}")
+                means, covs = _gaussians(torch, gen, n, dev)
+                ipe = integrated_pos_enc((means, covs), double_angle=False)
+                dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(dev)
+                g = torch.randn(n, net.out_dim, generator=gen).to(dev)
+                with torch.no_grad():
+                    stash = _hold_wide(torch, net,
+                                       (means, covs, ipe, dirs, k),
+                                       (ipe, dirs, k, g), tag, worst)
+                if f32:
+                    if cls is DepthMipMLP:  # the pack's planes
+                        kw = fk.pack_weights(net)
+                        buf = kw.planes.cpu().clone()
+                        ref.tf32_split_pack_reference(buf, kw.w_off,
+                                                      fk.packed_rows(width))
+                        if not torch.equal(buf, kw.planes.cpu()):
+                            fail(f"the wide TF32 split differs from the "
+                                 f"plain split ({tag})")
+                        print(f"[wide] tf32_split {tag}: the pack's "
+                              f"{buf.numel()} plane elements bit for bit the "
+                              f"plain split", flush=True)
+                    continue
+                if hidden == max(WIDE_PLAN_WIDTHS) and cls is DepthMipMLP:
+                    for fault, fn in _wide_b2_faults().items():
+                        r, _ = b2_stage_readings(torch, net, ipe, dirs, g, k,
+                                                 stash, False, fault=fn)
+                        over = [x for x, lim in B2_STAGE_LIMITS.items()
+                                if not r[x] <= lim]
+                        print(f"[wide] fault at {tag}, {fault}: "
+                              + ", ".join(f"{x} {r[x]:.3e}"
+                                          if isinstance(r[x], float)
+                                          else f"{x} {r[x]}"
+                                          for x in B2_STAGE_LIMITS)
+                              + f" (outside the limits: {over})", flush=True)
+                        if not over:
+                            fail(f"phase 19's B2 limits do not see the "
+                                 f"fault '{fault}'")
+                enet, eipe, edirs, eg = _exact_case(torch, cls, hidden, rays,
+                                                    k, dev, hidden + 1)
+                _, estash = fk.fused_mlp_forward(enet, eipe, edirs, k,
+                                                 stash=True)
+                _check_backward(torch, "wide", f"{tag} exact-integer data",
+                                enet, eipe, edirs, eg, k, estash,
+                                verbose=False,
+                                limits=(EXACT_GRAD_TOL, EXACT_GRAD_TOL),
+                                bf16_share=False)
+    # At width WIDE_TIMING_WIDTH on the main paths' shapes (DepthMipMLP):
+    # the same gates, the float32 faults (each must read outside its
+    # limit, as in phase 18), then the times beside the bounds.
+    times, inside = {}, []
+    hidden = WIDE_TIMING_WIDTH
+    for cdt in (torch.bfloat16, torch.float32):
+        f32 = cdt == torch.float32
+        sfx = "_f32" if f32 else ""
+        net = DepthMipMLP(hidden_size=hidden, compute_dtype=cdt,
+                          generator=torch.Generator().manual_seed(0)).to(dev)
+        gen = torch.Generator().manual_seed(1)
+        means, covs = _gaussians(torch, gen, CHUNK_RAYS * SAMPLES, dev)
+        ipe = integrated_pos_enc((means, covs), double_angle=False)
+        dirs = (torch.rand(CHUNK_RAYS, 27, generator=gen) * 2 - 1).to(dev)
+        t_ipe, t_dirs = ipe[:TRAIN_RAYS * SAMPLES], dirs[:TRAIN_RAYS]
+        g = torch.randn(TRAIN_RAYS * SAMPLES, 6, generator=gen).to(dev)
+        tag = (f"DepthMipMLP H={hidden} {'float32' if f32 else 'bf16'} main "
+               f"paths' shapes (B1, B3 N={CHUNK_RAYS * SAMPLES}; B1s, B2 "
+               f"N={TRAIN_RAYS * SAMPLES}) K={SAMPLES}")
+        with torch.no_grad():  # the plain forward's graph would not fit
+            got = _hold_wide(torch, net, (means, covs, ipe, dirs, SAMPLES),
+                             (t_ipe, t_dirs, SAMPLES, g), tag, worst)
+        stash = got[1][6] if f32 else got
+        for fault in ("one-pass", "bf16-weights", "bf16-dirs") if f32 else ():
+            with _f32_fault(fault, [net]), torch.no_grad():
+                r = _f32_readings(torch, net, *got,
+                                  dirs_fault=fault == "bf16-dirs")
+            r = {"wide_" + name[len("fused_"):]: v for name, v in r.items()}
+            limits = {name: F32_GRAD_TOL if "bwd" in name else F32_OUT_TOL
+                      for name in r}
+            inside += [f"{fault} {name}" for name in r
+                       if not r[name] > limits[name]]
+            print(f"[wide] fault {fault} at {tag}: " + "; ".join(
+                f"{name} {r[name]:.3e} (limit {limits[name]:g})"
+                for name in r), flush=True)
+        pairs = {
+            f"wide_mlp_fwd{sfx}": (
+                lambda: fk.fused_mlp_forward(net, ipe, dirs, SAMPLES),
+                lambda: ref.fused_mlp_reference(net, ipe, dirs, SAMPLES)),
+            f"wide_enc_mlp_fwd{sfx}": (
+                lambda: fk.fused_enc_mlp_forward(net, means, covs, dirs,
+                                                 SAMPLES),
+                lambda: ref.fused_enc_mlp_reference(net, means, covs, dirs,
+                                                    SAMPLES)),
+            f"wide_mlp_fwd_stash{sfx}": (
+                lambda: fk.fused_mlp_forward(net, t_ipe, t_dirs, SAMPLES,
+                                             stash=True),
+                lambda: ref.fused_mlp_stash_reference(net, t_ipe, t_dirs,
+                                                      SAMPLES)),
+            f"wide_mlp_bwd{sfx}": (
+                lambda: fk.fused_mlp_backward(net, t_ipe, t_dirs, g, SAMPLES,
+                                              stash),
+                lambda: ref.fused_mlp_backward_reference(
+                    net, t_ipe, t_dirs, g, SAMPLES, stash)),
+        }
+        del got
+        for name, (kern, plain) in pairs.items():
+            times[name] = (_event_ms(torch, kern, WIDE_TIMING_REPS),
+                           _event_ms(torch, plain, WIDE_TIMING_REPS))
+        bounds = _wide_bounds(hidden, f32)
+        padded = _wide_bounds(fk.kernel_width(600), f32)
+        print(f"[wide] DepthMipMLP H={hidden} {'float32' if f32 else 'bf16'}: "
+              + "; ".join(
+                  f"{name} {times[name][0]:.3f} ms, plain {times[name][1]:.3f} "
+                  f"ms (bound {bounds[name][0]:.3f} ms, {bounds[name][1]})"
+                  for name in pairs)
+              + f" (B1, B3 on {CHUNK_RAYS * SAMPLES} rows; B1s, B2 on "
+              f"{TRAIN_RAYS * SAMPLES}; CUDA-event medians of "
+              f"{WIDE_TIMING_REPS}); bounds at H=600 "
+              + ", ".join(f"{name} {_wide_bounds(600, f32)[name][0]:.3f} ms "
+                          f"({padded[name][0]:.3f} ms at its padded width "
+                          f"{fk.kernel_width(600)})" for name in pairs),
+              flush=True)
+    if inside:
+        fail(f"phase 19's float32 limits do not separate these faults: "
+             f"{inside}")
+    return worst, times
+
+
+def _wide_bounds(hidden, f32):
+    """:func:`kernel_bounds` at width ``hidden`` on the main paths' shapes,
+    under the wide kernels' names."""
+    return {"wide_" + name[len("fused_"):]: v for name, v in kernel_bounds(
+        hidden, CHUNK_RAYS * SAMPLES, CHUNK_RAYS, TRAIN_RAYS * SAMPLES,
+        TRAIN_RAYS, f32=f32).items()}
+
+
+def phase_microbatch(torch):
+    """Phase 19 (c): :data:`MB_OPTS` captured against eager, bitwise, over
+    :data:`MB_GRAPH_STEPS` steps at bf16 and at float32 (8 B1s + 8 B2 per
+    step), and the captured run's peak device memory against the captured
+    monolithic 8192-ray step's, which must be higher.  Returns {tag:
+    (microbatched, monolithic)} of :func:`phase_graph_vs_eager`'s
+    results."""
+    out = {}
+    for tag, dtype_opts in (("mb", ()), ("mb-f32", F32_OPTS)):
+        mb = phase_graph_vs_eager(torch, tag, (*MB_OPTS, *dtype_opts),
+                                  MB_GRAPH_STEPS)
+        whole = phase_graph_vs_eager(torch, f"{tag}-whole",
+                                     (*MB_WHOLE_OPTS, *dtype_opts),
+                                     MB_GRAPH_STEPS)
+        print(f"[{tag}] 8192 rays a step: captured in 4 microbatches of "
+              f"2048 {mb['graph']:.2f} ms/step (eager {mb['eager']:.2f}), "
+              f"peak device memory {mb['peak_gib']:.2f} GiB; captured whole "
+              f"{whole['graph']:.2f} ms/step, peak {whole['peak_gib']:.2f} "
+              f"GiB", flush=True)
+        if not mb["peak_gib"] < whole["peak_gib"]:
+            fail(f"{tag}: the microbatched step's peak memory is not below "
+                 f"the monolithic step's")
+        out[tag] = (mb, whole)
+    return out
 
 
 def _sum_launches(*counts):
@@ -1547,6 +1901,25 @@ def _sfx(cfg):
     return "_f32" if cfg.parallel.compute_dtype == "float32" else ""
 
 
+def _kn(cfg, base, times=1):
+    """The launches of kernel ``base`` (a fused plan's, e.g.
+    ``fused_mlp_fwd``) when ``cfg``'s two network evaluations (DDNeRF's
+    coarse and fine nets; mip-NeRF's one net, twice) each launch it
+    ``times`` times: {launch-count name: launches}, each evaluation under
+    the name of its network's plan (``wide_*`` above the fused plans'
+    widths) with ``_f32`` appended at float32."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    fine = (cfg.nerf.fine_hidden_size if cfg.is_ddnerf()
+            else cfg.nerf.coarse_hidden_size)
+    out = {}
+    for hidden in (cfg.nerf.coarse_hidden_size, fine):
+        name = ("wide_" + base[len("fused_"):] if fk.is_wide(hidden)
+                else base) + _sfx(cfg)
+        out[name] = out.get(name, 0) + times
+    return out
+
+
 def _only_dtype(launches, sfx, tag):
     """Fail if a run launched a kernel of the other compute dtype."""
     other = {k: v for k, v in launches.items()
@@ -1647,10 +2020,12 @@ def phase_train_main_path(logroot, tag="train", opts=(), run="synthetic_smoke",
           f"{wall:.1f} s, launches {launches}", flush=True)
     if not last < first:
         fail(f"{tag}: training did not lower the mean loss")
-    for name in ("fused_mlp_fwd_stash" + sfx, "fused_mlp_bwd" + sfx):
-        if launches.get(name) != 2 * iters:
+    want = {**_kn(snapshot, "fused_mlp_fwd_stash", iters),
+            **_kn(snapshot, "fused_mlp_bwd", iters)}
+    for name, count in want.items():
+        if launches.get(name) != count:
             fail(f"{tag}: training launched {name} {launches.get(name)} "
-                 f"times, expected {2 * iters} (two network evaluations per "
+                 f"times, expected {count} (two network evaluations per "
                  f"step)")
     _only_dtype(launches, sfx, tag)
     return logdir, launches
@@ -1660,20 +2035,26 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
     """The captured step against the eager step from one seed for
     ``steps`` iterations (``opts``: config overrides): every metric of every
     iteration, the parameters, Adam's state and the generator's state must
-    be bitwise equal; returns both ms/step (steady state, no metric
-    read)."""
+    be bitwise equal, and each step must launch 2 B1s + 2 B2 per
+    microbatch; returns both ms/step (steady state, no metric read) and the
+    captured run's peak device memory (``peak_gib``)."""
     from ddnerf_tpu_torch.config import load_config
     from ddnerf_tpu_torch.data.datasets import load_train_store
     from ddnerf_tpu_torch.kernels.fused_mlp import LAUNCHES
     from ddnerf_tpu_torch.models.nerf import NerfPipeline
     from ddnerf_tpu_torch.train.state import TrainState
-    from ddnerf_tpu_torch.train.step import CapturedTrainStep, EagerTrainStep
+    from ddnerf_tpu_torch.train.step import (
+        CapturedTrainStep,
+        EagerTrainStep,
+        _microbatches,
+    )
 
     dev = torch.device("cuda")
     cfg = load_config(CONFIG)
     if opts:
         cfg = cfg.merge_from_list(list(opts)).resolved()
     store, _, cfg = load_train_store(cfg, dev)
+    per_step = 2 * _microbatches(cfg, cfg.nerf.train.num_random_rays)
     head = 8  # the warm-up iterations and the capture lie in these
     runs, step_ms = {}, {}
     for mode in ("eager", "graph"):
@@ -1696,9 +2077,11 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         launched = {k: LAUNCHES[k] - before[k] for k in before
                     if LAUNCHES[k] != before[k]}
-        if launched != {"fused_mlp_fwd_stash" + _sfx(cfg): 2 * steps,
-                        "fused_mlp_bwd" + _sfx(cfg): 2 * steps}:
-            fail(f"{tag}: {steps} {mode} steps counted {launched}")
+        per_net = per_step // 2 * steps
+        if launched != {**_kn(cfg, "fused_mlp_fwd_stash", per_net),
+                        **_kn(cfg, "fused_mlp_bwd", per_net)}:
+            fail(f"{tag}: {steps} {mode} steps counted {launched}, expected "
+                 f"{per_step} of each training kernel per step")
         adam = [state.optimizer.state[p][key] for p in pipe.parameters()
                 for key in ("exp_avg", "exp_avg_sq", "step")]
         runs[mode] = (stepper.names, torch.cat(rows),
@@ -1718,11 +2101,13 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
           f"tensors: {'bitwise equal' if not differ else differ}; loss "
           f"{loss[0].item():.5f} -> {loss[-1].item():.5f}; eager "
           f"{step_ms['eager']:.2f} ms/step, captured {step_ms['graph']:.2f} "
-          f"ms/step (iterations {head}-{steps - 1}); the captured run's "
-          f"peak device memory {peak_gib:.2f} GiB", flush=True)
+          f"ms/step (iterations {head}-{steps - 1}); {per_step // 2} "
+          f"microbatch(es) per step; the captured run's peak device memory "
+          f"{peak_gib:.2f} GiB", flush=True)
     if differ:
         fail(f"{tag}: the captured step differs from the eager step: "
              f"{differ}")
+    step_ms["peak_gib"] = peak_gib
     return step_ms
 
 
@@ -1814,7 +2199,8 @@ def phase_main_path(logdir, tag="eval", flags=(), images=2):
     """The eval CLI on the trained logdir; returns its launch counts."""
     from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
 
-    sfx = _sfx(load_config_snapshot(logdir))
+    snapshot = load_config_snapshot(logdir)
+    sfx, b1 = _sfx(snapshot), _kn(snapshot, "fused_mlp_fwd")
     cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.eval",
            "--logdir", logdir, "--max-images", str(images), *flags]
     _, launches, wall = _cli(cmd, tag)
@@ -1830,8 +2216,9 @@ def phase_main_path(logdir, tag="eval", flags=(), images=2):
         fail(f"{tag}: results.txt metrics not all finite: {metrics}")
     print(f"[{tag}] {len(metrics)} finite PSNR/SSIM values, wall {wall:.1f} s, "
           f"launches {launches}", flush=True)
-    if launches.get("fused_mlp_fwd" + sfx, 0) <= 0:
-        fail(f"{tag}: the eval render did not launch fused_mlp_fwd{sfx}")
+    idle = [name for name in b1 if launches.get(name, 0) <= 0]
+    if idle:
+        fail(f"{tag}: the eval render did not launch {idle}")
     _only_dtype(launches, sfx, tag)
     return launches
 
@@ -1857,12 +2244,13 @@ def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
     os.symlink(os.path.join(logdir, newest), os.path.join(sibling, newest))
     h, w = hw
     chunks = -(-h * w // cfg.nerf.validation.chunksize)
-    expected = 2 * chunks * frames_wanted  # two networks per chunk
+    per_net = chunks * frames_wanted  # each network once per chunk
     sfx = _sfx(cfg)
     runs = {}
-    for variant, path, kernel, other in (
-            ("ipe2", sibling, "fused_enc_mlp_fwd" + sfx, "fused_mlp_fwd" + sfx),
-            ("mlp", logdir, "fused_mlp_fwd" + sfx, "fused_enc_mlp_fwd" + sfx)):
+    b1 = _kn(cfg, "fused_mlp_fwd", per_net)
+    b3 = _kn(cfg, "fused_enc_mlp_fwd", per_net)
+    for variant, path, kernel, other in (("ipe2", sibling, b3, b1),
+                                         ("mlp", logdir, b1, b3)):
         cmd = [sys.executable, "-m", "ddnerf_tpu_torch.cli.render_video",
                "--logdir", path, "--max-frames", str(frames_wanted),
                "--save_images"]
@@ -1885,10 +2273,10 @@ def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
               f"{frames.shape[1:]} in video.avi ({os.path.getsize(avi)} "
               f"bytes) and as PNGs; avg frame {avg.group(1) if avg else '?'} "
               f"s, wall {wall:.1f} s, launches {launches}", flush=True)
-        if launches.get(kernel) != expected or launches.get(other) != 0:
-            fail(f"video ({variant}) launched {kernel} "
-                 f"{launches.get(kernel)} and {other} {launches.get(other)} "
-                 f"times, expected {expected} and 0")
+        got = {name: launches.get(name) for name in {**kernel, **other}}
+        if got != {**dict.fromkeys(other, 0), **kernel}:
+            fail(f"video ({variant}) launched {got}, expected {kernel} and "
+                 f"none of the other forward")
         _only_dtype(launches, sfx, f"{tag}-{variant}")
         runs[variant] = (frames, launches)
     diff = np.abs(runs["ipe2"][0].astype(int) - runs["mlp"][0].astype(int))
@@ -1998,9 +2386,9 @@ def phase_frame(torch, tag="frame", opts=()):
     pose = _pose()
     chunks = -(-FRAME * FRAME // cfg.nerf.validation.chunksize)
     # name -> (pallas_mlp, render_kernel_variant, the kernel it launches)
-    paths = {"kernel": ("auto", "mlp", "fused_mlp_fwd" + _sfx(cfg)),
-             "ipe2": ("auto", "ipe2", "fused_enc_mlp_fwd" + _sfx(cfg)),
-             "plain": ("off", "mlp", None)}
+    paths = {"kernel": ("auto", "mlp", _kn(cfg, "fused_mlp_fwd", chunks)),
+             "ipe2": ("auto", "ipe2", _kn(cfg, "fused_enc_mlp_fwd", chunks)),
+             "plain": ("off", "mlp", {})}
     renderers = {}
     for name, (policy, variant, _) in paths.items():
         c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
@@ -2022,9 +2410,8 @@ def phase_frame(torch, tag="frame", opts=()):
             LAUNCHES[key] = 0
         outs[name], wall = render(name)
         walls[name].append(wall)
-        kernel = paths[name][2]
+        want = paths[name][2]
         launched = {k: v for k, v in LAUNCHES.items() if v}
-        want = {kernel: 2 * chunks} if kernel else {}
         if launched != want:
             fail(f"{tag}: 800x800 {name} render launched {launched}, "
                  f"expected {want}")
@@ -2148,11 +2535,10 @@ def _frame_vs_plain(cfg, tag, what, logdir=None):
     if logdir is not None:
         views["eval image"] = val_ds.poses[0]
     rgbs = {view: {} for view in views}
-    sfx = _sfx(cfg)
     for name, policy, variant, kernel in (
-            ("plain", "off", "mlp", None), ("kernel", "auto", "mlp",
-                                            "fused_mlp_fwd" + sfx),
-            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd" + sfx)):
+            ("plain", "off", "mlp", {}),
+            ("kernel", "auto", "mlp", _kn(cfg, "fused_mlp_fwd")),
+            ("ipe2", "auto", "ipe2", _kn(cfg, "fused_enc_mlp_fwd"))):
         c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
             "parallel.render_kernel_variant", variant)
         pipe = (NerfPipeline(c, "cuda", seed=0) if logdir is None else
@@ -2165,7 +2551,7 @@ def _frame_vs_plain(cfg, tag, what, logdir=None):
             rgbs[view][name] = renderer.render_image_from_pose(
                 pose, val_ds.H, val_ds.W, val_ds.focal, sched=sched)[1]["rgb"]
             launched = {k: v for k, v in LAUNCHES.items() if v}
-            if launched != ({kernel: 2} if kernel else {}):
+            if launched != kernel:
                 fail(f"{tag}: the {name} {view} launched {launched}")
     for view in views:
         for name in ("kernel", "ipe2"):
@@ -2950,6 +3336,7 @@ def main():
     train_err, train_timing = phase_train_kernels(torch)
     width_err = phase_widths(torch)
     f32_err, f32_times = phase_f32_kernels(torch)
+    wide_plan_err, wide_plan_times = phase_wide_plan(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as logroot:
         logdir, train_launches = phase_train_main_path(logroot)
         host_launches = phase_host_sampling(logroot)
@@ -2978,8 +3365,17 @@ def main():
                                          FF_CONFIG)
         phase_step_gradients(torch, "ndc-grads", ndc_scene, FF_CONFIG)
         real360_launches = phase_real360_main_path(logroot)
-        wide_launches = phase_wide_main_path(logroot)
-        f32_launches = phase_f32_main_path(logroot)
+        wide_launches = phase_cli_path(logroot, "wide", WIDE_TRAIN_OPTS,
+                                       WIDE_ITERS, "coarse-192 / fine-512")
+        f32_launches = phase_cli_path(logroot, "f32", F32_TRAIN_OPTS,
+                                      F32_ITERS, "float32")
+        big_launches = phase_cli_path(logroot, "big", BIG_TRAIN_OPTS,
+                                      BIG_ITERS, "coarse-600 / fine-1024")
+        big_f32_launches = phase_cli_path(
+            logroot, "big-f32", (*BIG_TRAIN_OPTS, *F32_OPTS), BIG_ITERS,
+            "coarse-600 / fine-1024 float32")
+        mixed_launches = phase_cli_path(logroot, "mixed", MIXED_OPTS,
+                                        BIG_ITERS, "coarse-256 / fine-1024")
         _close_cli_worker()
         rehearsal_launches = {tag: phase_rehearsal(logroot, tag)
                               for tag in REHEARSALS}
@@ -3002,6 +3398,13 @@ def main():
     f32_wide_graph_ms = phase_graph_vs_eager(
         torch, "f32-wide-graph", (*F32_OPTS, *WIDE_OPTS), WIDE_GRAPH_STEPS)
     f32_frame_s = phase_frame(torch, "f32-frame", F32_OPTS)
+    big_graph_ms = phase_graph_vs_eager(torch, "big-graph", BIG_OPTS,
+                                        BIG_GRAPH_STEPS)
+    big_step_ms = phase_train_parity(torch, "big-parity", BIG_OPTS)
+    mixed_graph_ms = phase_graph_vs_eager(torch, "mixed-graph", MIXED_OPTS,
+                                          BIG_GRAPH_STEPS)
+    mixed_step_ms = phase_train_parity(torch, "mixed-parity", MIXED_OPTS)
+    mb = phase_microbatch(torch)
     step_ms = phase_train_parity(torch)
     frame_s = phase_frame(torch)
     mip_step_ms = phase_train_parity(torch, "mip-parity", MIPNERF)
@@ -3036,6 +3439,19 @@ def main():
           f"{f32_graph_ms['graph']:.2f} vs {f32_graph_ms['eager']:.2f} ms "
           f"(coarse-192 / fine-512: {f32_wide_graph_ms['graph']:.2f} vs "
           f"{f32_wide_graph_ms['eager']:.2f} ms)")
+    print(f"[big] coarse-600 / fine-1024: captured vs eager "
+          f"{big_graph_ms['graph']:.2f} vs {big_graph_ms['eager']:.2f} ms/step "
+          f"(peak {big_graph_ms['peak_gib']:.2f} GiB); train step kernel "
+          f"{big_step_ms['kernel']:.2f} ms, plain {big_step_ms['plain']:.2f} "
+          f"ms; coarse-256 / fine-1024 captured vs eager "
+          f"{mixed_graph_ms['graph']:.2f} vs {mixed_graph_ms['eager']:.2f} "
+          f"ms/step (train step kernel {mixed_step_ms['kernel']:.2f} ms, "
+          f"plain {mixed_step_ms['plain']:.2f} ms); microbatched 8192 rays (4 x 2048) captured "
+          + ", ".join(f"{tag} {m['graph']:.2f} ms/step (eager "
+                      f"{m['eager']:.2f}), peak {m['peak_gib']:.2f} GiB vs "
+                      f"{w['peak_gib']:.2f} GiB whole ({w['graph']:.2f} "
+                      f"ms/step)" for tag, (m, w) in mb.items())
+          + f"; whole run {time.perf_counter() - t_start:.1f} s")
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in FORBIDDEN_MODULES)
     if leaked:
@@ -3055,17 +3471,24 @@ def main():
                "parallel": _sum_launches(nccl_launches, gloo_launches,
                                          render_launches),
                "real360": real360_launches, "widths": wide_launches,
-               "f32": f32_launches, **rehearsal_launches}
+               "f32": f32_launches, "wide1024": big_launches,
+               "wide1024-f32": big_f32_launches, "mixed": mixed_launches,
+               **rehearsal_launches}
     total = _sum_launches(*by_path.values())
     print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
     for path, counts in by_path.items():
         # The NDC path and the rehearsals film through B1 alone (their
         # configs' variant).
-        # The float32 path runs the float32 kernels, every other path the
-        # bf16 ones.
+        # The float32 paths run the float32 kernels, every other path the
+        # bf16 ones; the coarse-600 / fine-1024 paths the wide plan's,
+        # the coarse-256 / fine-1024 path both plans', every other path the
+        # fused plans'.
         b1_only = path == "ndc" or path in REHEARSALS
+        f32 = path in ("f32", "wide1024-f32")
+        plans = (("wide_", "fused_") if path == "mixed" else
+                 ("wide_",) if path.startswith("wide1024") else ("fused_",))
         expected = [k for k in total
-                    if k.endswith("_f32") == (path == "f32")
+                    if k.endswith("_f32") == f32 and k.startswith(plans)
                     and not (b1_only and k == "fused_enc_mlp_fwd")]
         idle = [k for k in expected if counts.get(k, 0) <= 0]
         if idle:
@@ -3109,6 +3532,17 @@ def main():
             ("fused_enc_mlp_fwd_f32", "ddnerf_tpu/kernels/fused_mlp.py:309")):
         rows.append((name, f32_cu, replaces, total[name], f32_err[name],
                      *f32_times[256][name]))
+    # The wide plan, both dtypes (phase 19's times at width 1024,
+    # DepthMipMLP).
+    wide_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_wide.cu"
+    for f32 in (False, True):
+        bounds.update(_wide_bounds(WIDE_TIMING_WIDTH, f32))
+    for name in WIDE_NAMES:
+        replaces = ("ddnerf_tpu/kernels/fused_mlp_bwd.py:299"
+                    if "bwd" in name else "ddnerf_tpu/kernels/fused_mlp.py:309"
+                    if "enc" in name else "ddnerf_tpu/kernels/fused_mlp.py:464")
+        rows.append((name, wide_cu, replaces, total[name],
+                     wide_plan_err[name], *wide_plan_times[name]))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": count, "max_abs_err": err, "ms": t, "plain_ms": plain_t,

@@ -50,13 +50,19 @@ class KernelReport:
     advisories: tuple  # "(C75..)" lines: wgmma serialized, and the like
 
 
+# The element types a kernel template is instantiated for, as mangled.
+_TYPE_ARGS = {"f": "float", "13__nv_bfloat16": "bf16"}
+_TEMPLATE_ARG = r"L[a-z]\d+E|13__nv_bfloat16|f"
+
+
 def kernel_name(mangled: str) -> str:
-    """``chain_kernel<256>`` from the mangled name that ptxas and cuobjdump
-    print."""
-    m = re.search(r"([a-z_]+_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    """``chain_kernel<256>`` (or ``wide_gemm_kernel<bf16,0,1>``) from the
+    mangled name that ptxas and cuobjdump print."""
+    m = re.search(rf"([a-z_]+_kernel)(?:I((?:{_TEMPLATE_ARG})+)E)?", mangled)
     if not m:
         return mangled
-    args = re.findall(r"L[a-z](\d+)E", m.group(2) or "")
+    args = [_TYPE_ARGS.get(a) or re.sub(r"\D", "", a)
+            for a in re.findall(_TEMPLATE_ARG, m.group(2) or "")]
     return m.group(1) + (f"<{','.join(args)}>" if args else "")
 
 
@@ -188,6 +194,37 @@ def load_library(flags: tuple = ()) -> ctypes.CDLL:
     # w (the float32 pack's planes), hidden, w_off, stream
     lib.ddnerf_tf32_split.argtypes = [ptr, i32, offs[0], ptr]
     lib.ddnerf_tf32_split.restype = i32
+    # The wide plan (fused_mlp_wide.cu): both compute dtypes, `f32` 0 or 1.
+    lib.ddnerf_wide_tf32_split.argtypes = [ptr, i32, offs[0], ptr]
+    lib.ddnerf_wide_tf32_split.restype = i32
+    lib.ddnerf_wide_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, w, b, dproj, out
+        ptr, ptr, ptr, i64,  # stash, stash_h, workspace, workspace bytes
+        i64, i32, i32, i32, i32,  # n, samples, hidden, depth_head, f32
+        *offs, ptr,  # w_off, b_off, stream
+    ]
+    lib.ddnerf_wide_fwd.restype = i32
+    lib.ddnerf_wide_enc_fwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # means, covs, dirs, w, b, dproj, out
+        ptr, i64,  # workspace, workspace bytes
+        i64, i32, i32, i32, i32,  # n, samples, hidden, depth_head, f32
+        *offs, ptr,  # w_off, b_off, stream
+    ]
+    lib.ddnerf_wide_enc_fwd.restype = i32
+    # n, hidden, f32, stash, enc
+    lib.ddnerf_wide_fwd_workspace.argtypes = [i64, i32, i32, i32, i32]
+    lib.ddnerf_wide_fwd_workspace.restype = i64
+    # n, samples, hidden, f32
+    lib.ddnerf_wide_bwd_workspace.argtypes = [i64, i32, i32, i32]
+    lib.ddnerf_wide_bwd_workspace.restype = i64
+    lib.ddnerf_wide_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, g, stash, stash_h, w
+        ptr, ptr, ptr, i64,  # gw, gb, workspace, workspace bytes
+        i64, i32, i32, i32, i32, i32,  # n, samples, hidden, depth_head,
+        # per_ray, f32
+        *offs, ptr,  # w_off, b_off, stream
+    ]
+    lib.ddnerf_wide_bwd.restype = i32
     lib.ddnerf_cuda_error_string.argtypes = [i32]
     lib.ddnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,7 +5,11 @@ and the ``autograd.Function`` that joins them for training.  Each wrapper
 dispatches on the network's compute dtype: bfloat16 runs those kernels,
 float32 their float32 counterparts (``csrc/fused_mlp_f32.cu``, counted
 under the same names with ``_f32`` appended), which round nothing and
-read the float32 pack's TF32 planes (:func:`with_tf32_planes`).
+read the float32 pack's TF32 planes (:func:`with_tf32_planes`).  And on
+the network's width: up to :data:`MAX_FUSED_HIDDEN` the fused plans, above
+it the wide plan (``csrc/fused_mlp_wide.cu``, one GEMM launch per layer
+with the activations through device memory, both dtypes; counted as
+``wide_*``, e.g. ``wide_mlp_fwd_stash`` and ``wide_mlp_bwd_f32``).
 
 Replaces ``ddnerf_tpu/kernels/fused_mlp.py::fused_mlp_forward`` (render
 mode, and ``stash=True``), ``fused_enc_mlp_forward`` (render only),
@@ -57,7 +61,11 @@ from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
 LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
             "fused_enc_mlp_fwd": 0, "fused_mlp_fwd_f32": 0,
             "fused_mlp_fwd_stash_f32": 0, "fused_mlp_bwd_f32": 0,
-            "fused_enc_mlp_fwd_f32": 0}
+            "fused_enc_mlp_fwd_f32": 0,
+            "wide_mlp_fwd": 0, "wide_mlp_fwd_stash": 0, "wide_mlp_bwd": 0,
+            "wide_enc_mlp_fwd": 0, "wide_mlp_fwd_f32": 0,
+            "wide_mlp_fwd_stash_f32": 0, "wide_mlp_bwd_f32": 0,
+            "wide_enc_mlp_fwd_f32": 0}
 # Under CUDA-graph capture a wrapper launches nothing: it records its kernel
 # into the graph and counts here.  The graph's owner reads what a capture
 # added and adds that to LAUNCHES at every replay, where the kernels run.
@@ -65,19 +73,27 @@ CAPTURED = dict.fromkeys(LAUNCHES, 0)
 
 
 def _count(name: str, net) -> None:
-    """One launch of kernel ``name`` at ``net``'s compute dtype."""
+    """One launch of kernel ``name`` (a fused plan's) at ``net``'s compute
+    dtype and width: the wide plan's counterpart above
+    :data:`MAX_FUSED_HIDDEN`."""
+    if is_wide(net.hidden_size):
+        name = "wide_" + name[len("fused_"):]
     if net.compute_dtype == torch.float32:
         name += "_f32"
     counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
     counts[name] += 1
 
-# The widths the kernels are built for; a network of another width up to
-# MAX_HIDDEN runs at the next of them with its weights zero-padded
-# (:func:`pack_weights`).  A padded unit's pre-activation is 0 and relu
-# keeps it 0, so it adds nothing forward; its mask is 0, so its cotangent
-# is 0 and it adds nothing to any gradient: the padding is exact.
+# The widths the fused plans are built for; a network of another width up
+# to MAX_FUSED_HIDDEN runs at the next of them with its weights
+# zero-padded (:func:`pack_weights`).  A wider network runs the wide plan
+# at its width rounded up to a multiple of WIDE_ALIGN, which has no upper
+# limit but device memory (as the JAX kernels check no width).  A padded
+# unit's pre-activation is 0 and relu keeps it 0, so it adds nothing
+# forward; its mask is 0, so its cotangent is 0 and it adds nothing to any
+# gradient: the padding is exact.
 KERNEL_WIDTHS = (64, 128, 192, 256, 384, 512)
-MAX_HIDDEN = KERNEL_WIDTHS[-1]
+MAX_FUSED_HIDDEN = KERNEL_WIDTHS[-1]
+WIDE_ALIGN = 64
 DIR_HIDDEN = 128
 DIR_LAYER_ROWS = 144  # Wd_feat rows | fc_alpha | zero pad (an n8 multiple)
 HEAD_ROWS = 16  # fc_rgb (3) | fc_mu_sigma (2) | zero pad
@@ -100,12 +116,20 @@ def _named_params(net) -> list:
 
 def kernel_width(hidden: int) -> int:
     """The width the kernels run a network of width ``hidden`` at: the
-    smallest of :data:`KERNEL_WIDTHS` that is at least ``hidden``."""
+    smallest of :data:`KERNEL_WIDTHS` that is at least ``hidden``, and above
+    them ``hidden`` rounded up to a multiple of :data:`WIDE_ALIGN` (the
+    wide plan)."""
+    if hidden < 1:
+        raise ValueError(f"a hidden width must be positive; got {hidden}")
     for width in KERNEL_WIDTHS:
         if hidden <= width:
             return width
-    raise ValueError(f"the fused MLP kernels take hidden widths up to "
-                     f"{MAX_HIDDEN}; got {hidden}")
+    return -(-hidden // WIDE_ALIGN) * WIDE_ALIGN
+
+
+def is_wide(hidden: int) -> bool:
+    """Whether a network of width ``hidden`` runs the wide plan."""
+    return hidden > MAX_FUSED_HIDDEN
 
 
 def stash_width(net, device) -> int:
@@ -169,9 +193,10 @@ def with_tf32_planes(kw: KernelWeights) -> KernelWeights:
         from ddnerf_tpu_torch.kernels import build
 
         lib = build.load_library()
-        err = lib.ddnerf_tf32_split(
-            buf.data_ptr(), width, _offsets(kw)[0],
-            torch.cuda.current_stream(buf.device).cuda_stream)
+        split = (lib.ddnerf_wide_tf32_split if is_wide(width)
+                 else lib.ddnerf_tf32_split)
+        err = split(buf.data_ptr(), width, _offsets(kw)[0],
+                    torch.cuda.current_stream(buf.device).cuda_stream)
         build.check(lib, err, "tf32_split")
     else:
         tf32_split_pack_reference(buf, kw.w_off, packed_rows(width))
@@ -329,13 +354,12 @@ def _check_net(net, device) -> None:
         raise ValueError(
             "the fused MLP kernels compute in bfloat16 or float32; this "
             f"network's compute dtype is {net.compute_dtype}")
-    if (not 1 <= net.hidden_size <= MAX_HIDDEN
-            or net.dir_hidden != DIR_HIDDEN
+    if (net.hidden_size < 1 or net.dir_hidden != DIR_HIDDEN
             or net.num_trunk_layers != 8 or net.skip_layer != 5):
         raise ValueError(
-            "the fused MLP kernel takes 8 trunk layers with the skip at 5, "
-            f"hidden widths up to {MAX_HIDDEN} and a {DIR_HIDDEN}-wide dir "
-            f"branch; got hidden={net.hidden_size}, "
+            "the fused MLP kernel takes 8 trunk layers with the skip at 5 "
+            f"and a {DIR_HIDDEN}-wide dir branch (the JAX kernel's network; "
+            f"any hidden width); got hidden={net.hidden_size}, "
             f"dir_hidden={net.dir_hidden}, layers={net.num_trunk_layers}, "
             f"skip={net.skip_layer}")
     if net.fc_feat.weight.device != device:
@@ -366,6 +390,14 @@ def _rows(ipe: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if rows.data_ptr() % 16:
         rows = rows.clone()  # the kernels copy IPE rows in 16-byte chunks
     return rows
+
+
+def _wide_workspace(nbytes: int, dev) -> torch.Tensor:
+    """The wide plan's scratch (activations, cotangent slabs, partial
+    sums) of the size its C entry point asks for."""
+    if nbytes < 0:
+        raise ValueError("the wide plan refuses these arguments")
+    return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
 def _offsets(kw: KernelWeights):
@@ -409,17 +441,25 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     ipe_c = _rows(ipe, cdt)
     dirs_c = dirs.to(cdt).contiguous()
     dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32, device=dev)
-    entry = (lib.ddnerf_fused_mlp_fwd_f32 if cdt == torch.float32
-             else lib.ddnerf_fused_mlp_fwd)
-    err = entry(
-        ipe_c.data_ptr(), dirs_c.data_ptr(), _weights_ptr(kw, cdt),
-        kw.b.data_ptr(),
-        dproj.data_ptr(), out.data_ptr(),
-        acts.trunk.data_ptr() if stash else None,
-        acts.h.data_ptr() if stash else None,
-        n, k, hid, int(net.depth_head), *_offsets(kw),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    stash_ptrs = ((acts.trunk.data_ptr(), acts.h.data_ptr()) if stash
+                  else (None, None))
+    if is_wide(hid):
+        f32 = int(cdt == torch.float32)
+        ws = _wide_workspace(lib.ddnerf_wide_fwd_workspace(n, hid, f32,
+                                                           int(stash), 0), dev)
+        err = lib.ddnerf_wide_fwd(
+            ipe_c.data_ptr(), dirs_c.data_ptr(), _weights_ptr(kw, cdt),
+            kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(), *stash_ptrs,
+            ws.data_ptr(), ws.numel(), n, k, hid, int(net.depth_head), f32,
+            *_offsets(kw), stream)
+    else:
+        entry = (lib.ddnerf_fused_mlp_fwd_f32 if cdt == torch.float32
+                 else lib.ddnerf_fused_mlp_fwd)
+        err = entry(
+            ipe_c.data_ptr(), dirs_c.data_ptr(), _weights_ptr(kw, cdt),
+            kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(), *stash_ptrs,
+            n, k, hid, int(net.depth_head), *_offsets(kw), stream)
     name = "fused_mlp_fwd_stash" if stash else "fused_mlp_fwd"
     build.check(lib, err, name)
     _count(name, net)
@@ -457,15 +497,21 @@ def fused_enc_mlp_forward(net, means: torch.Tensor, covs: torch.Tensor,
     covs32 = covs.float().contiguous()
     dirs_c = dirs.to(cdt).contiguous()
     dproj = torch.empty((n // k, DIR_HIDDEN), dtype=torch.float32, device=dev)
-    entry = (lib.ddnerf_fused_enc_mlp_fwd_f32 if cdt == torch.float32
-             else lib.ddnerf_fused_enc_mlp_fwd)
-    err = entry(
-        means32.data_ptr(), covs32.data_ptr(), dirs_c.data_ptr(),
-        _weights_ptr(kw, cdt), kw.b.data_ptr(), dproj.data_ptr(),
-        out.data_ptr(),
-        n, k, kernel_width(net.hidden_size), int(net.depth_head),
-        *_offsets(kw), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    hid = kernel_width(net.hidden_size)
+    args = (means32.data_ptr(), covs32.data_ptr(), dirs_c.data_ptr(),
+            _weights_ptr(kw, cdt), kw.b.data_ptr(), dproj.data_ptr(),
+            out.data_ptr())
+    tail = (*_offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
+    if is_wide(hid):
+        f32 = int(cdt == torch.float32)
+        ws = _wide_workspace(lib.ddnerf_wide_fwd_workspace(n, hid, f32, 0, 1),
+                             dev)
+        err = lib.ddnerf_wide_enc_fwd(*args, ws.data_ptr(), ws.numel(), n, k,
+                                      hid, int(net.depth_head), f32, *tail)
+    else:
+        entry = (lib.ddnerf_fused_enc_mlp_fwd_f32 if cdt == torch.float32
+                 else lib.ddnerf_fused_enc_mlp_fwd)
+        err = entry(*args, n, k, hid, int(net.depth_head), *tail)
     build.check(lib, err, "fused_enc_mlp_fwd")
     _count("fused_enc_mlp_fwd", net)
     return out
@@ -534,17 +580,24 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
         dirs_p[:, :DIR_DIM] = dirs
     g32 = g.float().contiguous()
     trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
-    ws_bytes = (lib.ddnerf_fused_mlp_bwd_workspace_f32 if f32
-                else lib.ddnerf_fused_mlp_bwd_workspace)(n, k, hid)
-    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
-    entry = lib.ddnerf_fused_mlp_bwd_f32 if f32 else lib.ddnerf_fused_mlp_bwd
-    err = entry(
-        ipe_c.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
-        trunk.data_ptr(), h.data_ptr(), _weights_ptr(kw, cdt), gw.data_ptr(),
-        gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
-        int(net.depth_head), int(per_ray_dirs), *_offsets(kw),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = (ipe_c.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
+            trunk.data_ptr(), h.data_ptr(), _weights_ptr(kw, cdt),
+            gw.data_ptr(), gb.data_ptr())
+    tail = (*_offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
+    if is_wide(hid):
+        ws = _wide_workspace(lib.ddnerf_wide_bwd_workspace(n, k, hid, int(f32)),
+                             dev)
+        err = lib.ddnerf_wide_bwd(*args, ws.data_ptr(), ws.numel(), n, k, hid,
+                                  int(net.depth_head), int(per_ray_dirs),
+                                  int(f32), *tail)
+    else:
+        ws_bytes = (lib.ddnerf_fused_mlp_bwd_workspace_f32 if f32
+                    else lib.ddnerf_fused_mlp_bwd_workspace)(n, k, hid)
+        ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+        entry = (lib.ddnerf_fused_mlp_bwd_f32 if f32
+                 else lib.ddnerf_fused_mlp_bwd)
+        err = entry(*args, ws.data_ptr(), ws_bytes, n, k, hid,
+                    int(net.depth_head), int(per_ray_dirs), *tail)
     build.check(lib, err, "fused_mlp_bwd")
     _count("fused_mlp_bwd", net)
     return unpack_grads(net, kw, gw, gb)

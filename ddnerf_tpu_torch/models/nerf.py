@@ -50,10 +50,12 @@ sum over the ray, ``true`` rounds the per-ray sum once.  Under
 counterparts, which round nothing, and the two settings are the same sum.
 ``parallel.bwd_block_rows`` (a TPU block size) is accepted and ignored.
 
-Any ``coarse_hidden_size`` / ``fine_hidden_size`` up to 512 runs through
-the kernels, each network at its own width (the kernels' widths and the
-zero padding between them: ``kernels/fused_mlp.py::KERNEL_WIDTHS``); a
-wider network raises.
+Any ``coarse_hidden_size`` / ``fine_hidden_size`` runs through the
+kernels, each network at its own width: up to 512 through the fused plans
+(their widths and the zero padding between them:
+``kernels/fused_mlp.py::KERNEL_WIDTHS``), above it through the wide plan
+(``csrc/fused_mlp_wide.cu``, the width padded to a multiple of 64), as the
+JAX kernels take any width.
 
 Config switches that only shape TPU programs are accepted and ignored:
 ``ipe_transposed``, ``raw_lane_inputs``, ``alpha_vpu``, ``split_h_stash``,

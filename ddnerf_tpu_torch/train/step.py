@@ -240,7 +240,14 @@ class CapturedTrainStep:
     state (``capturable``, so its step counts are on the device) and the
     generator, which is registered with each graph so that every replay
     advances it as the eager step does; each graph owns the ``.grad``
-    tensors its backward writes.
+    tensors its backward writes.  Under ``parallel.microbatch_rays`` one
+    graph holds the whole accumulating step: one draw, then the ``k``
+    chunks' forwards and backwards (the first chunk's backward makes the
+    graph's ``.grad``, the later ones add into it; the weight pack is made
+    once, by the first chunk, and shared), ``/= k`` and the update.  A
+    chunk's activations go back to the graph's pool when its backward is
+    done, and the next chunk's are made there, so the step's peak memory
+    is a chunk's, as in the eager step.
 
     The first ``WARMUP`` iterations run eagerly on a side stream, as
     capturing asks, and are iterations like any other: a captured run of N
@@ -276,11 +283,6 @@ class CapturedTrainStep:
             raise ValueError(
                 f"a captured step needs the store and the generator on a "
                 f"CUDA device; got {store.device} and {generator.device}")
-        if _microbatches(cfg, cfg.nerf.train.num_random_rays) > 1:
-            raise NotImplementedError(
-                "parallel.microbatch_rays is not captured: run the "
-                "microbatched step with --step-mode eager (step_mode="
-                "'eager')")
         self.cfg, self.pipeline, self.state = cfg, pipeline, state
         self.store, self.generator = store, generator
         if sampler is not None:

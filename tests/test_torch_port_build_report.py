@@ -39,6 +39,14 @@ nvcc warning : Support for offline compilation for architectures prior to '<comp
     (FWD64, "fused_mlp_fwd_kernel<64,1>"),
     (DPROJ, "dproj_grad_kernel"),
     ("not_a_mangled_name", "not_a_mangled_name"),
+    # The wide plan's GEMM, instantiated per element type.
+    ("_ZN49_GLOBAL__N__0f1d2c3b_17_fused_mlp_wide_cu_5e6f7a8b16wide_gemm_"
+     "kernelI13__nv_bfloat16Li0ELi1EEEvNS_4GemmE",
+     "wide_gemm_kernel<bf16,0,1>"),
+    ("_ZN49_GLOBAL__N__0f1d2c3b_17_fused_mlp_wide_cu_5e6f7a8b16wide_gemm_"
+     "kernelIfLi0ELi0EEEvNS_4GemmE", "wide_gemm_kernel<float,0,0>"),
+    ("_ZN49_GLOBAL__N__0f1d2c3b_17_fused_mlp_wide_cu_5e6f7a8b25wide_"
+     "colsum_partial_kernelIfEEvPKT_xxiPf", "wide_colsum_partial_kernel<float>"),
 ])
 def test_kernel_name_reads_the_mangled_name(mangled, name):
     assert build.kernel_name(mangled) == name

@@ -171,9 +171,10 @@ def test_enc_kernel_checks_its_inputs_and_never_falls_back(device):
         fk.fused_enc_mlp_forward(
             MipMLP(hidden_size=64, compute_dtype=torch.float16).to(device),
             means, covs, dirs, 4)
-    with pytest.raises(ValueError, match="up to 512"):
+    with pytest.raises(ValueError, match="128-wide dir branch"):
         fk.fused_enc_mlp_forward(
-            MipMLP(hidden_size=513, compute_dtype=torch.bfloat16).to(device),
+            MipMLP(hidden_size=64, dir_hidden=64,
+                   compute_dtype=torch.bfloat16).to(device),
             means, covs, dirs, 4)
     assert fk.LAUNCHES == before
 
@@ -736,18 +737,49 @@ def test_loop_under_the_graph_resumes_bitwise_and_equals_eager(
 
 
 def test_captured_step_refuses_what_it_cannot_capture(device, tmp_path):
-    """``parallel.microbatch_rays`` under the graph names the eager mode;
-    the CPU cannot capture at all."""
+    """The CPU cannot capture at all: the loop's graph mode raises there."""
     from ddnerf_tpu_torch.train.loop import train
-    from ddnerf_tpu_torch.train.step import CapturedTrainStep
 
-    cfg = _graph_cfg("DDNerfModel").replace_at("parallel.microbatch_rays", 128)
-    cfg, store, pipe, state, gen = _fresh_run(cfg, device)
-    with pytest.raises(NotImplementedError, match="--step-mode eager"):
-        CapturedTrainStep(cfg, pipe, state, store, gen)
     with pytest.raises(ValueError, match="step_mode='graph'"):
         train(_graph_cfg("DDNerfModel", tmp_path), max_iters=2, device="cpu",
               step_mode="graph")
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_captured_microbatched_step_equals_eager_step_bitwise(device, dtype):
+    """``parallel.microbatch_rays`` 128 of 512 rays (k = 4 chunks) under the
+    graph: 12 iterations across the ``pdf_padding`` flip, every metric,
+    the parameters, Adam's state and the generator bitwise the eager
+    step's; 2 k stash forwards and 2 k backwards per iteration in both."""
+    from ddnerf_tpu_torch.train.step import CapturedTrainStep, EagerTrainStep
+
+    steps, chunks = 12, 4
+    cfg = (_graph_cfg("DDNerfModel")
+           .replace_at("parallel.microbatch_rays", 128)
+           .replace_at("parallel.compute_dtype", dtype)
+           .replace_at("train_params.max_pdf_pad_iters", 6))
+    sfx = "_f32" if dtype == "float32" else ""
+    runs, rows, launched = {}, {}, {}
+    for mode in ("eager", "graph"):
+        cfg_m, store, pipe, state, gen = _fresh_run(cfg, device)
+        before = dict(fk.LAUNCHES)
+        if mode == "graph":
+            stepper = CapturedTrainStep(cfg_m, pipe, state, store, gen,
+                                        max_block=6)
+            rows[mode] = torch.cat([stepper.run(6).clone() for _ in range(2)])
+            assert sorted(stepper._graphs) == [False, True]
+        else:
+            stepper = EagerTrainStep.from_store(cfg_m, pipe, state, store, gen)
+            rows[mode] = stepper.run(steps)
+        torch.cuda.synchronize()
+        launched[mode] = {k: fk.LAUNCHES[k] - before[k] for k in before}
+        runs[mode] = (pipe, state, gen)
+    assert torch.equal(rows["graph"], rows["eager"])
+    for mode in runs:
+        assert launched[mode][f"fused_mlp_fwd_stash{sfx}"] == \
+            2 * chunks * steps, mode
+        assert launched[mode][f"fused_mlp_bwd{sfx}"] == 2 * chunks * steps
+    _assert_same_run(runs["graph"], runs["eager"])
 
 
 # The float32 kernels (csrc/fused_mlp_f32.cu): f32 on both sides, summation
@@ -845,3 +877,73 @@ def test_f32_pipeline_trains_through_the_f32_kernels(device):
         "fused_mlp_bwd_f32": 2}
     assert torch.isfinite(metrics["loss"])
     assert all(torch.isfinite(p.grad).all() for p in pipe.parameters())
+
+
+# The wide plan (csrc/fused_mlp_wide.cu) above width 512: chip_smoke.py
+# phase 19's limits.  bf16: the forward tolerances above, B2's trunk held
+# against the plain version accumulating in float64 (as at 512: against
+# float32 plain the trunk reads up to 1.6e-3 at 1024), the rest to 1.5e-4;
+# float32: F32_OUT_TOL / F32_GRAD_TOL.
+WIDE_TRUNK_F64_TOL, WIDE_REST_TOL = 1.6e-3, 1.5e-4
+
+
+@pytest.mark.parametrize("hidden,rays,k", [(600, 50, 33), (1024, 40, 32),
+                                           (513, 3, 1)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_plan_matches_plain_versions(device, dtype, hidden, rays, k):
+    """B1, B1s, B3 and B2 of a DepthMipMLP wider than 512 launch the wide
+    plan's kernels (``wide_*``) and agree with their plain versions; B1s is
+    bit for bit B1 (B3 too at bf16), B2 bitwise repeatable in both dirs
+    settings."""
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    f32 = dtype == torch.float32
+    sfx = "_f32" if f32 else ""
+    gen = torch.Generator().manual_seed(hidden + rays)
+    net = DepthMipMLP(hidden_size=hidden, compute_dtype=dtype,
+                      generator=gen).to(device)
+    means, covs = _gaussians(gen, rays * k, device)
+    ipe = integrated_pos_enc((means, covs), double_angle=False)
+    dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+    g = torch.randn(rays * k, 6, generator=gen).to(device)
+    before = dict(fk.LAUNCHES)
+    b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+    b1s, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+    b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+    grads = {pr: fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, pr)
+             for pr in (False, True)}
+    again = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash, False)
+    torch.cuda.synchronize()
+    assert {x: fk.LAUNCHES[x] - before[x] for x in before} == {
+        **dict.fromkeys(before, 0), f"wide_mlp_fwd{sfx}": 1,
+        f"wide_mlp_fwd_stash{sfx}": 1, f"wide_enc_mlp_fwd{sfx}": 1,
+        f"wide_mlp_bwd{sfx}": 3}
+    assert torch.equal(b1, b1s) and (f32 or torch.equal(b1, b3))
+    assert stash.trunk.shape == (9, rays * k, fk.kernel_width(hidden))
+    assert not stash.trunk[..., hidden:].any()
+    want, want_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+    for got, plain in ((b1, want),
+                       (b3, ref.fused_enc_mlp_reference(net, means, covs,
+                                                        dirs, k))):
+        err = (got - plain).abs()
+        assert torch.isfinite(got).all()
+        if f32:
+            assert err.max().item() <= F32_OUT_TOL
+        else:
+            assert err.max().item() <= MAX_ABS_TOL
+            assert err.mean().item() <= MEAN_ABS_TOL
+    stash_err = max((a.float() - b.float()).abs().max().item() for a, b in
+                    zip([*stash.trunk[..., :hidden], stash.h],
+                        [*want_stash.trunk, want_stash.h]))
+    assert stash_err <= (F32_OUT_TOL if f32 else MAX_ABS_TOL)
+    assert all(torch.equal(again[x], grads[False][x]) for x in again)
+    for per_ray, got in grads.items():
+        plain = ref.fused_mlp_backward_reference(
+            net, ipe, dirs, g, k, stash, per_ray,
+            accumulate=torch.float32 if f32 else torch.float64)
+        for name in plain:
+            rel = ((got[name] - plain[name]).norm()
+                   / plain[name].norm().clamp_min(1e-30)).item()
+            tol = (F32_GRAD_TOL if f32 else WIDE_TRUNK_F64_TOL
+                   if name.startswith("layers_xyz.") else WIDE_REST_TOL)
+            assert rel <= tol, (per_ray, name, rel)

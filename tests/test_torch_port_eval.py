@@ -65,10 +65,10 @@ def test_cli_writes_results_and_counts_no_launch_on_cpu(logdir, capsys):
     out = capsys.readouterr().out
     line = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
     launches = json.loads(line[-1][len("kernel launches: "):])
-    assert launches == {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0,
-                        "fused_mlp_bwd": 0, "fused_enc_mlp_fwd": 0,
-                        "fused_mlp_fwd_f32": 0, "fused_mlp_fwd_stash_f32": 0,
-                        "fused_mlp_bwd_f32": 0, "fused_enc_mlp_fwd_f32": 0}
+    assert launches == {
+        f"{plan}_{kernel}{sfx}": 0 for plan in ("fused", "wide")
+        for kernel in ("mlp_fwd", "mlp_fwd_stash", "mlp_bwd", "enc_mlp_fwd")
+        for sfx in ("", "_f32")}
     text = open(os.path.join(logdir, "validation", "results.txt")).read()
     assert "psnr_fine" in text and "ssim_v2_coarse" in text
 

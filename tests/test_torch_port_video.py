@@ -206,10 +206,10 @@ def test_cli_writes_video_frames_and_launch_counts(logdir, capsys):
             if ln.startswith("frame ")] == ["0/3", "1/3", "2/3"]
     line = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
     launches = json.loads(line[-1][len("kernel launches: "):])
-    assert launches == {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0,
-                        "fused_mlp_bwd": 0, "fused_enc_mlp_fwd": 0,
-                        "fused_mlp_fwd_f32": 0, "fused_mlp_fwd_stash_f32": 0,
-                        "fused_mlp_bwd_f32": 0, "fused_enc_mlp_fwd_f32": 0}
+    assert launches == {
+        f"{plan}_{kernel}{sfx}": 0 for plan in ("fused", "wide")
+        for kernel in ("mlp_fwd", "mlp_fwd_stash", "mlp_bwd", "enc_mlp_fwd")
+        for sfx in ("", "_f32")}
     savedir = os.path.join(logdir, "video")
     frames, fps = read_avi(os.path.join(savedir, "video.avi"))
     assert frames.shape == (3, 64, 128, 3) and fps == 24

@@ -241,19 +241,21 @@ def test_kernel_widths_and_the_limit():
     assert [fk.kernel_width(w) for w in (1, 64, 65, 96, 128, 129, 192, 193,
                                          256, 257, 320, 384, 385, 512)] == \
         [64, 64, 128, 128, 128, 192, 192, 256, 256, 384, 384, 384, 512, 512]
-    with pytest.raises(ValueError, match="up to 512"):
-        fk.kernel_width(513)
+    # Past the fused plans' 512 the wide plan: the next multiple of 64.
+    assert fk.kernel_width(513) == 576 and fk.is_wide(513)
+    assert not fk.is_wide(512)
     net = MipMLP(hidden_size=96)
     assert fk.stash_width(net, "cpu") == 96
     assert fk.stash_width(net, "cuda") == 128
-    # What a launch checks first: any width up to 512 passes, 513 raises.
+    # What a launch checks first: every width passes, 513 included; a
+    # network the JAX kernel cannot take either raises.
     cpu = torch.device("cpu")
-    for width in (1, 300, 512):
+    for width in (1, 300, 512, 513):
         fk._check_net(MipMLP(hidden_size=width, compute_dtype=torch.bfloat16),
                       cpu)
-    with pytest.raises(ValueError, match="up to 512"):
-        fk._check_net(MipMLP(hidden_size=513, compute_dtype=torch.bfloat16),
-                      cpu)
+    with pytest.raises(ValueError, match="128-wide dir branch"):
+        fk._check_net(MipMLP(hidden_size=96, dir_hidden=64,
+                             compute_dtype=torch.bfloat16), cpu)
 
 
 @pytest.mark.parametrize("hidden", [96, 320])
