@@ -124,8 +124,11 @@ Run from the repository root.  Phases, each of which fails the run:
    B3, B1s and B2 (``csrc/fused_mlp_wide.cu``, counted ``wide_*``) at 600,
    768 and 1024 in bf16 and float32 against their plain versions under
    the gates of phases 17 and 18 on a ragged row count and, at 1024, on
-   the main paths' shapes, two faults at 1024 outside B2's stage limits,
-   three outside the float32 limits, the times at 1024 beside the bounds;
+   the main paths' shapes, each bitwise repeatable, the float32 chain's
+   transposed TF32 planes bit for bit the plain split, two faults at 1024
+   outside B2's stage limits, three outside the float32 limits, the times
+   at 1024 beside the bounds and the library yardstick (one PyTorch matrix
+   product per GEMM of the wide plan);
    (b) a coarse-600 / fine-1024 run through the three CLIs in both dtypes,
    its frames against the plain version, 20 captured iterations against 20
    eager ones and 20 steps kernel vs plain, and the same at bf16 for a
@@ -136,7 +139,9 @@ Run from the repository root.  Phases, each of which fails the run:
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
-could take for the same work, see :func:`_bound_ms`); the last line is
+could take for the same work, see :func:`_bound_ms`, and for the wide rows
+``library_ms``, :func:`wide_library_ms`; the fused rows have none, as no
+single PyTorch call computes their fused network); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15,
 16, 17, 18 and 19 (over every rank), each counted from 0.  The
@@ -1378,7 +1383,10 @@ def phase_cli_path(logroot, tag, opts, iters, what):
 # and 1.4-1.6e-3 at 1024, where the float32 plain version itself moves
 # away from float64: the ``[wide] B2 ... trunk`` lines print all three);
 # float32 within F32_OUT_TOL / F32_GRAD_TOL, B1s bit for bit B1, bitwise
-# repeatable, the pack's TF32 planes bit for bit the plain split.  Two
+# repeatable, the pack's TF32 planes bit for bit the plain split, and the
+# transposed TF32 planes the float32 chain writes for its weight gradients
+# bit for bit ``reference.tf32_planes_t_reference``; every forward is
+# launched twice and held bitwise to itself (B2 already is).  Two
 # faults applied to the bf16 kernel's own results at 1024 must read outside
 # the stage limits: the weight gradients rounded to bf16, and the bias
 # gradients summed from the rounded cotangent slabs.  Then, at 1024 on the
@@ -1386,7 +1394,8 @@ def phase_cli_path(logroot, tag, opts, iters, what):
 # batch), the same gates in both dtypes, phase 18's three float32 faults
 # (the single-pass TF32 build, the pack and the dirs rounded to bf16), each
 # of which must read outside F32_OUT_TOL / F32_GRAD_TOL, and each kernel's
-# time beside its bound and its plain version's time.
+# time beside its bound, its plain version's time and the library
+# yardstick's (:func:`wide_library_ms`).
 WIDE_PLAN_WIDTHS = (600, 768, 1024)
 WIDE_NAMES = tuple(f"wide_{base}{sfx}" for sfx in ("", "_f32")
                    for base in ("mlp_fwd", "enc_mlp_fwd", "mlp_fwd_stash",
@@ -1480,6 +1489,52 @@ def _check_backward_f32(torch, phase, name, tag, net, ipe, dirs, g, k,
     return worst, plains
 
 
+def _check_wide_planes(torch, net, ipe, dirs, g, k, stash, tag):
+    """B2 at float32 through the wide plan's C entry point with a workspace
+    kept here: the transposed TF32 planes its chain wrote for the weight
+    gradients (the last, of g_0, where ``bwd_layout()`` in
+    csrc/fused_mlp_wide.cu puts them after the slabs) bit for bit
+    ``reference.tf32_planes_t_reference`` of the g_0 slab it wrote.  A
+    check's launch: not counted."""
+    from ddnerf_tpu_torch.kernels import build
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    lib = build.load_library()
+    dev, n = ipe.device, ipe.shape[0]
+    hid = fk.kernel_width(net.hidden_size)
+    kw = fk.pack_weights(net)
+    ipe_c, dirs_c = ipe.float().contiguous(), dirs.float().contiguous()
+    g32 = g.float().contiguous()
+    gw = torch.empty(kw.w.numel(), dtype=torch.float32, device=dev)
+    gb = torch.empty(kw.b.numel(), dtype=torch.float32, device=dev)
+    ws_bytes = lib.ddnerf_wide_bwd_workspace(n, k, hid, 1)
+    ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=dev)
+    trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
+    err = lib.ddnerf_wide_bwd(
+        ipe_c.data_ptr(), dirs_c.data_ptr(), g32.data_ptr(), trunk.data_ptr(),
+        h.data_ptr(), kw.planes.data_ptr(), gw.data_ptr(), gb.data_ptr(),
+        ws.data_ptr(), ws_bytes, n, k, hid, int(net.depth_head), 0, 1,
+        *fk._offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "fused_mlp_bwd")
+    torch.cuda.synchronize()
+    ldt = -(-n // 32) * 32
+    off = 0
+    for count in (n * 64, n * 128, n * 128):  # gs, gd, ghf
+        off += -(-count * 4 // 256) * 256
+    g0 = ws[off:off + n * hid * 4].view(torch.float32).view(n, hid)
+    off += -(-9 * n * hid * 4 // 256) * 256
+    planes = ws[off:off + 2 * hid * ldt * 4].view(torch.float32).view(
+        2, hid, ldt)
+    want = ref.tf32_planes_t_reference(g0)
+    if not torch.equal(planes[..., :n], want[..., :n]):
+        fail(f"the wide float32 backward's transposed TF32 planes differ "
+             f"from the plain split ({tag})")
+    print(f"[wide] B2 {tag}: the chain's transposed TF32 planes of g_0 "
+          f"({2 * hid * n} elements) bit for bit the plain split", flush=True)
+    del ws
+
+
 def _hold_wide(torch, net, fwd, train, tag, worst):
     """B1 and B3 of the wide plan on ``fwd`` = (means, covs, ipe, dirs, k),
     B1s and B2 on ``train`` = (ipe, dirs, k, g) (the same rows, or a
@@ -1511,6 +1566,20 @@ def _hold_wide(torch, net, fwd, train, tag, worst):
                                                          t_k)
     if not torch.equal(b1_t, b1s) or (not f32 and not torch.equal(b1, b3)):
         fail(f"B1s or B3 is not bit for bit B1 ({tag})")
+    # Each forward launched again on the same inputs: bitwise the same (B2
+    # is held to it below).
+    again_s, again_stash = fk.fused_mlp_forward(net, t_ipe, t_dirs, t_k,
+                                                stash=True)
+    if not (torch.equal(b1, fk.fused_mlp_forward(net, ipe, dirs, k))
+            and torch.equal(b3, fk.fused_enc_mlp_forward(net, means, covs,
+                                                         dirs, k))
+            and torch.equal(b1s, again_s)
+            and torch.equal(stash.trunk, again_stash.trunk)
+            and torch.equal(stash.h, again_stash.h)):
+        fail(f"a wide forward is not bitwise repeatable ({tag})")
+    del again_s, again_stash
+    print(f"[wide] {tag}: B1, B3 and B1s (its stash too) bitwise repeatable",
+          flush=True)
     if stash.trunk[..., hidden:].any():
         fail(f"the stash's padded columns are not zero ({tag})")
     p1 = ref.fused_mlp_reference(net, ipe, dirs, k)
@@ -1527,6 +1596,7 @@ def _hold_wide(torch, net, fwd, train, tag, worst):
         err, plains = _check_backward_f32(torch, "wide", "wide_mlp_bwd_f32",
                                           tag, net, t_ipe, t_dirs, g, t_k,
                                           stash)
+        _check_wide_planes(torch, net, t_ipe, t_dirs, g, t_k, stash, tag)
         worst["wide_mlp_bwd_f32"] = max(worst["wide_mlp_bwd_f32"], err)
         return ((means, covs, ipe, dirs, k, p1, p3),
                 (t_ipe, t_dirs, t_k, g, p_out, p_stash, stash, plains[False]))
@@ -1554,7 +1624,7 @@ def _hold_wide(torch, net, fwd, train, tag, worst):
 def phase_wide_plan(torch):
     """Phase 19 (a), see :data:`WIDE_PLAN_WIDTHS`.  Returns (the largest
     |kernel - plain| of each wide kernel, over the ragged and the main
-    paths' shapes, {kernel: (ms, plain ms)} at width
+    paths' shapes, {kernel: (ms, plain ms, library ms)} at width
     :data:`WIDE_TIMING_WIDTH`)."""
     from ddnerf_tpu_torch.core.math import integrated_pos_enc
     from ddnerf_tpu_torch.kernels import fused_mlp as fk
@@ -1679,12 +1749,16 @@ def phase_wide_plan(torch):
         for name, (kern, plain) in pairs.items():
             times[name] = (_event_ms(torch, kern, WIDE_TIMING_REPS),
                            _event_ms(torch, plain, WIDE_TIMING_REPS))
+        library = wide_library_ms(torch, hidden, f32)
+        for name in pairs:
+            times[name] += (library[name],)
         bounds = _wide_bounds(hidden, f32)
         padded = _wide_bounds(fk.kernel_width(600), f32)
         print(f"[wide] DepthMipMLP H={hidden} {'float32' if f32 else 'bf16'}: "
               + "; ".join(
                   f"{name} {times[name][0]:.3f} ms, plain {times[name][1]:.3f} "
-                  f"ms (bound {bounds[name][0]:.3f} ms, {bounds[name][1]})"
+                  f"ms, library {times[name][2]:.3f} ms (bound "
+                  f"{bounds[name][0]:.3f} ms, {bounds[name][1]})"
                   for name in pairs)
               + f" (B1, B3 on {CHUNK_RAYS * SAMPLES} rows; B1s, B2 on "
               f"{TRAIN_RAYS * SAMPLES}; CUDA-event medians of "
@@ -1705,6 +1779,80 @@ def _wide_bounds(hidden, f32):
     return {"wide_" + name[len("fused_"):]: v for name, v in kernel_bounds(
         hidden, CHUNK_RAYS * SAMPLES, CHUNK_RAYS, TRAIN_RAYS * SAMPLES,
         TRAIN_RAYS, f32=f32).items()}
+
+
+# The library yardstick of the wide rows (the kernels line's library_ms):
+# one PyTorch matrix product per GEMM the wide plan launches, at its shapes
+# and dtype (bf16 operands with float32 products, or float32 with TF32
+# off), summed per kernel.  The port never calls them.
+def wide_library_gemms(hidden, rows, kind):
+    """``[(M, K, N, transposed)]``: the products of one wide-plan call of
+    ``kind`` (``fwd``: B1, B3 and B1s; ``bwd``: B2) at kernel width
+    ``hidden`` on ``rows`` rows, each ``[M, K] @ [K, N]``; ``transposed``:
+    A is the transpose of a stored ``[K, M]`` (a weight gradient's
+    cotangent)."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    hp, ipe, dh = fk.kernel_width(hidden), fk.IPE_DIM, fk.DIR_HIDDEN
+    if kind == "fwd":
+        return ([(rows, ipe, hp, False)]
+                + [(rows, ipe + hp if l == 5 else hp, hp, False)
+                   for l in range(1, 9)]
+                + [(rows, hp, fk.DIR_LAYER_ROWS, False),
+                   (rows, dh, fk.HEAD_ROWS, False)])
+    chain = ([(rows, fk.HEAD_ROWS, dh, False), (rows, dh + 1, hp, False)]
+             + [(rows, hp, hp, False)] * 8)
+    wgrad = ([(hp, rows, ipe, True)]
+             + [(hp, rows, n, True) for i in range(1, 8)
+                for n in ((ipe, hp) if i == 5 else (hp,))]
+             + [(hp, rows, hp, True), (dh, rows, hp, True), (1, rows, hp, True),
+                (fk.HEAD_ROWS, rows, dh, True)])
+    return chain + wgrad
+
+
+def wide_library_ms(torch, hidden, f32, reps=WIDE_TIMING_REPS):
+    """``{wide kernel: ms}``: the CUDA-event median over ``reps`` of
+    :func:`wide_library_gemms`' products of each wide kernel on the main
+    paths' shapes (B1 and B3 on a render chunk, B1s and B2 on a training
+    batch), random operands made on the card."""
+    dev = torch.device("cuda")
+    cdt = torch.float32 if f32 else torch.bfloat16
+    sfx = "_f32" if f32 else ""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for name, rows, kind in (("wide_mlp_fwd", CHUNK_RAYS * SAMPLES, "fwd"),
+                                 ("wide_enc_mlp_fwd", CHUNK_RAYS * SAMPLES,
+                                  "fwd"),
+                                 ("wide_mlp_fwd_stash", TRAIN_RAYS * SAMPLES,
+                                  "fwd"),
+                                 ("wide_mlp_bwd", TRAIN_RAYS * SAMPLES, "bwd")):
+            made = {}  # operands of one shape are made once
+
+            def operand(shape):
+                if shape not in made:
+                    made[shape] = torch.randn(shape, generator=gen,
+                                              device=dev).to(cdt)
+                return made[shape]
+
+            ops = [(operand((k, m)).t() if trans else operand((m, k)),
+                    operand((k, n)))
+                   for m, k, n, trans in wide_library_gemms(hidden, rows,
+                                                            kind)]
+
+            def run(ops=ops):
+                for a, b in ops:
+                    if f32:
+                        torch.mm(a, b)
+                    else:
+                        torch.mm(a, b, out_dtype=torch.float32)
+            out[name + sfx] = _event_ms(torch, run, reps)
+            del ops, made
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def phase_microbatch(torch):
@@ -3506,21 +3654,23 @@ def main():
     for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
         train_err[name] = max(train_err[name], width_err[name])
     fwd_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu"
-    # name, source, the TPU kernel, main-path launches, error, ms, plain ms
+    # name, source, the TPU kernel, main-path launches, error, ms, plain ms,
+    # library ms (no single PyTorch call computes the fused plans' 11-layer
+    # MLP or its backward, so the fused rows have none)
     rows = [
         ("fused_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
-         total["fused_mlp_fwd"], max_err, ms, plain_ms),
+         total["fused_mlp_fwd"], max_err, ms, plain_ms, None),
         ("fused_mlp_fwd_stash", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
          total["fused_mlp_fwd_stash"],
          train_err["fused_mlp_fwd_stash"], coarse["fwd_stash"],
-         coarse["plain_fwd"]),
+         coarse["plain_fwd"], None),
         ("fused_mlp_bwd", "ddnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
          "ddnerf_tpu/kernels/fused_mlp_bwd.py:299",
          total["fused_mlp_bwd"], train_err["fused_mlp_bwd"],
-         coarse["bwd"], coarse["plain_bwd"]),
+         coarse["bwd"], coarse["plain_bwd"], None),
         ("fused_enc_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:309",
          total["fused_enc_mlp_fwd"], enc_err, enc["enc"],
-         enc["plain"]),
+         enc["plain"], None),
     ]
     # The float32 instantiations of the same TPU kernels (phase 18's times
     # at width 256, DepthMipMLP).
@@ -3531,9 +3681,10 @@ def main():
             ("fused_mlp_bwd_f32", "ddnerf_tpu/kernels/fused_mlp_bwd.py:299"),
             ("fused_enc_mlp_fwd_f32", "ddnerf_tpu/kernels/fused_mlp.py:309")):
         rows.append((name, f32_cu, replaces, total[name], f32_err[name],
-                     *f32_times[256][name]))
+                     *f32_times[256][name], None))
     # The wide plan, both dtypes (phase 19's times at width 1024,
-    # DepthMipMLP).
+    # DepthMipMLP), with the library yardstick: one PyTorch matrix product
+    # per GEMM the plan launches (wide_library_ms).
     wide_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_wide.cu"
     for f32 in (False, True):
         bounds.update(_wide_bounds(WIDE_TIMING_WIDTH, f32))
@@ -3547,10 +3698,8 @@ def main():
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": count, "max_abs_err": err, "ms": t, "plain_ms": plain_t,
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        # No single PyTorch call computes a fused 11-layer MLP (or its
-        # backward), so there is no library time to put beside these.
-        "library_ms": None,
-    } for name, source, replaces, count, err, t, plain_t in rows]}))
+        "library_ms": lib_t,
+    } for name, source, replaces, count, err, t, plain_t, lib_t in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -203,3 +203,19 @@ def tf32_split_pack_reference(buf: torch.Tensor, w_off, rows) -> None:
         for i, part in ((3, big), (4, small)):
             buf[i * plane + o:i * plane + e] = \
                 part[o:e].view(r, -1).T.reshape(-1)
+
+
+@torch.no_grad()
+def tf32_planes_t_reference(g: torch.Tensor) -> torch.Tensor:
+    """The transposed TF32 planes of a float32 cotangent slab ``g [n,
+    cols]`` in the layout the wide plan's float32 backward writes for its
+    weight gradients (``csrc/fused_mlp_wide.cu``, the chain's epilogue):
+    ``[2, cols, ldt]`` with ``ldt`` = ``n`` rounded up to a multiple of 32,
+    plane 0 the big and plane 1 the small parts of ``g.T``
+    (:func:`tf32_split`), the columns past ``n`` zero."""
+    n, cols = g.shape
+    out = g.new_zeros((2, cols, -(-n // 32) * 32))
+    big, small = tf32_split(g.T)
+    out[0, :, :n] = big
+    out[1, :, :n] = small
+    return out

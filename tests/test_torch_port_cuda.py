@@ -947,3 +947,68 @@ def test_wide_plan_matches_plain_versions(device, dtype, hidden, rays, k):
             tol = (F32_GRAD_TOL if f32 else WIDE_TRUNK_F64_TOL
                    if name.startswith("layers_xyz.") else WIDE_REST_TOL)
             assert rel <= tol, (per_ray, name, rel)
+
+
+# The edges of the wide plan's tiled GEMM (csrc/fused_mlp_wide.cu,
+# 128 x 128 output tiles, TMA's zero fill past every extent): a single
+# row, one ragged row tile, exactly one tile, one tile and a row; each
+# with the dir layer's N = 144 (alpha in the second column tile), the
+# heads' N = 16, the K ranges of two segments (the skip layer's IPE | x4,
+# g_feat's g_h | g_alpha) and K = 96 (layer 0).
+@pytest.mark.parametrize("hidden,rays,k", [(704, 1, 1), (640, 3, 33),
+                                           (768, 4, 32), (1024, 3, 43)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_gemm_edges_match_plain_and_repeat(device, dtype, hidden, rays,
+                                                k):
+    """B1, B3, B1s (with the stash: x0 from K = 96, x5 from the two-segment
+    skip layer, h from the dir layer) and B2 (fc_alpha and layer 5 from the
+    two-segment products) against their plain versions under the wide
+    plan's limits, and each bitwise repeatable."""
+    from ddnerf_tpu_torch.kernels import reference as ref
+
+    f32 = dtype == torch.float32
+    gen = torch.Generator().manual_seed(hidden * 7 + rays * k)
+    net = DepthMipMLP(hidden_size=hidden, compute_dtype=dtype,
+                      generator=gen).to(device)
+    n = rays * k
+    means, covs = _gaussians(gen, n, device)
+    ipe = integrated_pos_enc((means, covs), double_angle=False)
+    dirs = (torch.rand(rays, 27, generator=gen) * 2 - 1).to(device)
+    g = torch.randn(n, 6, generator=gen).to(device)
+    runs = []
+    for _ in range(2):
+        b1 = fk.fused_mlp_forward(net, ipe, dirs, k)
+        b3 = fk.fused_enc_mlp_forward(net, means, covs, dirs, k)
+        b1s, stash = fk.fused_mlp_forward(net, ipe, dirs, k, stash=True)
+        grads = fk.fused_mlp_backward(net, ipe, dirs, g, k, stash)
+        runs.append((b1, b3, b1s, stash.trunk, stash.h, *grads.values()))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    b1, b3, b1s, trunk, h = runs[0][:5]
+    grads = dict(zip(grads, runs[0][5:]))
+    assert torch.equal(b1, b1s) and (f32 or torch.equal(b1, b3))
+    want, want_stash = ref.fused_mlp_stash_reference(net, ipe, dirs, k)
+    tol = F32_OUT_TOL if f32 else MAX_ABS_TOL
+    for got, plain in ((b1, want), (b3, fused_enc_mlp_reference(
+            net, means, covs, dirs, k))):
+        assert torch.isfinite(got).all()
+        # rgb, alpha (the dir layer's column 128), mu and sigma apart
+        for c in range(6):
+            assert (got[:, c] - plain[:, c]).abs().max().item() <= tol, c
+    for s in (0, 5, 8):
+        err = (trunk[s, :, :hidden].float()
+               - want_stash.trunk[s].float()).abs().max().item()
+        assert err <= tol, s
+    assert (h.float() - want_stash.h.float()).abs().max().item() <= tol
+    plain = ref.fused_mlp_backward_reference(
+        net, ipe, dirs, g, k, stash,
+        accumulate=torch.float32 if f32 else torch.float64)
+    for name in ("layers_xyz.0.weight", "layers_xyz.5.weight",
+                 "layers_xyz.5.bias", "fc_feat.weight", "fc_alpha.weight",
+                 "fc_alpha.bias", "layers_dir.0.weight", "fc_rgb.weight",
+                 "fc_mu_sigma.weight"):
+        rel = ((grads[name] - plain[name]).norm()
+               / plain[name].norm().clamp_min(1e-30)).item()
+        lim = (F32_GRAD_TOL if f32 else WIDE_TRUNK_F64_TOL
+               if name.startswith("layers_xyz.") else WIDE_REST_TOL)
+        assert rel <= lim, (name, rel)
