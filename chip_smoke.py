@@ -18,6 +18,9 @@ Run from the repository root.  Phases, each of which fails the run:
    same shapes and bit for bit against the forward fed the torch
    direct-form IPE, with CUDA-event timings of it, its plain version and
    the forward plus the torch IPE assembly;
+3c. the library yardstick of the fused plans' four kernels in both dtypes
+   at width 256 on the main paths' shapes: one PyTorch matrix product per
+   product of the network (:func:`library_ms`), summed per kernel;
 4. training kernels vs plain: the stash forward (outputs bit-identical to
    render mode, activation slabs within the forward tolerances) and the
    fused backward (every gradient within its norm-relative tolerance and
@@ -135,16 +138,26 @@ Run from the repository root.  Phases, each of which fails the run:
    coarse-256 / fine-1024 pair, whose one step runs both plans' kernels;
    (c) 8192 rays a step in 4 microbatches of 2048,
    captured against eager bit for bit (8 B1s + 8 B2 a step) in both
-   dtypes, its peak device memory below the monolithic 8192-ray step's.
+   dtypes, its peak device memory below the monolithic 8192-ray step's;
+20. quality at other widths, kernel against plain: phase 16's blender
+   rehearsal (its scene, 3,000 iterations on the config's schedule, the
+   captured step) with the kernels and with ``--plain`` (``pallas_mlp:
+   off``, no kernel may launch) at coarse-192 / fine-512, and with the
+   kernels at coarse-600 / fine-1024 (the wide plan): every run must
+   reach the blender gate, each kernel run launch
+   B1s and B2 2 x iterations under its networks' plans, and each kernel
+   run read ``psnr_fine`` within 0.5 dB of the plain run at its widths
+   (at 256 / 256 and 600 / 1024 the plain runs' recorded readings,
+   :data:`PLAIN_PSNR_RECORDED`).
 
 The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
-could take for the same work, see :func:`_bound_ms`, and for the wide rows
-``library_ms``, :func:`wide_library_ms`; the fused rows have none, as no
-single PyTorch call computes their fused network); the last line is
+could take for the same work, see :func:`_bound_ms`, and ``library_ms``,
+the time of one PyTorch matrix product per product of the network,
+:func:`library_ms`); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15,
-16, 17, 18 and 19 (over every rank), each counted from 0.  The
+16, 17, 18, 19 and 20's kernel runs (over every rank), each counted from 0.  The
 single-process CLI runs of phases 5-10, 15 and 17-19 are calls of each
 CLI's ``main`` in one worker
 process, one after another, every count set to 0 before each call; the
@@ -472,16 +485,24 @@ def phase_kernel(torch):
                       f"{plain:.3f} ms (CUDA-event medians of "
                       f"{TIMING_REPS})", flush=True)
                 timing[cls.__name__] = (ms, plain)
-    # A yardstick the port never calls: one trunk layer's product through
-    # the library.  No single PyTorch call computes the fused network, so
-    # the kernels' library_ms stays null.
-    a = torch.randn(CHUNK_RAYS * SAMPLES, 256, device=dev,
-                    dtype=torch.bfloat16)
-    w = torch.randn(256, 256, device=dev, dtype=torch.bfloat16)
-    print(f"[kernel] yardstick: torch.matmul [{a.shape[0]}, 256] x [256, 256] "
-          f"bf16 {_event_ms(torch, lambda: a @ w.T):.3f} ms (one trunk "
-          f"layer's product, activations through device memory)", flush=True)
     return worst, timing
+
+
+def phase_fused_library(torch):
+    """Phase 3c: the library yardstick of the fused plans' kernels (the
+    kernels line's ``library_ms``, :func:`library_ms`) at width 256 on the
+    main paths' shapes, bf16 and float32 -> ``{kernel: ms}``."""
+    out = {}
+    for f32 in (False, True):
+        lib = library_ms(torch, 256, f32, "fused")
+        print(f"[library] DepthMipMLP H=256 {'float32' if f32 else 'bf16'}: "
+              + "; ".join(f"{name} {t:.3f} ms" for name, t in lib.items())
+              + f" (one torch.mm per product of the network; B1, B3 on "
+              f"{CHUNK_RAYS * SAMPLES} rows, B1s, B2 on "
+              f"{TRAIN_RAYS * SAMPLES}; CUDA-event medians of "
+              f"{TIMING_REPS})", flush=True)
+        out.update(lib)
+    return out
 
 
 def _gaussians(torch, gen, n, dev):
@@ -1395,7 +1416,7 @@ def phase_cli_path(logroot, tag, opts, iters, what):
 # (the single-pass TF32 build, the pack and the dirs rounded to bf16), each
 # of which must read outside F32_OUT_TOL / F32_GRAD_TOL, and each kernel's
 # time beside its bound, its plain version's time and the library
-# yardstick's (:func:`wide_library_ms`).
+# yardstick's (:func:`library_ms`).
 WIDE_PLAN_WIDTHS = (600, 768, 1024)
 WIDE_NAMES = tuple(f"wide_{base}{sfx}" for sfx in ("", "_f32")
                    for base in ("mlp_fwd", "enc_mlp_fwd", "mlp_fwd_stash",
@@ -1749,7 +1770,8 @@ def phase_wide_plan(torch):
         for name, (kern, plain) in pairs.items():
             times[name] = (_event_ms(torch, kern, WIDE_TIMING_REPS),
                            _event_ms(torch, plain, WIDE_TIMING_REPS))
-        library = wide_library_ms(torch, hidden, f32)
+        library = library_ms(torch, hidden, f32, "wide",
+                             WIDE_TIMING_REPS)
         for name in pairs:
             times[name] += (library[name],)
         bounds = _wide_bounds(hidden, f32)
@@ -1781,16 +1803,22 @@ def _wide_bounds(hidden, f32):
         TRAIN_RAYS, f32=f32).items()}
 
 
-# The library yardstick of the wide rows (the kernels line's library_ms):
-# one PyTorch matrix product per GEMM the wide plan launches, at its shapes
-# and dtype (bf16 operands with float32 products, or float32 with TF32
-# off), summed per kernel.  The port never calls them.
-def wide_library_gemms(hidden, rows, kind):
-    """``[(M, K, N, transposed)]``: the products of one wide-plan call of
-    ``kind`` (``fwd``: B1, B3 and B1s; ``bwd``: B2) at kernel width
-    ``hidden`` on ``rows`` rows, each ``[M, K] @ [K, N]``; ``transposed``:
-    A is the transpose of a stored ``[K, M]`` (a weight gradient's
-    cotangent)."""
+# The library yardstick (the kernels line's library_ms): one PyTorch matrix
+# product per product of the network at the plan's shapes and in its dtype
+# (bf16 operands with float32 products, or float32 with TF32 off), summed
+# per kernel.  The port never calls them.
+LIBRARY_KERNELS = (("mlp_fwd", "fwd", CHUNK_RAYS * SAMPLES),
+                   ("enc_mlp_fwd", "fwd", CHUNK_RAYS * SAMPLES),
+                   ("mlp_fwd_stash", "fwd", TRAIN_RAYS * SAMPLES),
+                   ("mlp_bwd", "bwd", TRAIN_RAYS * SAMPLES))
+
+
+def library_gemms(hidden, rows, kind):
+    """``[(M, K, N, transposed)]``: the products of one call of ``kind``
+    (``fwd``: B1, B3 and B1s; ``bwd``: B2) of a network of width ``hidden``
+    at its kernel width on ``rows`` rows, as the wide plan launches them,
+    each ``[M, K] @ [K, N]``; ``transposed``: A is the transpose of a
+    stored ``[K, M]`` (a weight gradient's cotangent)."""
     from ddnerf_tpu_torch.kernels import fused_mlp as fk
 
     hp, ipe, dh = fk.kernel_width(hidden), fk.IPE_DIM, fk.DIR_HIDDEN
@@ -1810,11 +1838,13 @@ def wide_library_gemms(hidden, rows, kind):
     return chain + wgrad
 
 
-def wide_library_ms(torch, hidden, f32, reps=WIDE_TIMING_REPS):
-    """``{wide kernel: ms}``: the CUDA-event median over ``reps`` of
-    :func:`wide_library_gemms`' products of each wide kernel on the main
-    paths' shapes (B1 and B3 on a render chunk, B1s and B2 on a training
-    batch), random operands made on the card."""
+def library_ms(torch, hidden, f32, plan, reps=TIMING_REPS):
+    """``{kernel: ms}`` for the four kernels of ``plan`` (``fused`` or
+    ``wide``, the launch-count names' prefix) at width ``hidden``: the
+    CUDA-event median over ``reps`` of :func:`library_gemms`' products of
+    each on the main paths' shapes (B1 and B3 on a render chunk, B1s and
+    B2 on a training batch, :data:`LIBRARY_KERNELS`), random operands made
+    on the card."""
     dev = torch.device("cuda")
     cdt = torch.float32 if f32 else torch.bfloat16
     sfx = "_f32" if f32 else ""
@@ -1823,12 +1853,7 @@ def wide_library_ms(torch, hidden, f32, reps=WIDE_TIMING_REPS):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         out = {}
-        for name, rows, kind in (("wide_mlp_fwd", CHUNK_RAYS * SAMPLES, "fwd"),
-                                 ("wide_enc_mlp_fwd", CHUNK_RAYS * SAMPLES,
-                                  "fwd"),
-                                 ("wide_mlp_fwd_stash", TRAIN_RAYS * SAMPLES,
-                                  "fwd"),
-                                 ("wide_mlp_bwd", TRAIN_RAYS * SAMPLES, "bwd")):
+        for base, kind, rows in LIBRARY_KERNELS:
             made = {}  # operands of one shape are made once
 
             def operand(shape):
@@ -1839,8 +1864,7 @@ def wide_library_ms(torch, hidden, f32, reps=WIDE_TIMING_REPS):
 
             ops = [(operand((k, m)).t() if trans else operand((m, k)),
                     operand((k, n)))
-                   for m, k, n, trans in wide_library_gemms(hidden, rows,
-                                                            kind)]
+                   for m, k, n, trans in library_gemms(hidden, rows, kind)]
 
             def run(ops=ops):
                 for a, b in ops:
@@ -1848,7 +1872,7 @@ def wide_library_ms(torch, hidden, f32, reps=WIDE_TIMING_REPS):
                         torch.mm(a, b)
                     else:
                         torch.mm(a, b, out_dtype=torch.float32)
-            out[name + sfx] = _event_ms(torch, run, reps)
+            out[f"{plan}_{base}{sfx}"] = _event_ms(torch, run, reps)
             del ops, made
         return out
     finally:
@@ -2844,6 +2868,25 @@ REAL360_NEAR_FAR = (0.2, 2.8)
 # (400 x 400, 12 views, 3,000 iterations), the JAX package's own gates.
 REHEARSALS = {"rehearsal-blender": ((), 19.0, 3000),
               "rehearsal-llff": (("--llff",), 27.0, 3000)}
+# Phase 20, kernel against plain quality at other widths: the blender
+# rehearsal (its scene, schedule and gate) with the kernels and with the
+# plain MLP (--plain, pallas_mlp off) at coarse-192 / fine-512 (the fused
+# plans, 512 on the N-split plan), and with the kernels at coarse-600 /
+# fine-1024 (the wide plan).  A kernel run and the plain run at its widths
+# must read psnr_fine within QUALITY_GAP_DB (ROADMAP A8's gap).  The plain
+# runs at 256 / 256 and 600 / 1024 take 120 s and 434 s on the card, so
+# their readings are recorded here, from scripts/dress_rehearsal_torch.sh
+# --plain [--widths 600 1024] on one NVIDIA H100 80GB HBM3 at 700 W
+# (20.82 and 28.0, beside the kernel runs' 20.81 and 28.0 in that call).
+WIDTH_REHEARSALS = {
+    "rehearsal-192x512": ("--widths", "192", "512"),
+    "rehearsal-192x512-plain": ("--widths", "192", "512", "--plain"),
+    "rehearsal-600x1024": ("--widths", "600", "1024"),
+}
+WIDTH_PAIRS = (("rehearsal-192x512", "rehearsal-192x512-plain"),)
+PLAIN_PSNR_RECORDED = {"rehearsal-blender": 20.82,
+                       "rehearsal-600x1024": 28.0}
+QUALITY_GAP_DB = 0.5
 
 
 def phase_real360_main_path(logroot):
@@ -2902,23 +2945,40 @@ def phase_real360_main_path(logroot):
     return _sum_launches(*runs)
 
 
+def _rehearsal_cmd(flags):
+    return ["bash", os.path.join(REPO, "scripts", "dress_rehearsal_torch.sh"),
+            *flags]
+
+
 def phase_rehearsal(logroot, tag):
-    """``scripts/dress_rehearsal_torch.sh`` at its default shape: the
-    dataset writer, the three CLIs and the script's own PSNR gate, held
-    here too; returns the launch counts of its CLIs, summed."""
+    """``scripts/dress_rehearsal_torch.sh`` at its default shape
+    (:data:`REHEARSALS`), checked by :func:`_rehearsal_result` -> (the
+    launch counts of its CLIs, summed; psnr_fine)."""
     flags, gate, iters = REHEARSALS[tag]
     out, _, wall = _subprocess(
-        ["bash", os.path.join(REPO, "scripts", "dress_rehearsal_torch.sh"),
-         *flags], tag, timeout=600,
+        _rehearsal_cmd(flags), tag, timeout=600,
         env={"DRESS_WORKDIR": os.path.join(logroot, tag)})
-    launches = _sum_launches(*map(json.loads, re.findall(
-        r"^kernel launches: (\{.*\})$", out, re.M)))
+    return _rehearsal_result(out, wall, tag, flags, gate, iters)
+
+
+def _rehearsal_result(out, wall, tag, flags, gate, iters):
+    """The output of a rehearsal run with ``flags``: the dataset writer,
+    the three CLIs and the script's own PSNR gate ``gate``, held here too,
+    then the launches of training: with the kernels B1s and B2 once an
+    iteration for each network under its plan, with ``--plain`` no kernel
+    at all -> (the launch counts of its CLIs, summed; psnr_fine)."""
+    from ddnerf_tpu_torch.kernels import fused_mlp as fk
+
+    counts = [json.loads(m) for m in re.findall(
+        r"^kernel launches: (\{.*\})$", out, re.M)]
+    launches = _sum_launches(*counts)
     summary = re.search(r"^eval psnr_fine=(\S+) ssim_v1_fine=(\S+) "
                         r"ssim_v2_fine=(\S+) .* loop (\S+) ms/step; wall "
                         r"train (\S+) s, eval (\S+) s, video (\S+) s$",
                         out, re.M)
-    if not summary or "DRESS REHEARSAL PASSED" not in out:
-        fail(f"{tag}: the rehearsal printed no summary or did not pass")
+    if not summary or "DRESS REHEARSAL PASSED" not in out or len(counts) != 3:
+        fail(f"{tag}: the rehearsal printed no summary, not each CLI's "
+             f"launches, or did not pass")
     psnr = float(summary.group(1))
     print(f"[{tag}] psnr_fine {psnr} (gate {gate}), ssim_v1_fine "
           f"{summary.group(2)}, ssim_v2_fine {summary.group(3)}; loop "
@@ -2927,11 +2987,55 @@ def phase_rehearsal(logroot, tag):
           f"script {wall:.1f} s; launches {launches}", flush=True)
     if not psnr >= gate:
         fail(f"{tag}: psnr_fine {psnr} below the gate {gate}")
-    for name in ("fused_mlp_fwd_stash", "fused_mlp_bwd"):
-        if launches.get(name) != 2 * iters:
+    if "--plain" in flags:
+        if any(launches.values()):
+            fail(f"{tag}: the plain run launched kernels: {launches}")
+        return launches, psnr
+    widths = (256, 256)  # the config's
+    if "--widths" in flags:
+        i = flags.index("--widths")
+        widths = (int(flags[i + 1]), int(flags[i + 2]))
+    expected = {}  # each network's B1s and B2 once a step, under its plan
+    for hidden in widths:
+        for base in ("mlp_fwd_stash", "mlp_bwd"):
+            name = ("wide_" if fk.is_wide(hidden) else "fused_") + base
+            expected[name] = expected.get(name, 0) + iters
+    for name, n in expected.items():
+        if launches.get(name) != n:
             fail(f"{tag}: launched {name} {launches.get(name)} times, "
-                 f"expected {2 * iters}")
-    return launches
+                 f"expected {n}")
+    return launches, psnr
+
+
+def phase_width_quality(logroot, psnr_256):
+    """Phase 20: the runs of :data:`WIDTH_REHEARSALS`, one after another,
+    on phase 16's blender scene, each under the blender gate
+    (:func:`_rehearsal_result`); each pair of :data:`WIDTH_PAIRS`, and each
+    kernel run against its plain run's recorded reading
+    (:data:`PLAIN_PSNR_RECORDED`; ``psnr_256``: phase 16's kernel run at
+    256 / 256), within :data:`QUALITY_GAP_DB` -> the kernel runs' launch
+    counts by run."""
+    _, gate, iters = REHEARSALS["rehearsal-blender"]
+    env = {"DRESS_WORKDIR": os.path.join(logroot, "rehearsal-blender")}
+    psnr, kernel_runs = {"rehearsal-blender": psnr_256}, {}
+    for tag, flags in WIDTH_REHEARSALS.items():
+        out, _, wall = _subprocess(_rehearsal_cmd(flags), tag, timeout=900,
+                                   env=env)
+        launches, psnr[tag] = _rehearsal_result(out, wall, tag, flags, gate,
+                                                iters)
+        if "--plain" not in flags:
+            kernel_runs[tag] = launches
+    pairs = [(kernel, plain, psnr[plain]) for kernel, plain in WIDTH_PAIRS]
+    pairs += [(kernel, "its plain run (recorded)", value)
+              for kernel, value in PLAIN_PSNR_RECORDED.items()]
+    for kernel, plain, value in pairs:
+        gap = psnr[kernel] - value
+        print(f"[quality] {kernel} psnr_fine {psnr[kernel]} against {plain} "
+              f"{value}: kernel - plain {gap:+.3f} dB (limit "
+              f"{QUALITY_GAP_DB})", flush=True)
+        if not abs(gap) <= QUALITY_GAP_DB:
+            fail(f"{kernel} and {plain} differ by {gap:+.3f} dB")
+    return kernel_runs
 
 
 # ------------------------------------------------------------------------
@@ -3481,6 +3585,7 @@ def main():
     phase_build()
     max_err, timing = phase_kernel(torch)
     enc_err, enc_timing = phase_enc_kernel(torch)
+    fused_library = phase_fused_library(torch)
     train_err, train_timing = phase_train_kernels(torch)
     width_err = phase_widths(torch)
     f32_err, f32_times = phase_f32_kernels(torch)
@@ -3525,8 +3630,14 @@ def main():
         mixed_launches = phase_cli_path(logroot, "mixed", MIXED_OPTS,
                                         BIG_ITERS, "coarse-256 / fine-1024")
         _close_cli_worker()
-        rehearsal_launches = {tag: phase_rehearsal(logroot, tag)
-                              for tag in REHEARSALS}
+        # The rehearsals are processes of their own: this process's cached
+        # blocks go back to the card first.
+        torch.cuda.empty_cache()
+        rehearsals = {tag: phase_rehearsal(logroot, tag)
+                      for tag in REHEARSALS}
+        rehearsal_launches = {tag: r[0] for tag, r in rehearsals.items()}
+        width_launches = phase_width_quality(
+            logroot, rehearsals["rehearsal-blender"][1])
         # Data parallelism: torchrun launches on this one card.
         nccl_launches, nccl_ms = phase_nccl_one_rank(logroot, logdir)
         render_launches, lpips_weights, eval_dir = phase_render_two_ranks(
@@ -3621,7 +3732,7 @@ def main():
                "real360": real360_launches, "widths": wide_launches,
                "f32": f32_launches, "wide1024": big_launches,
                "wide1024-f32": big_f32_launches, "mixed": mixed_launches,
-               **rehearsal_launches}
+               **rehearsal_launches, **width_launches}
     total = _sum_launches(*by_path.values())
     print("[launches] per main path: " + json.dumps(by_path, sort_keys=True))
     for path, counts in by_path.items():
@@ -3631,13 +3742,15 @@ def main():
         # bf16 ones; the coarse-600 / fine-1024 paths the wide plan's,
         # the coarse-256 / fine-1024 path both plans', every other path the
         # fused plans'.
-        b1_only = path == "ndc" or path in REHEARSALS
+        b1_only = (path == "ndc" or path in REHEARSALS
+                   or path in WIDTH_REHEARSALS)
         f32 = path in ("f32", "wide1024-f32")
         plans = (("wide_", "fused_") if path == "mixed" else
-                 ("wide_",) if path.startswith("wide1024") else ("fused_",))
+                 ("wide_",) if path.startswith("wide1024")
+                 or path == "rehearsal-600x1024" else ("fused_",))
         expected = [k for k in total
                     if k.endswith("_f32") == f32 and k.startswith(plans)
-                    and not (b1_only and k == "fused_enc_mlp_fwd")]
+                    and not (b1_only and "enc_mlp_fwd" in k)]
         idle = [k for k in expected if counts.get(k, 0) <= 0]
         if idle:
             fail(f"the {path} main path never launched {idle}")
@@ -3655,22 +3768,21 @@ def main():
         train_err[name] = max(train_err[name], width_err[name])
     fwd_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_fwd.cu"
     # name, source, the TPU kernel, main-path launches, error, ms, plain ms,
-    # library ms (no single PyTorch call computes the fused plans' 11-layer
-    # MLP or its backward, so the fused rows have none)
+    # library ms (phase 3c's yardstick)
     rows = [
         ("fused_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
-         total["fused_mlp_fwd"], max_err, ms, plain_ms, None),
+         total["fused_mlp_fwd"], max_err, ms, plain_ms),
         ("fused_mlp_fwd_stash", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:464",
          total["fused_mlp_fwd_stash"],
          train_err["fused_mlp_fwd_stash"], coarse["fwd_stash"],
-         coarse["plain_fwd"], None),
+         coarse["plain_fwd"]),
         ("fused_mlp_bwd", "ddnerf_tpu_torch/kernels/csrc/fused_mlp_bwd.cu",
          "ddnerf_tpu/kernels/fused_mlp_bwd.py:299",
          total["fused_mlp_bwd"], train_err["fused_mlp_bwd"],
-         coarse["bwd"], coarse["plain_bwd"], None),
+         coarse["bwd"], coarse["plain_bwd"]),
         ("fused_enc_mlp_fwd", fwd_cu, "ddnerf_tpu/kernels/fused_mlp.py:309",
          total["fused_enc_mlp_fwd"], enc_err, enc["enc"],
-         enc["plain"], None),
+         enc["plain"]),
     ]
     # The float32 instantiations of the same TPU kernels (phase 18's times
     # at width 256, DepthMipMLP).
@@ -3681,10 +3793,10 @@ def main():
             ("fused_mlp_bwd_f32", "ddnerf_tpu/kernels/fused_mlp_bwd.py:299"),
             ("fused_enc_mlp_fwd_f32", "ddnerf_tpu/kernels/fused_mlp.py:309")):
         rows.append((name, f32_cu, replaces, total[name], f32_err[name],
-                     *f32_times[256][name], None))
+                     *f32_times[256][name]))
+    rows = [(*row, fused_library[row[0]]) for row in rows]
     # The wide plan, both dtypes (phase 19's times at width 1024,
-    # DepthMipMLP), with the library yardstick: one PyTorch matrix product
-    # per GEMM the plan launches (wide_library_ms).
+    # DepthMipMLP), with their library yardstick.
     wide_cu = "ddnerf_tpu_torch/kernels/csrc/fused_mlp_wide.cu"
     for f32 in (False, True):
         bounds.update(_wide_bounds(WIDE_TIMING_WIDTH, f32))

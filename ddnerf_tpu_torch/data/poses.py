@@ -5,11 +5,18 @@ spiral render path).
 Rewrite of ``data_utils/poses/pose_utils.py`` and the pose
 helpers in ``load_llff.py:138-274`` — standard NeRF-lineage algorithms,
 implemented fresh in NumPy.
+
+``poses_bounds.npy`` is a cache that every rank of a data-parallel run may
+build at once, so :func:`save_poses` writes it to a file of its own in the
+scene directory and renames that into place: a reader finds either no file
+or a whole one, never one another rank is still writing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import uuid
 
 import numpy as np
 
@@ -80,7 +87,18 @@ def save_poses(basedir: str, poses, pts3d, perm):
         close, inf = np.percentile(zs, 0.1), np.percentile(zs, 99.9)
         rows.append(np.concatenate([poses[..., i].ravel(), [close, inf]]))
     arr = np.array(rows)
-    np.save(os.path.join(basedir, "poses_bounds.npy"), arr)
+    # A name no other writer takes, opened as np.save opens its file (the
+    # permissions the umask gives).
+    tmp = os.path.join(basedir, f".poses_bounds.{uuid.uuid4().hex}.npy")
+    try:
+        with open(tmp, "xb") as f:
+            np.save(f, arr)
+        # Ranks that both wrote the cache replace it with the same bytes.
+        os.replace(tmp, os.path.join(basedir, "poses_bounds.npy"))
+    except BaseException:
+        with contextlib.suppress(FileNotFoundError):
+            os.unlink(tmp)
+        raise
     return arr
 
 

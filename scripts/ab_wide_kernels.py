@@ -21,7 +21,7 @@ torch.profiler and its device time split into the GEMM launches, the
 column and split reductions, the wide plan's small kernels (dir
 projection, encode, entry, dirs gradient, TF32 splits, memsets) and the
 wrapper's PyTorch kernels; with ``--library`` each case's library
-yardstick is timed (``chip_smoke.py::wide_library_ms``: one PyTorch matrix
+yardstick is timed (``chip_smoke.py::library_ms``: one PyTorch matrix
 product per GEMM of the wide plan).  The first line is the card's name and
 power limit.  Needs a GPU.
 """
@@ -222,9 +222,9 @@ def main():
                     print(f"[ab-wide] profile H={hidden} {dtype} {case}: "
                           + profile_split(kern), flush=True)
             if args.library:
-                lib_ms = chip_smoke.wide_library_ms(torch, hidden,
-                                                    cdt == torch.float32,
-                                                    args.reps)
+                lib_ms = chip_smoke.library_ms(torch, hidden,
+                                               cdt == torch.float32, "wide",
+                                               args.reps)
                 print(f"[ab-wide] library H={hidden} {dtype}: "
                       + ", ".join(f"{name} {t:.3f} ms"
                                   for name, t in lib_ms.items()), flush=True)

@@ -22,22 +22,30 @@
 # one NVIDIA H100 80GB HBM3 at 700 W; the floor is a fifth of the lowest.
 #
 # --f32 runs the models at parallel.compute_dtype float32 (the float32
-# kernels on the card) under the same gates.
+# kernels on the card) under the same gates.  --widths C F sets
+# nerf.coarse_hidden_size / nerf.fine_hidden_size (the fused kernels up to
+# 512, the wide plan above), --plain sets parallel.pallas_mlp off (the plain
+# PyTorch MLP and autograd, no kernel); both keep the PSNR gate, and the run
+# id carries them, so that runs of one scene keep their own logdirs.  The
+# rays/s floor was read at the config's widths with the kernels and holds
+# there only: with --widths or --plain the rate is printed, not gated.
 #
 # Usage:  scripts/dress_rehearsal_torch.sh [--full] [--llff] [--keep] [--f32]
-#             [--device cuda|cpu]
+#             [--widths C F] [--plain] [--device cuda|cpu]
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-FULL=0; LLFF=0; KEEP=0; F32=0; DEVICE=cuda
+FULL=0; LLFF=0; KEEP=0; F32=0; PLAIN=0; WIDTHS=(); DEVICE=cuda
 while [[ $# -gt 0 ]]; do
   case "$1" in
     --full) FULL=1 ;;
     --llff) LLFF=1 ;;
     --keep) KEEP=1 ;;
     --f32) F32=1 ;;
+    --plain) PLAIN=1 ;;
+    --widths) WIDTHS=("$2" "$3"); shift 2 ;;
     --device) DEVICE=$2; shift ;;
-    *) echo "unknown flag $1 (expected --full/--llff/--keep/--f32/--device D)" >&2
+    *) echo "unknown flag $1 (expected --full/--llff/--keep/--f32/--widths C F/--plain/--device D)" >&2
        exit 2 ;;
   esac
   shift
@@ -69,12 +77,23 @@ if [[ $DEVICE == cpu ]]; then
 fi
 
 [[ $F32 == 1 ]] && MODEL_ARGS+=(parallel.compute_dtype float32)
+if [[ ${#WIDTHS[@]} == 2 ]]; then
+  MODEL_ARGS+=(nerf.coarse_hidden_size "${WIDTHS[0]}"
+               nerf.fine_hidden_size "${WIDTHS[1]}")
+  MIN_RAYS_S=0
+fi
+if [[ $PLAIN == 1 ]]; then
+  MODEL_ARGS+=(parallel.pallas_mlp off)
+  MIN_RAYS_S=0
+fi
 
 WORK=${DRESS_WORKDIR:-${TMPDIR:-/tmp}/ddnerf_dress_torch}
 DS="$WORK/dataset_${FORMAT}_$SIZE"
 LOGROOT="$WORK/logs"
 RUN_ID="dress_${FORMAT}_$SIZE"
 [[ $F32 == 1 ]] && RUN_ID="${RUN_ID}_f32"
+[[ ${#WIDTHS[@]} == 2 ]] && RUN_ID="${RUN_ID}_w${WIDTHS[0]}x${WIDTHS[1]}"
+[[ $PLAIN == 1 ]] && RUN_ID="${RUN_ID}_plain"
 LOGDIR="$LOGROOT/$RUN_ID"
 [[ $KEEP == 1 ]] || rm -rf "$LOGDIR"
 

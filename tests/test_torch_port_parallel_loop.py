@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_parallel import _spawn, _tiny_dict
+from test_torch_port_parallel import REPO, _spawn, _tiny_dict
 
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.data.images import read_image
@@ -317,3 +317,53 @@ def test_validation_maps_on_two_ranks_equal_one_process(group):
         else:
             np.testing.assert_allclose(got[key], w, rtol=CPU_MAP_RTOL,
                                        atol=CPU_MAP_RTOL, err_msg=key)
+
+
+_COLMAP_PROGRAM = r"""
+import sys
+import numpy as np
+import torch.distributed as dist
+from ddnerf_tpu_torch.config import load_config
+from ddnerf_tpu_torch.data.assembly import get_datasets
+from ddnerf_tpu_torch.parallel import mesh as pmesh
+
+root, config = sys.argv[1:3]
+mesh = pmesh.init_group("cpu")
+cfg = load_config(config).merge_from_list(
+    ["dataset.basedir", f"{root}/scene"]).resolved()
+dist.barrier()  # both ranks find no pose cache and build it together
+train_ds, val_ds, cfg = get_datasets(cfg)
+np.savez(f"{root}/rank{mesh.rank}.npz", store=train_ds.device_store(),
+         images=val_ds.images, poses=val_ds.poses,
+         near_far=[cfg.dataset.near, cfg.dataset.far])
+pmesh.destroy_group()
+"""
+
+
+def test_two_ranks_load_one_colmap_only_scene(tmp_path):
+    """C12 under torchrun: two gloo ranks load one scene that holds only a
+    COLMAP model and its images, each building ``poses_bounds.npy`` (and
+    the minify cache) at once; both read the arrays one process reads on
+    its own copy of the scene."""
+    from test_torch_port_colmap import write_colmap_scene
+
+    from ddnerf_tpu_torch.config import load_config
+    from ddnerf_tpu_torch.data.assembly import get_datasets
+
+    root = str(tmp_path)
+    write_colmap_scene(os.path.join(root, "scene"))
+    shutil.copytree(os.path.join(root, "scene"), os.path.join(root, "one"))
+    config = os.path.join(REPO, "configs", "ff_dd.yml")
+    _spawn(_COLMAP_PROGRAM, root, config)
+    train_ds, val_ds, cfg = get_datasets(load_config(config).merge_from_list(
+        ["dataset.basedir", os.path.join(root, "one")]).resolved())
+    want = {"store": train_ds.device_store(), "images": val_ds.images,
+            "poses": val_ds.poses,
+            "near_far": [cfg.dataset.near, cfg.dataset.far]}
+    for rank in (0, 1):
+        got = np.load(os.path.join(root, f"rank{rank}.npz"))
+        assert sorted(got.files) == sorted(want)
+        for key, value in want.items():
+            np.testing.assert_array_equal(got[key], value, err_msg=key)
+    assert not [f for f in os.listdir(os.path.join(root, "scene"))
+                if f.startswith(".")]

@@ -105,17 +105,20 @@ def _port_psnr(cfg, pipe, val, step):
     return _psnr(images, val.images)
 
 
-@pytest.mark.parametrize("family", sorted(CONFIGS))
-def test_cotrained_psnr_matches_jax(scene, family):
-    opts = ["dataset.basedir", scene, *NARROW]
-    name = os.path.join(REPO, "configs", CONFIGS[family])
+def cotrain(config, opts, steps=STEPS, rays=RAYS):
+    """``configs/{config}`` under ``opts`` in both packages (JAX on its XLA
+    step, the port under ``pallas_mlp: auto``), one JAX initialization
+    carried across, ``steps`` steps on the same host batches of ``rays``
+    rays -> (the untrained nets' fine PSNR on the validation views, the
+    port's after training, the JAX package's, the port's validation
+    dataset)."""
+    name = os.path.join(REPO, "configs", config)
     jcfg = jax_load_config(name).merge_from_list(
         opts + ["parallel.pallas_mlp", "off"]).resolved()
     cfg = load_config(name).merge_from_list(
         opts + ["parallel.pallas_mlp", "auto"]).resolved()
     jtrain, jval, jcfg = jax_get_datasets(jcfg)
     train, val, cfg = get_datasets(cfg)
-    assert (val.H, val.W) == (32, 32) and len(val.poses) == 2
     np.testing.assert_array_equal(train.images, jtrain.images)
     np.testing.assert_array_equal(val.images, jval.images)
 
@@ -130,19 +133,31 @@ def test_cotrained_psnr_matches_jax(scene, family):
 
     jstep = jax.jit(make_train_step(jcfg, jpipe))
     rng = np.random.default_rng(11)
-    for _ in range(STEPS):
-        ro, rd, radii, rgb = train.sample_batch(rng, RAYS)
+    for _ in range(steps):
+        ro, rd, radii, rgb = train.sample_batch(rng, rays)
         jstate, _ = jstep(jstate, {
             "origins": jnp.asarray(ro), "directions": jnp.asarray(rd),
             "radii": jnp.asarray(radii), "rgb": jnp.asarray(rgb)})
         train_step(cfg, pipe, state, {
             "origins": torch.from_numpy(ro), "directions": torch.from_numpy(rd),
             "radii": torch.from_numpy(radii), "rgb": torch.from_numpy(rgb)})
-    assert state.step == int(jstate.step) == STEPS
+    assert state.step == int(jstate.step) == steps
+    return (untrained, _port_psnr(cfg, pipe, val, steps),
+            _jax_psnr(jcfg, jpipe, jstate.params, jval, steps), val)
 
-    got = _port_psnr(cfg, pipe, val, STEPS)
-    want = _jax_psnr(jcfg, jpipe, jstate.params, jval, STEPS)
-    print(f"{family}: psnr_fine untrained {untrained:.3f}, after {STEPS} "
+
+def assert_quality(what, untrained, got, want, steps=STEPS):
+    """The gates: each package at least MIN_RISE_DB above the untrained
+    nets, and the two within PSNR_GAP_DB."""
+    print(f"{what}: psnr_fine untrained {untrained:.3f}, after {steps} "
           f"steps port {got:.3f}, JAX {want:.3f}")
     assert got >= untrained + MIN_RISE_DB and want >= untrained + MIN_RISE_DB
     assert abs(got - want) <= PSNR_GAP_DB
+
+
+@pytest.mark.parametrize("family", sorted(CONFIGS))
+def test_cotrained_psnr_matches_jax(scene, family):
+    untrained, got, want, val = cotrain(
+        CONFIGS[family], ["dataset.basedir", scene, *NARROW])
+    assert (val.H, val.W) == (32, 32) and len(val.poses) == 2
+    assert_quality(family, untrained, got, want)

@@ -5,8 +5,9 @@ that run on the CPU.
   planes the float32 backward's chain writes for its weight gradients,
   bit for bit ``reference.tf32_split`` of the transposed slab
   (``chip_smoke.py`` phase 19 holds the kernel's planes to it on the card);
-* ``chip_smoke.py::wide_library_gemms``, the library yardstick's products:
-  one per GEMM the wide plan launches, at its shapes."""
+* ``chip_smoke.py::library_gemms``, the library yardstick's products:
+  one per GEMM the wide plan launches, at its shapes, for the fused plans'
+  widths too."""
 
 import numpy as np
 import pytest
@@ -55,18 +56,19 @@ def test_tf32_planes_t_reference_is_the_transposed_split(n, cols):
     assert ((back - x[keep]).abs() <= 2.0 ** -22 * x[keep].abs()).all()
 
 
-@pytest.mark.parametrize("hidden", [600, 1024])
+@pytest.mark.parametrize("hidden", [256, 600, 1024])
 @pytest.mark.parametrize("kind", ["fwd", "bwd"])
 def test_library_yardstick_takes_the_wide_plans_products(hidden, kind):
-    """The products ``wide_library_ms`` times for a wide row are the wide
-    plan's launches at kernel width Hp: forward 11 (the trunk, the skip
-    layer's IPE | x as one K range, the dir layer's 144 rows, the heads'
-    16), 8 Hp^2 + 336 Hp + 2048 multiply-adds a row; backward the chain
+    """The products ``library_ms`` times for a row of either plan are the
+    wide plan's launches at kernel width Hp (at 256 the fused plan's
+    width): forward 11 (the trunk, the skip layer's IPE | x as one K
+    range, the dir layer's 144 rows, the heads' 16), 8 Hp^2 + 336 Hp +
+    2048 multiply-adds a row; backward the chain
     (10 products, 8 Hp^2 + 129 Hp + 2048) and the weight gradients (13,
     8 Hp^2 + 321 Hp + 2048), each weight gradient A^T over the rows."""
     rows = 7
     hp = fk.kernel_width(hidden)
-    gemms = cs.wide_library_gemms(hidden, rows, kind)
+    gemms = cs.library_gemms(hidden, rows, kind)
     macs = sum(m * k * n for m, k, n, _ in gemms) // rows
     if kind == "fwd":
         assert len(gemms) == 11 and not any(t for *_, t in gemms)
