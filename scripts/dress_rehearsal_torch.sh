@@ -30,22 +30,35 @@
 # rays/s floor was read at the config's widths with the kernels and holds
 # there only: with --widths or --plain the rate is printed, not gated.
 #
-# Usage:  scripts/dress_rehearsal_torch.sh [--full] [--llff] [--keep] [--f32]
-#             [--widths C F] [--plain] [--device cuda|cpu]
+# --mipnerf runs the mip-NeRF family (configs/blender_mipnerf.yml, with
+# --llff configs/ff_mipnerf.yml: mip-NeRF under NDC); --real360 runs
+# configs/real360_dd.yml (with --mipnerf configs/real360_mipnerf.yml) on a
+# ring of cameras from scripts/make_synthetic_dataset_torch.py --format
+# real360.  The JAX package calibrated no gate for those runs, so each
+# gates a floor 2 dB under the first plain reading (--plain) on one NVIDIA
+# H100 80GB HBM3 at 700 W, given beside it below; the rays/s floor does
+# not apply to them.  Each flag goes into the run id.
+#
+# Usage:  scripts/dress_rehearsal_torch.sh [--full] [--llff] [--real360]
+#             [--mipnerf] [--keep] [--f32] [--widths C F] [--plain]
+#             [--device cuda|cpu]
 set -euo pipefail
 cd "$(dirname "$0")/.."
 
-FULL=0; LLFF=0; KEEP=0; F32=0; PLAIN=0; WIDTHS=(); DEVICE=cuda
+FULL=0; LLFF=0; REAL360=0; MIPNERF=0; KEEP=0; F32=0; PLAIN=0; WIDTHS=()
+DEVICE=cuda
 while [[ $# -gt 0 ]]; do
   case "$1" in
     --full) FULL=1 ;;
     --llff) LLFF=1 ;;
+    --real360) REAL360=1 ;;
+    --mipnerf) MIPNERF=1 ;;
     --keep) KEEP=1 ;;
     --f32) F32=1 ;;
     --plain) PLAIN=1 ;;
     --widths) WIDTHS=("$2" "$3"); shift 2 ;;
     --device) DEVICE=$2; shift ;;
-    *) echo "unknown flag $1 (expected --full/--llff/--keep/--f32/--widths C F/--plain/--device D)" >&2
+    *) echo "unknown flag $1 (expected --full/--llff/--real360/--mipnerf/--keep/--f32/--widths C F/--plain/--device D)" >&2
        exit 2 ;;
   esac
   shift
@@ -53,18 +66,46 @@ done
 
 SIZE=400; VIEWS=12; ITERS=3000; MIN_RAYS_S=50000
 if [[ $FULL == 1 ]]; then SIZE=800; VIEWS=24; ITERS=20000; fi
+if [[ $LLFF == 1 && $REAL360 == 1 ]]; then
+  echo "--llff and --real360 are two scenes: take one" >&2; exit 2
+fi
+FAMILY=dd; [[ $MIPNERF == 1 ]] && FAMILY=mipnerf
 if [[ $LLFF == 1 ]]; then
   FORMAT=llff
-  CONFIG=configs/ff_dd.yml
-  MIN_PSNR=27.0  # the JAX package's 30.12 at 400^2; the same gate at --full
+  if [[ $MIPNERF == 1 ]]; then
+    CONFIG=configs/ff_mipnerf.yml
+    MIN_PSNR=0.0  # set below from the plain reading on the card
+  else
+    CONFIG=configs/ff_dd.yml
+    MIN_PSNR=27.0  # the JAX package's 30.12 at 400^2; the same gate at --full
+  fi
   # The synthetic scene has no keypoint file.
   EXTRA_ARGS=(train_params.depth_analysis_rays False)
+elif [[ $REAL360 == 1 ]]; then
+  FORMAT=real360
+  CONFIG=configs/real360_$FAMILY.yml
+  MIN_PSNR=0.0  # set below from the plain reading on the card
+  EXTRA_ARGS=()
 else
   FORMAT=blender
-  CONFIG=configs/blender_dd.yml
+  CONFIG=configs/blender_$FAMILY.yml
   MIN_PSNR=19.0  # the JAX package's 20.67 at 3k iterations
   [[ $FULL == 1 ]] && MIN_PSNR=28.0  # its 34.27 at 800^2 / 20k
+  [[ $MIPNERF == 1 ]] && MIN_PSNR=0.0  # set below from the plain reading
   EXTRA_ARGS=(dataset.synthetic False)
+fi
+if [[ $MIPNERF == 1 || $REAL360 == 1 ]]; then
+  MIN_RAYS_S=0
+  # Plain readings (--plain) at the default shape on one NVIDIA H100 80GB
+  # HBM3 at 700 W; the floor is 2 dB under each.  --full has none.
+  case "$FORMAT/$FAMILY" in
+    llff/mipnerf) PLAIN_PSNR=29.67 ;;
+    real360/dd) PLAIN_PSNR=15.39 ;;
+    real360/mipnerf) PLAIN_PSNR=15.23 ;;
+    blender/mipnerf) PLAIN_PSNR=20.73 ;;
+  esac
+  [[ $FULL == 1 ]] && PLAIN_PSNR=0
+  MIN_PSNR=$(python -c "print(max(0.0, $PLAIN_PSNR - 2.0))")
 fi
 MODEL_ARGS=()
 if [[ $DEVICE == cpu ]]; then
@@ -91,6 +132,7 @@ WORK=${DRESS_WORKDIR:-${TMPDIR:-/tmp}/ddnerf_dress_torch}
 DS="$WORK/dataset_${FORMAT}_$SIZE"
 LOGROOT="$WORK/logs"
 RUN_ID="dress_${FORMAT}_$SIZE"
+[[ $MIPNERF == 1 ]] && RUN_ID="${RUN_ID}_mipnerf"
 [[ $F32 == 1 ]] && RUN_ID="${RUN_ID}_f32"
 [[ ${#WIDTHS[@]} == 2 ]] && RUN_ID="${RUN_ID}_w${WIDTHS[0]}x${WIDTHS[1]}"
 [[ $PLAIN == 1 ]] && RUN_ID="${RUN_ID}_plain"
@@ -100,6 +142,7 @@ LOGDIR="$LOGROOT/$RUN_ID"
 now() { date +%s.%N; }
 
 echo "== dataset ($FORMAT, $SIZE x $SIZE, $VIEWS views) =="
+# (A real-360 ring is written in the LLFF layout.)
 if [[ ! -f "$DS/transforms_train.json" && ! -f "$DS/poses_bounds.npy" ]]; then
   python scripts/make_synthetic_dataset_torch.py "$DS" --format "$FORMAT" \
       --size "$SIZE" --train "$VIEWS" --val 2 --test 2

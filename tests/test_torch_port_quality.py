@@ -105,13 +105,13 @@ def _port_psnr(cfg, pipe, val, step):
     return _psnr(images, val.images)
 
 
-def cotrain(config, opts, steps=STEPS, rays=RAYS):
+def cotrain(config, opts, steps=STEPS, rays=RAYS, seed=11):
     """``configs/{config}`` under ``opts`` in both packages (JAX on its XLA
     step, the port under ``pallas_mlp: auto``), one JAX initialization
     carried across, ``steps`` steps on the same host batches of ``rays``
-    rays -> (the untrained nets' fine PSNR on the validation views, the
-    port's after training, the JAX package's, the port's validation
-    dataset)."""
+    rays drawn by ``default_rng(seed)`` -> (the untrained nets' fine PSNR
+    on the validation views, the port's after training, the JAX package's,
+    the port's validation dataset)."""
     name = os.path.join(REPO, "configs", config)
     jcfg = jax_load_config(name).merge_from_list(
         opts + ["parallel.pallas_mlp", "off"]).resolved()
@@ -132,7 +132,7 @@ def cotrain(config, opts, steps=STEPS, rays=RAYS):
         _jax_psnr(jcfg, jpipe, jstate.params, jval, 0), abs=1e-3)
 
     jstep = jax.jit(make_train_step(jcfg, jpipe))
-    rng = np.random.default_rng(11)
+    rng = np.random.default_rng(seed)
     for _ in range(steps):
         ro, rd, radii, rgb = train.sample_batch(rng, rays)
         jstate, _ = jstep(jstate, {
