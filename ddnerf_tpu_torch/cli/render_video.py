@@ -6,6 +6,12 @@ reference-format ``checkpoint.ckpt``:
     python -m ddnerf_tpu_torch.cli.render_video --logdir LOGDIR
         [--save_images] [--max-frames N] [--checkpoint STEP]
         [--torch-checkpoint PATH] [--device cuda|cuda:1|cpu]
+        [--profile-frames N]
+
+``--profile-frames N`` first renders N frames with the tracer live and
+prints where a frame's time goes by stage (device ms from CUDA events,
+host ms), then N frames under ``torch.profiler`` into
+``LOGDIR/plugins/profile/``, and prints that trace's digest.
 
 Under ``torchrun --nproc_per_node N`` every rank renders its share of each
 frame and rank 0 writes (see ``cli/train.py``).
@@ -34,13 +40,18 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device; CUDA asked for and absent is an "
                              "error (default: cuda).")
+    parser.add_argument("--profile-frames", type=int, default=0,
+                        help="Before the video: N frames with the tracer "
+                             "live (their stage table printed), then N "
+                             "under torch.profiler into the logdir.")
     args = parser.parse_args(argv)
     with launched(args.device) as mesh:
         render_model_video(args.logdir, save_images=args.save_images,
                            max_frames=args.max_frames,
                            torch_checkpoint=args.torch_checkpoint,
                            checkpoint_step=args.checkpoint,
-                           device=args.device)
+                           device=args.device,
+                           profile_frames=args.profile_frames)
         said = launch_report(mesh)
     if said:
         print(said)

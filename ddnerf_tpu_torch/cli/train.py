@@ -14,6 +14,10 @@ or checkpoint file to start from.  CUDA asked for and absent is an error,
 never a run on the CPU.  On a CUDA device the step is one captured CUDA
 graph replayed per iteration (``--step-mode graph``, the default there);
 ``--step-mode eager`` runs it as plain PyTorch calls, as the CPU does.
+``--profile-steps N`` turns the program's tracer on before the step is
+built, so that the captured graph times each stage on the device, prints
+the stage table of N steady steps run without a profiler, then traces N
+more under ``torch.profiler`` (``utils/profiling.py``).
 
 Data parallelism: launched as ``torchrun --nproc_per_node N -m
 ddnerf_tpu_torch.cli.train ...`` (``python -m torch.distributed.run`` is
@@ -51,9 +55,11 @@ def main(argv=None):
                              "device); eager: plain PyTorch calls (default "
                              "on the CPU and with host-side ray sampling).")
     parser.add_argument("--profile-steps", type=int, default=0,
-                        help="Capture a torch.profiler trace of N steady-"
-                             "state steps into the logdir and print its "
-                             "digest.")
+                        help="Run N steady steps with the tracer live and "
+                             "print their stage table (graph nodes, device "
+                             "and host ms by stage), then N under "
+                             "torch.profiler into the logdir and print "
+                             "that trace's digest.")
     parser.add_argument("--debug-nans", action="store_true",
                         help="Enable autograd anomaly detection and a finite "
                              "check of every step's parameters, loss and "

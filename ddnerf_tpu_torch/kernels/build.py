@@ -21,6 +21,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ddnerf_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 LIB_NAME = "libddnerf_kernels.so"
@@ -153,13 +155,21 @@ def build(flags: tuple = ()) -> BuildInfo:
         raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
     log_path.write_text(log)
     os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    profiling.count("kernels.library_builds")
     return BuildInfo(lib, seconds, log, False)
 
 
 @functools.cache
 def load_library(flags: tuple = ()) -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with C signatures
-    (``flags``: :func:`build`'s)."""
+    (``flags``: :func:`build`'s), in the span ``ddnerf.kernels.load_library``.
+    :func:`build` counts a compile as ``kernels.library_builds``; a load of
+    the cached library counts nothing."""
+    with profiling.span("ddnerf.kernels.load_library"):
+        return _load(flags)
+
+
+def _load(flags: tuple) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(flags).path))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     offs = [ctypes.POINTER(i64), ctypes.POINTER(i64)]  # w_off, b_off (host)

@@ -55,21 +55,23 @@ from ddnerf_tpu_torch.kernels.reference import (
     tf32_split_pack_reference,
 )
 from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
+from ddnerf_tpu_torch.utils.profiling import counters
 
 # Launch count of each kernel: +1 per launch of the CUDA kernel, never for
 # the plain version, so a run can show that its main path went through it.
-LAUNCHES = {"fused_mlp_fwd": 0, "fused_mlp_fwd_stash": 0, "fused_mlp_bwd": 0,
-            "fused_enc_mlp_fwd": 0, "fused_mlp_fwd_f32": 0,
-            "fused_mlp_fwd_stash_f32": 0, "fused_mlp_bwd_f32": 0,
-            "fused_enc_mlp_fwd_f32": 0,
-            "wide_mlp_fwd": 0, "wide_mlp_fwd_stash": 0, "wide_mlp_bwd": 0,
-            "wide_enc_mlp_fwd": 0, "wide_mlp_fwd_f32": 0,
-            "wide_mlp_fwd_stash_f32": 0, "wide_mlp_bwd_f32": 0,
-            "wide_enc_mlp_fwd_f32": 0}
+# The tracer's counter group ``kernels.launches``.
+LAUNCHES = counters("kernels.launches", (
+    "fused_mlp_fwd", "fused_mlp_fwd_stash", "fused_mlp_bwd",
+    "fused_enc_mlp_fwd", "fused_mlp_fwd_f32", "fused_mlp_fwd_stash_f32",
+    "fused_mlp_bwd_f32", "fused_enc_mlp_fwd_f32",
+    "wide_mlp_fwd", "wide_mlp_fwd_stash", "wide_mlp_bwd", "wide_enc_mlp_fwd",
+    "wide_mlp_fwd_f32", "wide_mlp_fwd_stash_f32", "wide_mlp_bwd_f32",
+    "wide_enc_mlp_fwd_f32"))
 # Under CUDA-graph capture a wrapper launches nothing: it records its kernel
-# into the graph and counts here.  The graph's owner reads what a capture
-# added and adds that to LAUNCHES at every replay, where the kernels run.
-CAPTURED = dict.fromkeys(LAUNCHES, 0)
+# into the graph and counts here (``kernels.captured``).  The graph's owner
+# reads what a capture added and adds that to LAUNCHES at every replay,
+# where the kernels run.
+CAPTURED = counters("kernels.captured", LAUNCHES)
 
 
 def _count(name: str, net) -> None:

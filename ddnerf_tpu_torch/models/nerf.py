@@ -85,6 +85,7 @@ from ddnerf_tpu_torch.kernels.fused_mlp import (
     fused_mlp_train_apply,
 )
 from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP
+from ddnerf_tpu_torch.utils.profiling import span
 
 _KERNEL_POLICIES = ("render", "auto", "all")  # forward kernel: eval paths
 _TRAIN_KERNEL_POLICIES = ("train", "auto", "all")  # stash fwd + bwd kernels
@@ -247,29 +248,39 @@ class NerfPipeline:
 
     def _run_network(self, net, rays: RayBatch, t_vals,
                      mode: str) -> torch.Tensor:
-        """cast_rays → IPE → viewdir PE → MLP: ``[N, S, 4|6]``."""
-        means, covs = mmath.cast_rays(t_vals, rays.origins, rays.directions,
-                                      rays.radii, self.cfg.nerf.ray_shape)
-        dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
-        n, s = means.shape[0], means.shape[1]
-        if (mode != "train" and self.use_kernel
-                and self.render_variant == "ipe2"):
-            # The IPE is computed inside the kernel (JAX
-            # models/nerf.py:677-703).
-            flat = fused_enc_mlp_forward(net, means.reshape(n * s, 3),
-                                         covs.reshape(n * s, 3), dirs, s)
-            return flat.reshape(n, s, -1)
-        ipe = mmath.integrated_pos_enc(
-            (means, covs), double_angle=self.cfg.parallel.ipe_double_angle)
+        """cast_rays → IPE → viewdir PE → MLP: ``[N, S, 4|6]``.  The span
+        ``ddnerf.pipeline.encode`` holds what comes before the network, up to
+        the kernel call (on a card the cast of the IPE rows to the compute
+        dtype included), ``ddnerf.pipeline.mlp`` the kernel or the plain
+        network."""
         kernel = self.use_train_kernel if mode == "train" else self.use_kernel
-        if not kernel:
-            return net(ipe, dirs)
-        if mode == "train":
-            flat = fused_mlp_train_apply(
-                net, ipe.reshape(n * s, -1), dirs, s,
-                self.cfg.parallel.kernel_per_ray_dirs)
-        else:
-            flat = fused_mlp_forward(net, ipe.reshape(n * s, -1), dirs, s)
+        # ipe2: the IPE is computed inside the kernel (JAX
+        # models/nerf.py:677-703).
+        in_kernel_ipe = (mode != "train" and self.use_kernel
+                         and self.render_variant == "ipe2")
+        with span("ddnerf.pipeline.encode"):
+            means, covs = mmath.cast_rays(t_vals, rays.origins, rays.directions,
+                                          rays.radii, self.cfg.nerf.ray_shape)
+            dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
+            n, s = means.shape[0], means.shape[1]
+            if not in_kernel_ipe:
+                ipe = mmath.integrated_pos_enc(
+                    (means, covs), double_angle=self.cfg.parallel.ipe_double_angle)
+                if kernel:
+                    ipe = ipe.reshape(n * s, -1)
+                    if ipe.is_cuda:  # the kernels' operands
+                        ipe = ipe.to(net.compute_dtype)
+        with span("ddnerf.pipeline.mlp"):
+            if in_kernel_ipe:
+                flat = fused_enc_mlp_forward(net, means.reshape(n * s, 3),
+                                             covs.reshape(n * s, 3), dirs, s)
+            elif not kernel:
+                return net(ipe, dirs)
+            elif mode == "train":
+                flat = fused_mlp_train_apply(
+                    net, ipe, dirs, s, self.cfg.parallel.kernel_per_ray_dirs)
+            else:
+                flat = fused_mlp_forward(net, ipe, dirs, s)
         return flat.reshape(n, s, -1)
 
     # ---------------------------------------------------------------- render
@@ -306,12 +317,13 @@ class NerfPipeline:
 
     def _first_cycle_tvals(self, rays: RayBatch, mc, generator):
         ds = self.cfg.dataset
-        return sampling.sample_first_cycle(
-            rays.near, rays.far, mc.num_coarse, lindisp=mc.lindisp,
-            perturb=mc.perturb,
-            combined=ds.combined_sampling_method, combined_near=ds.near,
-            combined_split=ds.combined_split, generator=generator,
-            rows=rays.rows)
+        with span("ddnerf.pipeline.sample"):
+            return sampling.sample_first_cycle(
+                rays.near, rays.far, mc.num_coarse, lindisp=mc.lindisp,
+                perturb=mc.perturb,
+                combined=ds.combined_sampling_method, combined_near=ds.near,
+                combined_split=ds.combined_split, generator=generator,
+                rows=rays.rows)
 
     def _render_mipnerf(self, rays: RayBatch, sched: ScheduleValues,
                         mode: str, generator: Optional[torch.Generator]):
@@ -328,18 +340,20 @@ class NerfPipeline:
         for i in range(2):
             if i == 1:
                 # Without a graph: detached, as stop_gradient in JAX.
-                t_vals = sampling.sample_pdf(
-                    t_vals, ret[0]["weights"], mc.num_fine + 1,
-                    pdf_padding=sched.pdf_padding, det=not mc.perturb,
-                    generator=generator, rows=rays.rows)
+                with span("ddnerf.pipeline.resample"):
+                    t_vals = sampling.sample_pdf(
+                        t_vals, ret[0]["weights"], mc.num_fine + 1,
+                        pdf_padding=sched.pdf_padding, det=not mc.perturb,
+                        generator=generator, rows=rays.rows)
             raw = self._run_network(self.coarse, rays, t_vals, mode)
-            out = rendering.volume_render(
-                raw[..., :3], raw[..., 3], t_vals, rays.directions,
-                generator=generator, noise_std=mc.radiance_field_noise_std,
-                white_background=mc.white_background,
-                eps_mask_pdf=self._eps_mask_pdf,
-                analytic_weights_vjp=cfg.parallel.composite_custom_vjp,
-                rows=rays.rows)
+            with span("ddnerf.pipeline.composite"):
+                out = rendering.volume_render(
+                    raw[..., :3], raw[..., 3], t_vals, rays.directions,
+                    generator=generator, noise_std=mc.radiance_field_noise_std,
+                    white_background=mc.white_background,
+                    eps_mask_pdf=self._eps_mask_pdf,
+                    analytic_weights_vjp=cfg.parallel.composite_custom_vjp,
+                    rows=rays.rows)
             ret[i] = {"rgb": out.rgb, "disp": out.disp, "acc": out.acc,
                       "weights": out.weights, "depth": out.depth,
                       "t_vals": t_vals}
@@ -365,28 +379,32 @@ class NerfPipeline:
         t0 = self._first_cycle_tvals(rays, mc, generator)
         raw0 = self._run_network(self.coarse, rays, t0, mode)  # [N, S, 6]
         raw_mus, raw_sigmas = raw0[..., 4], raw0[..., 5]
-        mus = torch.sigmoid(raw_mus)
-        sigmas = torch.sigmoid(raw_sigmas) + 0.001
-        out0 = rendering.volume_render(raw0[..., :3], raw0[..., 3], t0,
-                                       rays.directions, mus=mus,
-                                       **composite_kw)
+        with span("ddnerf.pipeline.composite"):
+            mus = torch.sigmoid(raw_mus)
+            sigmas = torch.sigmoid(raw_sigmas) + 0.001
+            out0 = rendering.volume_render(raw0[..., :3], raw0[..., 3], t0,
+                                           rays.directions, mus=mus,
+                                           **composite_kw)
 
-        # Smooth the in-cell distribution before resampling (models.py:266-273)
-        smoothed_sigmas = sigmas * sched.gaussian_smooth_factor
-        s_left_tail, s_part_inside = mmath.truncated_gaussian_tails(
-            mus, smoothed_sigmas)
+        with span("ddnerf.pipeline.resample"):
+            # Smooth the in-cell distribution before resampling
+            # (models.py:266-273)
+            smoothed_sigmas = sigmas * sched.gaussian_smooth_factor
+            s_left_tail, s_part_inside = mmath.truncated_gaussian_tails(
+                mus, smoothed_sigmas)
 
-        # ---- cycle 1: fine.  The resampler runs without a graph: t1 is
-        # detached, as stop_gradient(t1) in JAX (models/nerf.py:879).
-        t1 = sampling.sample_pdf_with_mu_sigma(
-            t0, out0.weights, mus, smoothed_sigmas, s_part_inside,
-            s_left_tail, mc.num_fine + 1, near=ds.near, far=ds.far,
-            pdf_padding=sched.pdf_padding,
-            det=not mc.perturb,
-            generator=generator, rows=rays.rows)
+            # ---- cycle 1: fine.  The resampler runs without a graph: t1 is
+            # detached, as stop_gradient(t1) in JAX (models/nerf.py:879).
+            t1 = sampling.sample_pdf_with_mu_sigma(
+                t0, out0.weights, mus, smoothed_sigmas, s_part_inside,
+                s_left_tail, mc.num_fine + 1, near=ds.near, far=ds.far,
+                pdf_padding=sched.pdf_padding,
+                det=not mc.perturb,
+                generator=generator, rows=rays.rows)
         raw1 = self._run_network(self.fine, rays, t1, mode)  # [N, M, 4]
-        out1 = rendering.volume_render(raw1[..., :3], raw1[..., 3], t1,
-                                       rays.directions, **composite_kw)
+        with span("ddnerf.pipeline.composite"):
+            out1 = rendering.volume_render(raw1[..., :3], raw1[..., 3], t1,
+                                           rays.directions, **composite_kw)
         ret0 = {"rgb": out0.rgb, "disp": out0.disp, "acc": out0.acc,
                 "weights": out0.weights, "depth": out0.depth,
                 "corrected_disp_map": out0.corrected_disp, "t_vals": t0}
@@ -395,26 +413,27 @@ class NerfPipeline:
         if mode == "render":
             return {0: ret0, 1: ret1}
 
-        # L2 regularizers on the raw heads (models.py:248-252): per-ray sums
-        # averaged over rays.
-        n_rays = raw_mus.shape[0]
-        sig_loss = torch.sum(raw_sigmas ** 2) / n_rays
-        mus_loss = torch.sum(raw_mus ** 2) / n_rays
-        mus_reg = tp.dist_reg_coeficient * mus_loss
-        sig_reg = tp.dist_reg_coeficient * sig_loss
-        left_tail, part_inside = mmath.truncated_gaussian_tails(mus, sigmas)
+        with span("ddnerf.pipeline.dp_loss"):
+            # L2 regularizers on the raw heads (models.py:248-252): per-ray sums
+            # averaged over rays.
+            n_rays = raw_mus.shape[0]
+            sig_loss = torch.sum(raw_sigmas ** 2) / n_rays
+            mus_loss = torch.sum(raw_mus ** 2) / n_rays
+            mus_reg = tp.dist_reg_coeficient * mus_loss
+            sig_reg = tp.dist_reg_coeficient * sig_loss
+            left_tail, part_inside = mmath.truncated_gaussian_tails(mus, sigmas)
 
-        # ---- depth-prediction loss (models.py:284-289), with the JAX
-        # pipeline's stop-gradients (models/nerf.py:910-925).
-        dp = dd.estimate_dp_loss(
-            t1, t0.detach(), out1.weights.detach(), out0.weights, mus, sigmas,
-            left_tail.detach(), part_inside.detach(),
-            filter_empty_rays=self._filter_empty,
-            variant=tp.dp_loss_variant,
-            mesh=self.mesh if mode == "train" else None,
-        ) * (t1.shape[-1] - 1)
+            # ---- depth-prediction loss (models.py:284-289), with the JAX
+            # pipeline's stop-gradients (models/nerf.py:910-925).
+            dp = dd.estimate_dp_loss(
+                t1, t0.detach(), out1.weights.detach(), out0.weights, mus, sigmas,
+                left_tail.detach(), part_inside.detach(),
+                filter_empty_rays=self._filter_empty,
+                variant=tp.dp_loss_variant,
+                mesh=self.mesh if mode == "train" else None,
+            ) * (t1.shape[-1] - 1)
+            ret1["dp_loss"] = dp + mus_reg + sig_reg
         ret0.update(mus=mus, sigmas=sigmas, smoothed_sigmas=smoothed_sigmas,
                     mus_loss=mus_loss, sig_loss=sig_loss, mus_reg=mus_reg,
                     sig_reg=sig_reg)
-        ret1["dp_loss"] = dp + mus_reg + sig_reg
         return {0: ret0, 1: ret1}

@@ -46,6 +46,7 @@ from ddnerf_tpu_torch.core.rays import (
     ndc_mipnerf_rays_device,
 )
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch, ScheduleValues
+from ddnerf_tpu_torch.utils.profiling import FRAME_ROOT, span
 
 # The maps a render returns (the JAX renderer's DEFAULT_KEYS; a map the
 # model lacks, as mip-NeRF the μ-corrected disparity, is left out), and what
@@ -107,19 +108,22 @@ class ImageRenderer:
         parts: Dict[int, Dict[str, list]] = {0: {}, 1: {}}
         for start in range(0, n, self.chunk):
             sl = slice(start, min(start + self.chunk, n))
-            rays = RayBatch.create(origins[sl], directions[sl], radii[sl],
-                                   ds.near, ds.far)
-            out = self.pipeline.render_rays(rays, sched, self.mode, generator)
-            for i in (0, 1):
-                for key in keys:
-                    v = out[i].get(key)
-                    if v is not None:
-                        parts[i].setdefault(key, []).append(
-                            v * (sl.stop - sl.start) if v.dim() == 0 else v)
-        return {i: {k: (torch.stack(v).sum() / n if v[0].dim() == 0
-                        else torch.cat(v))
-                    for k, v in parts[i].items()}
-                for i in parts}
+            with span("ddnerf.render.chunk"):
+                rays = RayBatch.create(origins[sl], directions[sl], radii[sl],
+                                       ds.near, ds.far)
+                out = self.pipeline.render_rays(rays, sched, self.mode,
+                                                generator)
+                for i in (0, 1):
+                    for key in keys:
+                        v = out[i].get(key)
+                        if v is not None:
+                            parts[i].setdefault(key, []).append(
+                                v * (sl.stop - sl.start) if v.dim() == 0 else v)
+        with span("ddnerf.render.assemble"):
+            return {i: {k: (torch.stack(v).sum() / n if v[0].dim() == 0
+                            else torch.cat(v))
+                        for k, v in parts[i].items()}
+                    for i in parts}
 
     def _render_flat_sharded(self, origins, directions, radii, generator,
                              sched: ScheduleValues, keys: Sequence[str],
@@ -140,27 +144,30 @@ class ImageRenderer:
             p = -(-(stop - start) // mesh.size)
             lo = min(start + mesh.rank * p, stop)
             hi = min(lo + p, stop)
-            rows = torch.arange(lo, lo + p, device=dev).clamp_(max=stop - 1)
-            rays = RayBatch.create(
-                origins[rows], directions[rows], radii[rows], ds.near,
-                ds.far, rows=(lo - start, hi - start, stop - start))
-            out = self.pipeline.render_rays(rays, sched, self.mode, generator)
-            k = np.arange(stop - start)
-            owner[start:stop], at[start:stop] = k // p, local + k % p
-            for i in (0, 1):
-                for key in keys:
-                    v = out[i].get(key)
-                    if v is None:
-                        continue
-                    if v.dim() == 0:  # weighted by this rank's real rays
-                        w = v.float() * (hi - lo)
-                        sums[(i, key)] = (sums[(i, key)] + w
-                                          if (i, key) in sums else w)
-                    else:
-                        maps.setdefault((i, key), []).append(v)
-            local += p
-        src = torch.from_numpy(owner * local + at).to(dev)
-        return self._gather(mesh, maps, sums, src, n)
+            with span("ddnerf.render.chunk"):
+                rows = torch.arange(lo, lo + p, device=dev).clamp_(max=stop - 1)
+                rays = RayBatch.create(
+                    origins[rows], directions[rows], radii[rows], ds.near,
+                    ds.far, rows=(lo - start, hi - start, stop - start))
+                out = self.pipeline.render_rays(rays, sched, self.mode,
+                                                generator)
+                k = np.arange(stop - start)
+                owner[start:stop], at[start:stop] = k // p, local + k % p
+                for i in (0, 1):
+                    for key in keys:
+                        v = out[i].get(key)
+                        if v is None:
+                            continue
+                        if v.dim() == 0:  # weighted by this rank's real rays
+                            w = v.float() * (hi - lo)
+                            sums[(i, key)] = (sums[(i, key)] + w
+                                              if (i, key) in sums else w)
+                        else:
+                            maps.setdefault((i, key), []).append(v)
+                local += p
+        with span("ddnerf.render.assemble"):
+            src = torch.from_numpy(owner * local + at).to(dev)
+            return self._gather(mesh, maps, sums, src, n)
 
     @staticmethod
     def _gather(mesh, maps, sums, src: torch.Tensor, n: int,
@@ -195,10 +202,11 @@ class ImageRenderer:
         dev = self.pipeline.device
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        ro, rd, radii = get_ray_bundle(h, w, float(focal), pose, device=dev)
-        if self.cfg.dataset.ndc_rays:
-            ro, rd, radii = ndc_mipnerf_rays_device(h, w, focal, ro, rd)
-            radii = radii[..., None]
+        with span("ddnerf.render.rays"):
+            ro, rd, radii = get_ray_bundle(h, w, float(focal), pose, device=dev)
+            if self.cfg.dataset.ndc_rays:
+                ro, rd, radii = ndc_mipnerf_rays_device(h, w, focal, ro, rd)
+                radii = radii[..., None]
         return self.render_flat(ro.reshape(-1, 3), rd.reshape(-1, 3),
                                 radii.reshape(-1, 1), generator, sched, keys)
 
@@ -208,16 +216,19 @@ class ImageRenderer:
         """Render an ``[h, w]`` image from a [4, 4] (or [3, 4]) camera pose
         -> per-cycle float32 numpy maps (``[h, w, C]`` for per-ray vectors,
         ``[h, w]`` for per-ray scalars, a float for a scalar)."""
-        flat = self._render_pose(pose, h, w, focal, generator, sched)
-        result: Maps = {0: {}, 1: {}}
-        for i in flat:
-            for key, v in flat[i].items():
-                arr = v.float().cpu().numpy()
-                if arr.ndim == 0:
-                    result[i][key] = float(arr)
-                else:
-                    result[i][key] = arr.reshape(h, w, -1) if arr.ndim == 2 \
-                        else arr.reshape(h, w)
+        with span(FRAME_ROOT):
+            flat = self._render_pose(pose, h, w, focal, generator, sched)
+            result: Maps = {0: {}, 1: {}}
+            with span("ddnerf.render.to_host"):
+                for i in flat:
+                    for key, v in flat[i].items():
+                        arr = v.float().cpu().numpy()
+                        if arr.ndim == 0:
+                            result[i][key] = float(arr)
+                        else:
+                            result[i][key] = (arr.reshape(h, w, -1)
+                                              if arr.ndim == 2
+                                              else arr.reshape(h, w))
         return result
 
     def render_images_from_poses(self, poses: Iterable, h: int, w: int,
@@ -233,11 +244,14 @@ class ImageRenderer:
         """One video frame from a [4, 4] camera pose: the fine rgb and
         disparity, quantized on the device (:func:`quantize_video_frame`)
         -> ``(rgb_u8 [h, w, 3], disp_u8 [h, w])`` numpy."""
-        flat = self._render_pose(pose, h, w, focal, None, sched, VIDEO_KEYS)
-        rgb_u8, disp_u8 = quantize_video_frame(flat[1]["rgb"],
-                                               flat[1]["disp"])
-        return (rgb_u8.cpu().numpy().reshape(h, w, 3),
-                disp_u8.cpu().numpy().reshape(h, w))
+        with span(FRAME_ROOT):
+            flat = self._render_pose(pose, h, w, focal, None, sched, VIDEO_KEYS)
+            with span("ddnerf.render.quantize"):
+                rgb_u8, disp_u8 = quantize_video_frame(flat[1]["rgb"],
+                                                       flat[1]["disp"])
+            with span("ddnerf.render.to_host"):
+                return (rgb_u8.cpu().numpy().reshape(h, w, 3),
+                        disp_u8.cpu().numpy().reshape(h, w))
 
     def render_video_frames_from_poses(
             self, poses: Iterable, h: int, w: int, focal,

@@ -17,6 +17,10 @@ uses imageio.
 Under ``torchrun`` with more than one rank every rank renders its share of
 each frame, the whole frame is quantized after the gather, and rank 0 alone
 writes the files and prints (``ddnerf_tpu/render/video.py:28-30,54,83``).
+
+``profile_frames`` > 0 first renders that many frames with the tracer live
+and prints their stage table, then as many under ``torch.profiler``, whose
+Chrome trace goes under ``logdir/plugins/profile/`` (:func:`_profile_frames`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from ddnerf_tpu_torch.parallel.mesh import maybe_mesh
 from ddnerf_tpu_torch.render.media import AviWriter, write_png
 from ddnerf_tpu_torch.render.renderer import ImageRenderer
 from ddnerf_tpu_torch.train.checkpoint import load_config_snapshot
+from ddnerf_tpu_torch.utils import profiling
 
 
 def side_by_side(rgb: np.ndarray, disp: np.ndarray) -> np.ndarray:
@@ -42,15 +47,47 @@ def side_by_side(rgb: np.ndarray, disp: np.ndarray) -> np.ndarray:
                           axis=1)
 
 
+def _profile_frames(renderer: ImageRenderer, poses, h: int, w: int, focal,
+                   sched: ScheduleValues, frames: int, logdir: str,
+                   primary: bool = True) -> None:
+    """Where a video frame's time goes: one frame to warm up, then
+    ``frames`` frames of ``poses`` (from the first, round the path) with
+    the tracer live and no profiler, whose stage table is printed (device
+    ms from CUDA events, host ms), then as many under ``torch.profiler``,
+    its Chrome trace (with the tracer's spans) under
+    ``logdir/plugins/profile/`` and its digest printed.  Every rank renders;
+    rank 0 (``primary``) alone prints and traces."""
+    poses = [poses[i % len(poses)] for i in range(frames)]
+    renderer.render_video_frame_from_pose(poses[0], h, w, focal, sched)
+    profiling.enable()
+    profiling.reset()
+    try:
+        for profiled in (False, True):
+            with profiling.trace(logdir, enable=primary and profiled) as prof:
+                for _ in renderer.render_video_frames_from_poses(
+                        poses, h, w, focal, sched):
+                    pass
+            if primary and not profiled:
+                print(profiling.stage_table(profiling.snapshot(),
+                                            profiling.FRAME_ROOT), flush=True)
+    finally:
+        profiling.disable()
+    if prof is not None:
+        print(f"[profile] trace of {frames} frames: {prof.trace_path}")
+        print(profiling.summarize(prof, frames, unit="frame"), flush=True)
+
+
 def render_model_video(basedir: str, save_images: bool = False,
                        fps: int = 24, max_frames: int = 0,
                        torch_checkpoint: str | None = None,
                        checkpoint_step: int | None = None,
-                       device: str = "cuda") -> str:
+                       device: str = "cuda", profile_frames: int = 0) -> str:
     """Render the video of the run in ``basedir``: the first ``max_frames``
     render poses (0: all) at the dataset's resolution, from the logdir's
     newest checkpoint, its retained ``checkpoint_step`` or the file
-    ``torch_checkpoint``.  Returns the path of ``video.avi``."""
+    ``torch_checkpoint``; first, with ``profile_frames`` > 0, that many
+    frames with the tracer live and as many under the profiler
+    (:func:`_profile_frames`).  Returns the path of ``video.avi``."""
     savedir = os.path.join(basedir, "video")
     cfg = load_config_snapshot(basedir)
     mesh = maybe_mesh(cfg, device)
@@ -66,6 +103,9 @@ def render_model_video(basedir: str, save_images: bool = False,
     renderer = ImageRenderer(cfg, pipeline, mode="render")
     h, w = val_ds.H, val_ds.W
 
+    if profile_frames:
+        _profile_frames(renderer, val_ds.render_poses, h, w, val_ds.focal,
+                        sched, profile_frames, basedir, primary)
     n = len(val_ds.render_poses)
     if max_frames:
         n = min(n, max_frames)

@@ -24,7 +24,8 @@ TensorBoard events file); a whole-image validation runs
 at ``validate_every`` (with the NDC depth un-warp and, under
 ``train_params.depth_analysis_rays``, the per-ray depth-analysis figures),
 the retained checkpoints are written at ``save_every`` and at the end.
-``profile_steps`` traces that many steady steps (``utils/profiling.py``);
+``profile_steps`` runs that many steady steps with the tracer live and
+prints their stages, then traces as many (``utils/profiling.py``);
 inside ``utils/debug.py::nan_debug_mode`` the step is the eager one with a
 finite check of every step.  Both model families.
 
@@ -70,6 +71,7 @@ from ddnerf_tpu_torch.train.step import (
     schedule_values,
 )
 from ddnerf_tpu_torch.utils.debug import nan_debug_enabled
+from ddnerf_tpu_torch.utils import profiling
 from ddnerf_tpu_torch.utils.profiling import summarize, trace
 
 STEP_MODES = ("graph", "eager")
@@ -115,9 +117,15 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
     ``"graph"`` where it cannot run raises; it never gives way to eager,
     and that includes a gloo group, whose collectives no graph can hold.
     ``verbose=False`` silences the ``[TRAIN]`` / ``[VAL]`` lines, not the
-    records.  ``profile_steps`` > 0 traces that many steady steps under
-    ``logdir/plugins/profile/``; ``state.step`` advances by them, as in
-    the JAX loop, and their digest is printed at the end."""
+    records.  ``profile_steps`` > 0 turns the tracer on before the step
+    is built (a captured step's graph then times each stage on the
+    device), runs that many steady steps with no profiler and prints
+    their stage table and set-up line, then traces as many under
+    ``logdir/plugins/profile/``, the tracer's spans on the trace, turns
+    the tracer off and drops the captured graphs, so that the rest of the
+    run replays graphs captured without stage events; ``state.step``
+    advances by both stretches' steps (twice the JAX loop's), and the
+    trace's digest is printed at the end."""
     if step_mode not in (None, *STEP_MODES):
         raise ValueError(f"step_mode={step_mode!r}: expected one of "
                          f"{' | '.join(STEP_MODES)}")
@@ -198,6 +206,8 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
             f"{dev} with the store "
             f"{'resident' if use_device_store else 'on the host'}")
     longest = min(exp.print_every, exp.validate_every, exp.save_every)
+    if profile_steps and primary:
+        profiling.enable()
     if use_device_store:
         if step_mode == "graph":
             stepper = CapturedTrainStep(
@@ -211,7 +221,7 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
     else:
         steps_expected = total - start
         if profile_steps and start + 2 < total:
-            steps_expected += profile_steps  # the profiled steps draw too
+            steps_expected += 2 * profile_steps  # the profiled steps draw too
         if sharded:
             pmesh.warn_indivisible(cfg.nerf.train.num_random_rays, mesh.size)
         # On a mesh every rank draws the global batch and keeps its slice.
@@ -252,15 +262,26 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
     profiled = False
 
     def profiled_steps():
-        """``profile_steps`` steps under the profiler (rank 0's only),
-        their scalars dropped: the step counter moves on, the iteration
-        does not."""
+        """``profile_steps`` steps with the tracer live (rank 0's), their
+        stage table printed, then as many under the profiler (rank 0's
+        only); their scalars dropped: the step counter moves on, the
+        iteration does not."""
         nonlocal profiled
         profiled = True
-        with trace(logdir, enable=primary) as prof:
-            stepper.run(profile_steps)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
+        for profiled_run in (False, True):
+            profiling.reset(kinds=("replayed",))
+            with trace(logdir, enable=primary and profiled_run) as prof:
+                stepper.run(profile_steps)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            if verbose and not profiled_run:
+                snap = profiling.snapshot()
+                print(profiling.stage_table(snap, profiling.STEP_ROOT),
+                      flush=True)
+                print(profiling.setup_line(snap), flush=True)
+        profiling.disable()
+        if isinstance(stepper, CapturedTrainStep):
+            stepper.drop_graphs()  # the rest of the run replays no events
         return prof
 
     quiet = {} if verbose else {"verbose": False}
@@ -337,6 +358,8 @@ def train(cfg: Config, max_iters: Optional[int] = None, device="cuda",
                   f"all-reduce(s) over the {mesh.size} rank(s)", flush=True)
     finally:
         doc.close()
+        if profile_steps:  # a run too short to reach the profiled steps
+            profiling.disable()
     return state, logdir
 
 

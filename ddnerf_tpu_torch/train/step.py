@@ -17,6 +17,11 @@ Both are driven through one interface, ``run(k) -> [k, n_metrics]`` on the
 device with the metric names in ``names`` (:class:`EagerTrainStep` wraps the
 eager form), so the loop reads a block's scalars in one copy.
 
+An iteration is the tracer's span ``ddnerf.step.iteration``
+(``utils/profiling.py``) over ``ddnerf.step.draw``, ``.forward`` (the
+pipeline's spans), ``.backward``, ``.adam`` and ``.record``; off, each is
+one boolean check, and a captured graph holds no more than the step.
+
 On a data-parallel group (``pipeline.mesh``, ``parallel/mesh.py``) each rank
 runs the same step on its share of the rays; the gradients and the scalar
 metrics are averaged over the ranks in one all-reduce after the backward,
@@ -27,6 +32,7 @@ the eager step.
 
 from __future__ import annotations
 
+import sys
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,7 +45,9 @@ from ddnerf_tpu_torch.data.datasets import sample_rays_on_device
 from ddnerf_tpu_torch.kernels import fused_mlp
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch, ScheduleValues
 from ddnerf_tpu_torch.train.state import TrainState
+from ddnerf_tpu_torch.utils import profiling
 from ddnerf_tpu_torch.utils.debug import assert_finite_tree
+from ddnerf_tpu_torch.utils.profiling import STEP_ROOT, span
 
 Batch = Dict[str, torch.Tensor]  # origins, directions, radii, rgb
 
@@ -88,7 +96,9 @@ def _gradients(cfg: Config, pipeline: NerfPipeline, batch: Batch,
     parameters' ``.grad`` (accumulated over equal chunks of
     ``parallel.microbatch_rays`` rays when it divides the batch: the mean
     of the chunk means, ``step.py:125-140``) and returns the detached
-    scalar metrics with the PSNRs."""
+    scalar metrics.  Each chunk's forward and backward are the spans
+    ``ddnerf.step.forward`` and ``ddnerf.step.backward``; the mean over
+    chunks and the all-reduce over ranks ``ddnerf.step.reduce``."""
     near, far = cfg.dataset.near, cfg.dataset.far
     params = pipeline.parameters()
     mesh = pipeline.mesh
@@ -96,11 +106,13 @@ def _gradients(cfg: Config, pipeline: NerfPipeline, batch: Batch,
         p.grad = None
 
     def accumulate(part: Batch) -> Dict[str, torch.Tensor]:
-        rays = RayBatch.create(part["origins"], part["directions"],
-                               part["radii"], near, far)
-        loss, m = compute_loss(cfg, pipeline, rays, part["rgb"], sched,
-                               generator)
-        loss.backward()  # .grad accumulates over chunks
+        with span("ddnerf.step.forward"):
+            rays = RayBatch.create(part["origins"], part["directions"],
+                                   part["radii"], near, far)
+            loss, m = compute_loss(cfg, pipeline, rays, part["rgb"], sched,
+                                   generator)
+        with span("ddnerf.step.backward"):
+            loss.backward()  # .grad accumulates over chunks
         return {key: v.detach() for key, v in m.items()}
 
     num_rays = batch["origins"].shape[0]
@@ -112,14 +124,20 @@ def _gradients(cfg: Config, pipeline: NerfPipeline, batch: Batch,
             part = {key: v[j * mb:(j + 1) * mb] for key, v in batch.items()}
             for key, v in accumulate(part).items():
                 sums[key] = sums[key] + v if key in sums else v
-        with torch.no_grad():
+        with span("ddnerf.step.reduce"), torch.no_grad():
             for p in params:
                 p.grad /= k
-        metrics = {key: v / k for key, v in sums.items()}
+            metrics = {key: v / k for key, v in sums.items()}
     else:
         metrics = accumulate(batch)
     if mesh is not None:  # the global batch's gradients and metrics
-        metrics = mesh.average(params, metrics)
+        with span("ddnerf.step.reduce"):
+            metrics = mesh.average(params, metrics)
+    return metrics
+
+
+def _add_psnrs(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The PSNRs of the (aggregated) MSEs, appended to ``metrics``."""
     metrics["psnr_coarse"] = mse2psnr(metrics["loss_coarse"])
     metrics["psnr_fine"] = mse2psnr(metrics["loss_fine"])
     return metrics
@@ -149,8 +167,11 @@ def train_step(cfg: Config, pipeline: NerfPipeline, state: TrainState,
         assert_finite_tree({"loss": metrics["loss"],
                             "grad": _named_leaves(pipeline, grad=True)},
                            f"step {state.step}")
-    state.apply_gradients()
-    metrics["lr"] = state.lr.clone()
+    with span("ddnerf.step.adam"):
+        state.apply_gradients()
+    with span("ddnerf.step.record"):
+        metrics = _add_psnrs(metrics)
+        metrics["lr"] = state.lr.clone()
     return metrics
 
 
@@ -170,8 +191,10 @@ def train_step_from_store(cfg: Config, pipeline: NerfPipeline,
     """:func:`train_step` on a batch drawn from the device-resident ray
     store ``[n_img, n_pix, 10]`` (step.py:156-172); ``generator`` draws the
     rays, then the jitter and the density noise."""
-    return train_step(cfg, pipeline, state, _draw_batch(cfg, store, generator),
-                      generator, check_finite)
+    with span(STEP_ROOT):
+        with span("ddnerf.step.draw"):
+            batch = _draw_batch(cfg, store, generator)
+        return train_step(cfg, pipeline, state, batch, generator, check_finite)
 
 
 def _row(metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -213,13 +236,15 @@ class EagerTrainStep:
     def run(self, k: int) -> torch.Tensor:
         rows = []
         for _ in range(k):
-            metrics = train_step(self.cfg, self.pipeline, self.state,
-                                 self.take(), self.generator,
-                                 self.check_finite)
-            if self.after_dispatch is not None:
-                self.after_dispatch()
-            self.names = list(metrics)
-            rows.append(_row(metrics))
+            with span(STEP_ROOT):
+                with span("ddnerf.step.draw"):
+                    batch = self.take()
+                metrics = train_step(self.cfg, self.pipeline, self.state,
+                                     batch, self.generator, self.check_finite)
+                if self.after_dispatch is not None:
+                    self.after_dispatch()
+                self.names = list(metrics)
+                rows.append(_row(metrics))
         return torch.stack(rows)
 
 
@@ -300,33 +325,42 @@ class CapturedTrainStep:
         self.buffer: Optional[torch.Tensor] = None  # made at the first step
         self.warmup_left = self.WARMUP
         self._side = torch.cuda.Stream(dev)
-        self._graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph,
-                                       Dict[str, int]]] = {}
+        self._graphs: Dict[bool, Tuple[torch.cuda.CUDAGraph, Dict[str, int],
+                                       profiling.GraphCensus]] = {}
 
     # ------------------------------------------------------------ pieces
 
     def _eager(self, j: int) -> None:
-        """A warm-up iteration, on the side stream, into buffer row ``j``."""
+        """A warm-up iteration, on the side stream, into buffer row ``j``
+        (the span ``ddnerf.step.eager``)."""
         main = torch.cuda.current_stream(self.store.device)
-        self._side.wait_stream(main)
-        with torch.cuda.stream(self._side):
-            metrics = train_step(self.cfg, self.pipeline, self.state,
-                                 self._draw(), self.generator)
-            if self.buffer is None:
-                self.names = list(metrics)
-                self.buffer = torch.zeros(
-                    (self.max_block, len(metrics)), dtype=torch.float32,
-                    device=self.store.device)
-            self.buffer[j] = _row(metrics)
-        main.wait_stream(self._side)
+        with span("ddnerf.step.eager"):
+            self._side.wait_stream(main)
+            with torch.cuda.stream(self._side), span(STEP_ROOT):
+                with span("ddnerf.step.draw"):
+                    batch = self._draw()
+                metrics = train_step(self.cfg, self.pipeline, self.state,
+                                     batch, self.generator)
+                if self.buffer is None:
+                    self.names = list(metrics)
+                    self.buffer = torch.zeros(
+                        (self.max_block, len(metrics)), dtype=torch.float32,
+                        device=self.store.device)
+                self.buffer[j] = _row(metrics)
+            main.wait_stream(self._side)
         self.warmup_left -= 1
 
     def _capture(self, pdf_padding: bool):
-        """Record one step with this ``pdf_padding`` -> (graph, the fused
-        kernels' launch nodes it holds, by name)."""
+        """Record one step with this ``pdf_padding`` (the span
+        ``ddnerf.step.capture``) -> (graph, the fused kernels' launch nodes
+        it holds, by name, its :class:`~ddnerf_tpu_torch.utils.profiling.
+        GraphCensus`).  The finished graph's device operations are counted
+        (``graph.nodes`` once ``run`` replays it), and by stage where the
+        tracer is live, on a ``[graph]`` line of standard error that also
+        says which capture of the process this is (``graph.captures``)."""
         cfg, pipeline, state = self.cfg, self.pipeline, self.state
         nets = pipeline.networks()
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         for gen in self._generators:
             graph.register_generator_state(gen)
         before = dict(fused_mlp.CAPTURED)
@@ -334,27 +368,48 @@ class CapturedTrainStep:
         collectives = mesh.collectives if mesh is not None else 0
         for net in nets:  # so that the pack is made inside the graph
             fused_mlp.forget_packed(net)
-        with torch.cuda.graph(graph):
-            lr, smooth = self.table.index_select(0, self.row)[0].unbind(0)
-            state.lr.copy_(lr)
-            sched = ScheduleValues(gaussian_smooth_factor=smooth,
-                                   pdf_padding=pdf_padding)
-            metrics = _gradients(cfg, pipeline, self._draw(), sched,
-                                 self.generator)
-            state.optimizer.step()
-            metrics["lr"] = state.lr
-            if list(metrics) != self.names:
-                raise RuntimeError(f"the captured step's metrics "
-                                   f"{list(metrics)} are not {self.names}")
-            self.buffer.index_copy_(0, self.row, _row(metrics)[None])
-            self.row.add_(1)
+        with span("ddnerf.step.capture"), profiling.GraphCensus() as census:
+            with torch.cuda.graph(graph), span(STEP_ROOT):
+                with span("ddnerf.step.draw"):
+                    lr, smooth = self.table.index_select(0, self.row)[0].unbind(0)
+                    state.lr.copy_(lr)
+                    batch = self._draw()
+                sched = ScheduleValues(gaussian_smooth_factor=smooth,
+                                       pdf_padding=pdf_padding)
+                metrics = _gradients(cfg, pipeline, batch, sched,
+                                     self.generator)
+                with span("ddnerf.step.adam"):
+                    state.optimizer.step()
+                with span("ddnerf.step.record"):
+                    metrics = _add_psnrs(metrics)
+                    metrics["lr"] = state.lr
+                    if list(metrics) != self.names:
+                        raise RuntimeError(f"the captured step's metrics "
+                                           f"{list(metrics)} are not {self.names}")
+                    self.buffer.index_copy_(0, self.row, _row(metrics)[None])
+                    self.row.add_(1)
+            census.count(graph.raw_cuda_graph())
+            graph.instantiate()
         for net in nets:  # that pack is the graph's, and is stale outside
             fused_mlp.forget_packed(net)
         if mesh is not None:
             self.collectives = mesh.collectives - collectives
+        profiling.count("graph.captures")
+        said = (f"{census.ops} device operations, {census.events} event "
+                f"nodes; nodes by stage: {census.by_stage()}"
+                if census.ops is not None else f"not counted ({census.refused})")
+        print(f"[graph] capture {profiling.counter('graph.captures')}, "
+              f"pdf_padding={pdf_padding}: {said}", file=sys.stderr,
+              flush=True)
         nodes = {name: n - before[name]
                  for name, n in fused_mlp.CAPTURED.items() if n != before[name]}
-        return graph, nodes
+        return graph, nodes, census
+
+    def drop_graphs(self) -> None:
+        """Forget the captured graphs: the next :meth:`run` captures them
+        anew, with the tracer as it is then (so that graphs captured with
+        their stage events are not replayed once the tracer is off)."""
+        self._graphs.clear()
 
     # --------------------------------------------------------------- run
 
@@ -377,15 +432,19 @@ class CapturedTrainStep:
                           for s in steps]
         self.table.copy_(torch.from_numpy(values))
         self.row.fill_(j)
-        for s in steps:
-            pad = schedules.pdf_padding(s, self.cfg)
-            if pad not in self._graphs:
-                self._graphs[pad] = self._capture(pad)
-            graph, nodes = self._graphs[pad]
-            graph.replay()
-            state.step += 1
-            for name, n in nodes.items():
-                fused_mlp.LAUNCHES[name] += n
+        with span("ddnerf.step.replay"):
+            for s in steps:
+                pad = schedules.pdf_padding(s, self.cfg)
+                if pad not in self._graphs:
+                    self._graphs[pad] = self._capture(pad)
+                graph, nodes, census = self._graphs[pad]
+                profiling.replaying(census)
+                graph.replay()
+                state.step += 1
+                for name, n in nodes.items():
+                    fused_mlp.LAUNCHES[name] += n
+        if census.ops is not None:
+            profiling.set_counter("graph.nodes", census.ops)
         # The replays moved the parameters where no version counter saw it.
         for net in self.pipeline.networks():
             fused_mlp.forget_packed(net)

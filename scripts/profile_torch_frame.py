@@ -7,10 +7,11 @@ seeded random weights) through the in-kernel-IPE forward
 (``render_kernel_variant: ipe2``), through the forward fed the torch IPE
 (``mlp``) and, unprofiled only, through the plain version.  For each kernel
 path: the unprofiled wall of an image render and of a uint8 video frame
-(best of three), then one render under ``torch.profiler``: device busy time
-(the sum of the device kernels' times), the device span (first kernel start
-to last kernel end), the number of device kernels and the largest kernels by
-total time.  The first line is the card's name and power limit.
+(best of three), then one render under ``torch.profiler`` through
+``utils/profiling.py::summarize``: device busy time (the union of the
+device kernels' intervals), the device span (first kernel start to last
+kernel end), the number of device kernels and the largest kernels by total
+time.  The first line is the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from ddnerf_tpu_torch.config import load_config  # noqa: E402
 from ddnerf_tpu_torch.data.synthetic import pose_spherical  # noqa: E402
 from ddnerf_tpu_torch.models.nerf import NerfPipeline  # noqa: E402
 from ddnerf_tpu_torch.render.renderer import ImageRenderer  # noqa: E402
+from ddnerf_tpu_torch.utils.profiling import summarize  # noqa: E402
 
 
 def best_wall(fn, reps=3):
@@ -78,24 +80,8 @@ def main():
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             image()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.device_time for e in kernels) / 1e3
-        start = min(e.time_range.start for e in kernels)
-        end = max(e.time_range.end for e in kernels)
-        span = (end - start) / 1e3
-        print(f"[{name}] device busy {busy:.1f} ms of a {span:.1f} ms span "
-              f"({100 * (1 - busy / span):.0f}% idle), {len(kernels)} device "
-              f"kernels", flush=True)
-        totals = {}
-        for e in kernels:
-            t = totals.setdefault(e.name, [0.0, 0])
-            t[0] += e.device_time / 1e3
-            t[1] += 1
-        for kname, (ms, count) in sorted(totals.items(),
-                                         key=lambda kv: -kv[1][0])[:args.top]:
-            print(f"[{name}]   {ms:8.1f} ms  {count:6d} calls  {kname[:100]}",
-                  flush=True)
+        print(summarize(prof, 1, top=args.top, tag=name, unit="frame"),
+              flush=True)
 
 
 if __name__ == "__main__":

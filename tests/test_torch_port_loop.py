@@ -47,6 +47,7 @@ from ddnerf_tpu_torch.train.step import (
     train_step,
     train_step_from_store,
 )
+from ddnerf_tpu_torch.utils import profiling
 from ddnerf_tpu_torch.utils.debug import assert_finite_tree, nan_debug_mode
 from ddnerf_tpu_torch.utils.weights import params_to_state_dict
 
@@ -331,10 +332,12 @@ def test_prefetch_draws_the_synchronous_loops_batches(tmp_path, prefetch):
 def test_profile_steps_writes_a_trace_and_advances_the_step(
         tmp_path, monkeypatch, capsys, max_store_gb):
     """``--profile-steps 3`` through the CLI, under the block loop and
-    under the host-sampling loop: a Chrome trace under
-    ``plugins/profile/``, the digest printed, the step counter 3 past the
-    iterations (as the JAX loop's), and under host sampling the profiled
-    steps draw their batches too."""
+    under the host-sampling loop: the stage table of 3 steps run with the
+    tracer live, then a Chrome trace of 3 more under ``plugins/profile/``
+    with the tracer's spans beside it, the digest printed, the step counter
+    6 past the iterations (the JAX loop's 3, and 3 more for the stretch
+    without the profiler), and under host sampling the profiled steps draw
+    their batches too."""
     cfg_path = tmp_path / "cfg.yml"
     cfg_path.write_text(_cfg(tmp_path).dump())
     spy = _Spy(monkeypatch, TrainRayDataset)
@@ -347,12 +350,24 @@ def test_profile_steps_writes_a_trace_and_advances_the_step(
                                     "trace.json"))
     assert len(traces) == 1 and traces[0] in out
     with open(traces[0]) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    assert {"ddnerf.step.forward", "ddnerf.pipeline.mlp"} <= {
+        e.get("name") for e in events}
+    with open(os.path.join(os.path.dirname(traces[0]), "spans.json")) as f:
+        spans = json.load(f)
+    assert spans["clock_offset_ns"] is not None
+    assert sum(s["name"] == "ddnerf.step.iteration" for s in spans["spans"]) == 3
+    table = out[out.index("[stages] ddnerf.step.iteration"):]
+    for stage in ("step.draw", "step.forward", "pipeline.encode",
+                  "step.backward", "step.adam", "step.record"):
+        assert stage in table
     assert "[profile] 3 steps in a" in out and "ms/step" in out
+    assert "[setup] library builds 0, graph captures 0" in out  # eager
     assert "no device activity" in out  # a CPU run says so
-    assert ckpt.all_steps(logdir) == [12]  # 9 iterations + 3 profiled steps
+    assert ckpt.all_steps(logdir) == [15]  # 9 iterations + 2 x 3 profiled
     assert [r["step"] for r in _train_records(logdir)] == list(range(9))
-    assert len(spy.batches) == (12 if max_store_gb == 0.0 else 0)
+    assert len(spy.batches) == (15 if max_store_gb == 0.0 else 0)
+    assert not profiling.enabled()
 
 
 # ---------------------------------------------------------- --debug-nans
