@@ -21,6 +21,13 @@ Run from the repository root.  Phases, each of which fails the run:
 3c. the library yardstick of the fused plans' four kernels in both dtypes
    at width 256 on the main paths' shapes: one PyTorch matrix product per
    product of the network (:func:`library_ms`), summed per kernel;
+3d. the encode kernel vs plain: ``kernels.encode.ipe_encode`` against its
+   plain version (``ipe_encode_reference``) on the same card tensors at the
+   main path's shapes, one render chunk (16384 rays x 32 sections) and
+   one training cycle (2048 x 32), as the main path runs it (cone, double
+   angle, bf16 rows): at least :data:`ENCODE_EQUAL_SHARE` of the IPE and
+   dirs elements equal and every one within 1 bf16 ulp, with CUDA-event
+   timings of both in graph replays;
 4. training kernels vs plain: the stash forward (outputs bit-identical to
    render mode, activation slabs within the forward tolerances) and the
    fused backward (every gradient within its norm-relative tolerance and
@@ -166,7 +173,8 @@ The second-to-last line is the kernel table as JSON (each kernel's time
 beside its plain version's and beside ``bound_ms``, the least time the card
 could take for the same work, see :func:`_bound_ms`, and ``library_ms``,
 the time of one PyTorch matrix product per product of the network,
-:func:`library_ms`); the last line is
+:func:`library_ms`, null for the encode kernel, whose work is no matrix
+product); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15,
 16, 17, 18, 19, 20 and 21's kernel runs (over every rank), each counted
@@ -596,6 +604,109 @@ def phase_enc_kernel(torch):
                   f"(the IPE alone {t['ipe']:.3f} ms) (CUDA-event medians of "
                   f"{TIMING_REPS})", flush=True)
             timing[cls.__name__] = t
+    return worst, timing
+
+
+# The encode kernel against its plain version (phase 3d): the share of
+# bf16 elements that must be equal, the rest within 1 ulp (the card tests'
+# limits, tests/test_torch_port_encode.py).
+ENCODE_EQUAL_SHARE = 0.999
+
+
+def _encode_rays(torch, gen, n, s, dev):
+    """``n`` blender rays of ``s`` sections as the pipeline holds them:
+    cameras on a sphere of radius 4 looking in, origins / directions /
+    radii as column views of one [n, 10] store row, unit view directions,
+    sorted jittered fenceposts in [2, 6]."""
+    o = torch.randn(n, 3, generator=gen)
+    o = 4.0 * o / o.norm(dim=-1, keepdim=True)
+    d = -o / 4.0 + 0.35 * torch.randn(n, 3, generator=gen)
+    radii = 4e-4 + 4e-4 * torch.rand(n, 1, generator=gen)
+    store = torch.cat([o, d, radii, torch.rand(n, 3, generator=gen)], 1).to(dev)
+    directions = store[:, 3:6]
+    viewdirs = directions / torch.linalg.norm(directions, dim=-1, keepdim=True)
+    base = torch.linspace(2.0, 6.0, s + 1)
+    jitter = (torch.rand(n, s + 1, generator=gen) - 0.5) * 4.0 / s
+    t_vals = torch.sort(base + jitter, dim=-1).values.to(dev)
+    return t_vals, store[:, 0:3], directions, store[:, 6:7], viewdirs
+
+
+def _bf16_ulps(torch, a, b):
+    """|a - b| in bf16 units in the last place, through the floats'
+    order-preserving integer keys (-0 and +0 one apart)."""
+    def key(x):
+        i = x.contiguous().view(torch.int16).long()
+        return torch.where(i < 0, -(i & 0x7FFF) - 1, i)
+
+    return (key(a) - key(b)).abs()
+
+
+def encode_bound_ms(rays, s):
+    """The encode kernel's least time: the bytes it reads (``t_vals``
+    [rays, s + 1] and 10 floats a ray, f32) and writes (96 bf16 a row, 27
+    a ray) once, over the device-memory rate."""
+    nbytes = rays * ((s + 1) * 4 + 10 * 4) + rays * s * 96 * 2 + rays * 27 * 2
+    return _bound_ms(0, nbytes)
+
+
+def _replayed_ms(torch, fn, reps=TIMING_REPS, per=10):
+    """Median device time of ``fn`` over ``reps`` replays of a CUDA graph
+    that holds ``per`` calls of it, per call (CUDA events).  For work of
+    tens of microseconds, whose eager launch the host paces."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # allocations and the library load outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per):
+            fn()
+    return _event_ms(torch, graph.replay, reps) / per
+
+
+def phase_encode_kernel(torch):
+    """Phase 3d -> ``(max |kernel - plain|, {rows: (ms, plain ms)})``, the
+    times of graph replays (:func:`_replayed_ms`): eagerly the event pair
+    would time the wrapper's host work, not the kernel."""
+    from ddnerf_tpu_torch.kernels.encode import (
+        ipe_encode,
+        ipe_encode_reference,
+    )
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(3)
+    worst, timing = 0.0, {}
+    for rays in (CHUNK_RAYS, TRAIN_RAYS):
+        args = _encode_rays(torch, gen, rays, SAMPLES, dev)
+        got = ipe_encode(*args)
+        want = ipe_encode_reference(*args, "cone", True, torch.bfloat16)
+        torch.cuda.synchronize()
+        for part, g, w in zip(("ipe", "dirs"), got, want):
+            tag = f"{part} {rays} rays x {SAMPLES}"
+            if g.shape != w.shape or g.dtype != torch.bfloat16:
+                fail(f"ipe_encode's {tag}: {tuple(g.shape)} {g.dtype}, "
+                     f"expected {tuple(w.shape)} bfloat16")
+            ulps = _bf16_ulps(torch, g, w)
+            share = (ulps == 0).double().mean().item()
+            most = ulps.max().item()
+            worst = max(worst, (g.float() - w.float()).abs().max().item())
+            ok = (torch.isfinite(g).all().item()
+                  and share >= ENCODE_EQUAL_SHARE and most <= 1)
+            print(f"[encode] {tag}: equal {share:.6f} (gate "
+                  f"{ENCODE_EQUAL_SHARE}), max {most} bf16 ulp (gate 1) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"ipe_encode disagrees with its plain version ({tag})")
+        ms = _replayed_ms(torch, lambda: ipe_encode(*args))
+        plain = _replayed_ms(torch, lambda: ipe_encode_reference(
+            *args, "cone", True, torch.bfloat16))
+        bound = encode_bound_ms(rays, SAMPLES)[0]
+        print(f"[encode] {rays * SAMPLES} rows: kernel {ms:.4f} ms (bound "
+              f"{bound:.4f} ms by bytes), plain {plain:.3f} ms (graph "
+              f"replays of 10 calls, CUDA-event medians of {TIMING_REPS})",
+              flush=True)
+        timing[rays * SAMPLES] = (ms, plain)
     return worst, timing
 
 
@@ -2110,6 +2221,14 @@ def _kn(cfg, base, times=1):
     return out
 
 
+def _enc(cfg, times=1):
+    """The encode kernel's launches (``kernels/encode.py``) when ``cfg``'s
+    two network evaluations each take ``times`` calls through a kernel fed
+    IPE rows (the training kernels, or ``render_kernel_variant: mlp``):
+    {launch-count name: launches}, one name for every width."""
+    return {"ipe_encode" + _sfx(cfg): 2 * times}
+
+
 def _only_dtype(launches, sfx, tag):
     """Fail if a run launched a kernel of the other compute dtype."""
     other = {k: v for k, v in launches.items()
@@ -2269,7 +2388,8 @@ def phase_graph_vs_eager(torch, tag="graph", opts=(), steps=GRAPH_STEPS):
                     if LAUNCHES[k] != before[k]}
         per_net = per_step // 2 * steps
         if launched != {**_kn(cfg, "fused_mlp_fwd_stash", per_net),
-                        **_kn(cfg, "fused_mlp_bwd", per_net)}:
+                        **_kn(cfg, "fused_mlp_bwd", per_net),
+                        **_enc(cfg, per_net)}:
             fail(f"{tag}: {steps} {mode} steps counted {launched}, expected "
                  f"{per_step} of each training kernel per step")
         adam = [state.optimizer.state[p][key] for p in pipe.parameters()
@@ -2355,7 +2475,9 @@ def phase_profile_steps(logroot, tag="profile-steps"):
         fail(f"{tag}: no trace file ({trace.group(1) if trace else None})")
     if not digest or not float(digest.group(1)) > 0:
         fail(f"{tag}: the digest shows no device time")
-    steps = PROFILE_ITERS + PROFILE_STEPS  # the profiled steps are steps too
+    # The profiled steps are steps too, twice over: N without the profiler,
+    # then N under it (cli/train.py --profile-steps).
+    steps = PROFILE_ITERS + 2 * PROFILE_STEPS
     if not os.path.isfile(os.path.join(logroot, "profiled",
                                        f"checkpoint_{steps}.ckpt")):
         fail(f"{tag}: no checkpoint_{steps}.ckpt: the profiled steps must "
@@ -2437,7 +2559,7 @@ def phase_video_main_path(logdir, tag="video", frames_wanted=VIDEO_FRAMES,
     per_net = chunks * frames_wanted  # each network once per chunk
     sfx = _sfx(cfg)
     runs = {}
-    b1 = _kn(cfg, "fused_mlp_fwd", per_net)
+    b1 = {**_kn(cfg, "fused_mlp_fwd", per_net), **_enc(cfg, per_net)}
     b3 = _kn(cfg, "fused_enc_mlp_fwd", per_net)
     for variant, path, kernel, other in (("ipe2", sibling, b3, b1),
                                          ("mlp", logdir, b1, b3)):
@@ -2576,7 +2698,8 @@ def phase_frame(torch, tag="frame", opts=()):
     pose = _pose()
     chunks = -(-FRAME * FRAME // cfg.nerf.validation.chunksize)
     # name -> (pallas_mlp, render_kernel_variant, the kernel it launches)
-    paths = {"kernel": ("auto", "mlp", _kn(cfg, "fused_mlp_fwd", chunks)),
+    paths = {"kernel": ("auto", "mlp", {**_kn(cfg, "fused_mlp_fwd", chunks),
+                                        **_enc(cfg, chunks)}),
              "ipe2": ("auto", "ipe2", _kn(cfg, "fused_enc_mlp_fwd", chunks)),
              "plain": ("off", "mlp", {})}
     renderers = {}
@@ -2682,8 +2805,9 @@ def phase_step_gradients(torch, tag, opts, config=CONFIG):
 
     loss_k, launched_k, kernel = gradients(None)
     loss_p, launched_p, plain = gradients(ref.fused_mlp_backward_reference)
-    if launched_k != {"fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2} or \
-            launched_p != {"fused_mlp_fwd_stash": 2}:
+    if launched_k != {"fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2,
+                      "ipe_encode": 2} or \
+            launched_p != {"fused_mlp_fwd_stash": 2, "ipe_encode": 2}:
         fail(f"{tag}: the step launched {launched_k} (kernel backward) and "
              f"{launched_p} (plain backward)")
     if loss_k != loss_p:
@@ -2727,7 +2851,8 @@ def _frame_vs_plain(cfg, tag, what, logdir=None):
     rgbs = {view: {} for view in views}
     for name, policy, variant, kernel in (
             ("plain", "off", "mlp", {}),
-            ("kernel", "auto", "mlp", _kn(cfg, "fused_mlp_fwd")),
+            ("kernel", "auto", "mlp", {**_kn(cfg, "fused_mlp_fwd"),
+                                       **_enc(cfg)}),
             ("ipe2", "auto", "ipe2", _kn(cfg, "fused_enc_mlp_fwd"))):
         c = cfg.replace_at("parallel.pallas_mlp", policy).replace_at(
             "parallel.render_kernel_variant", variant)
@@ -3388,13 +3513,17 @@ def phase_gloo_two_ranks(torch, logroot, tag="gloo-2"):
         if res["forbidden"]:
             fail(f"{tag}: rank {r} imported {res['forbidden']}")
         want = {"fused_mlp_fwd_stash": 2 * GLOO_ITERS,
-                "fused_mlp_bwd": 2 * GLOO_ITERS}
+                "fused_mlp_bwd": 2 * GLOO_ITERS,
+                "ipe_encode": 2 * GLOO_ITERS}
         for what in ("steps_False", "steps_True"):
             if res[what]["launches"] != want:
                 fail(f"{tag}: rank {r} launched {res[what]['launches']} in "
                      f"{GLOO_ITERS} steps ({what}), expected {want}")
-        if {k: v for k, v in res["loop"].items()
-                if k != "fused_mlp_fwd"} != want:
+        # Validation encodes once per forward launch besides the steps.
+        loop = {k: v for k, v in res["loop"].items() if k != "fused_mlp_fwd"}
+        loop["ipe_encode"] = loop.get("ipe_encode", 0) - res["loop"].get(
+            "fused_mlp_fwd", 0)
+        if loop != want:
             fail(f"{tag}: rank {r}'s loop launched {res['loop']}")
 
     # One process on the same global batches.
@@ -3631,10 +3760,12 @@ def phase_render_two_ranks(logroot, logdir, mip_logdir, ndc_logdir,
 
     c_mlp, c_mip = chunks(logdir, VIDEO_HW), chunks(mip_logdir, VIDEO_HW)
     c_ndc = chunks(ndc_logdir, NDC_HW)
-    want = {"eval": {"fused_mlp_fwd": 2 * c_mip * 2},
-            "mlp": {"fused_mlp_fwd": 2 * c_mlp * frames},
+    want = {"eval": {"fused_mlp_fwd": 2 * c_mip * 2,
+                     "ipe_encode": 2 * c_mip * 2},
+            "mlp": {"fused_mlp_fwd": 2 * c_mlp * frames,
+                    "ipe_encode": 2 * c_mlp * frames},
             "ipe2": {"fused_enc_mlp_fwd": 2 * c_mlp * frames},
-            "ndc": {"fused_mlp_fwd": 2 * c_ndc}}
+            "ndc": {"fused_mlp_fwd": 2 * c_ndc, "ipe_encode": 2 * c_ndc}}
     for r, got in enumerate(nonzero):
         if got != want:
             fail(f"{tag}: rank {r} launched {got}, expected {want}")
@@ -3682,6 +3813,7 @@ def main():
     phase_build()
     max_err, timing = phase_kernel(torch)
     enc_err, enc_timing = phase_enc_kernel(torch)
+    encode_err, encode_timing = phase_encode_kernel(torch)
     fused_library = phase_fused_library(torch)
     train_err, train_timing = phase_train_kernels(torch)
     width_err = phase_widths(torch)
@@ -3705,9 +3837,9 @@ def main():
                                       f.read(), re.S).group(1))
         chunks = -(-VIDEO_HW[0] * VIDEO_HW[1] // chunksize)
         if {k: v for k, v in mip_eval.items() if v} != {
-                "fused_mlp_fwd": 2 * chunks * 2}:
+                "fused_mlp_fwd": 2 * chunks * 2, "ipe_encode": 2 * chunks * 2}:
             fail(f"mip-NeRF eval launched {mip_eval}, expected "
-                 f"{2 * chunks * 2} of fused_mlp_fwd only")
+                 f"{2 * chunks * 2} of fused_mlp_fwd and ipe_encode only")
         mip_video = phase_video_main_path(mip_logdir, "mip-video")
         ndc_launches, ndc_scene = phase_ndc_main_path(logroot)
         # The training kernels against plain on that path's own batches.
@@ -3904,6 +4036,14 @@ def main():
                     if "enc" in name else "ddnerf_tpu/kernels/fused_mlp.py:464")
         rows.append((name, wide_cu, replaces, total[name],
                      wide_plan_err[name], *wide_plan_times[name]))
+    # The encode kernel (phase 3d's times on a render chunk), which
+    # replaces the XLA fusion of the same operations: no TPU kernel, no
+    # library product.
+    bounds["ipe_encode"] = encode_bound_ms(CHUNK_RAYS, SAMPLES)
+    rows.append(("ipe_encode", "ddnerf_tpu_torch/kernels/csrc/ipe_encode.cu",
+                 "none (XLA's fusion of ddnerf_tpu/core/math.py:90 and :189)",
+                 total["ipe_encode"], encode_err,
+                 *encode_timing[CHUNK_RAYS * SAMPLES], None))
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": count, "max_abs_err": err, "ms": t, "plain_ms": plain_t,

@@ -235,6 +235,12 @@ def _load(flags: tuple) -> ctypes.CDLL:
         *offs, ptr,  # w_off, b_off, stream
     ]
     lib.ddnerf_wide_bwd.restype = i32
+    # The encode stage (ipe_encode.cu): t_vals, origins, directions, radii,
+    # viewdirs, each with its row stride; ipe, dirs; n, samples, cone,
+    # double_angle, f32; stream.
+    lib.ddnerf_ipe_encode.argtypes = [
+        *[ptr, i64] * 5, ptr, ptr, i64, i32, i32, i32, i32, ptr]
+    lib.ddnerf_ipe_encode.restype = i32
     lib.ddnerf_cuda_error_string.argtypes = [i32]
     lib.ddnerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

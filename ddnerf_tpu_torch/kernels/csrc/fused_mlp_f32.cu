@@ -323,14 +323,7 @@ struct FSmem {
 // wrap(y) = |y| < 100 pi ? y : floor-mod(y, 100 pi) (safe_sin's reduction,
 // exact with fmodf; the accurate libdevice sinf / expf, no fast math).  An
 // item is (row, coordinate, half of the levels); rows past n are zero.
-__device__ __forceinline__ float wrap_trig(float y) {
-  constexpr float T = 314.159265358979323846f;  // (float)(100 pi)
-  if (fabsf(y) < T) return y;
-  float m = fmodf(y, T);
-  if (m < 0.f) m += T;
-  return m;
-}
-
+// wrap is hopper_common.cuh's wrap_trig.
 template <int BM>
 __device__ __forceinline__ void encode_tile(const FParams& p,
                                             unsigned char* ipe, long long r0,

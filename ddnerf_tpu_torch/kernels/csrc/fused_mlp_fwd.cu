@@ -209,14 +209,7 @@ struct Smem {
 // LPI levels unrolled,
 // scaling y by 2 and v by 4 per level (exact, so the values are those of
 // x * 2^l and cov * 4^l): LPI independent expf / sinf chains in flight
-// instead of one.
-__device__ __forceinline__ float wrap_trig(float y) {
-  constexpr float T = 314.159265358979323846f;  // (float)(100 pi)
-  if (fabsf(y) < T) return y;
-  float m = fmodf(y, T);
-  if (m < 0.f) m += T;
-  return m;
-}
+// instead of one.  wrap is hopper_common.cuh's wrap_trig.
 
 // Element (row r, column c) of an IPE tile of BM rows.
 template <int BM>

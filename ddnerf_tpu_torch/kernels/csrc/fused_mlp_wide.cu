@@ -1117,15 +1117,7 @@ __global__ void wide_dir_proj_kernel(const T* dirs, const T* wdirs,
 // per (row, coordinate j) climbing the 16 levels by exact scalings:
 //   ipe[r, l*3 + j] = att * sin(wrap(y)), ipe[r, 48 + l*3 + j] = att *
 //   sin(wrap(y + pi/2)), y = x_j 2^l, att = exp(-cov_j 4^l / 2),
-// in the compute dtype.
-__device__ __forceinline__ float wrap_trig(float y) {
-  constexpr float T = 314.159265358979323846f;  // (float)(100 pi)
-  if (fabsf(y) < T) return y;
-  float m = fmodf(y, T);
-  if (m < 0.f) m += T;
-  return m;
-}
-
+// in the compute dtype (wrap: hopper_common.cuh's wrap_trig).
 template <typename T>
 __global__ void wide_encode_kernel(const float* means, const float* covs,
                                    long long n, T* ipe) {

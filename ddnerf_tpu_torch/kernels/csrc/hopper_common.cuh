@@ -2,7 +2,8 @@
 // fused_mlp_bwd.cu): mbarriers, TMA tile loads and stores, the proxy fence,
 // named barriers, the shared-memory matrix descriptors of the 128-byte
 // swizzle (K-major and MN-major), and the warpgroup product wgmma.mma_async
-// m64nNk16 (bf16 x bf16 -> f32) for the output widths the network needs.
+// m64nNk16 (bf16 x bf16 -> f32) for the output widths the network needs,
+// and safe_sin's reduction of the kernels that encode IPE rows.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap: types only, libcuda is not linked
@@ -447,6 +448,21 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int rank,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
+
+// ------------------------------------------------------------ IPE encoding
+
+// safe_sin's reduction (core/math.py::_wrap), shared by every kernel that
+// encodes IPE rows: |y| < 100 pi ? y : floor-mod(y, 100 pi), as fmodf plus
+// a sign fix (exact; what torch.remainder and jnp.remainder compute).
+__device__ __forceinline__ float wrap_trig(float y) {
+  constexpr float T = 314.159265358979323846f;  // (float)(100 pi)
+  if (fabsf(y) < T) return y;
+  float m = fmodf(y, T);
+  if (m < 0.f) m += T;
+  return m;
+}
+
+// ------------------------------------------------------------ device (host)
 
 // The current device's SM count, asked of the runtime once per process.
 inline cudaError_t sm_count(int* sms) {

@@ -26,10 +26,17 @@ selects, per direction:
 * ``mode="validation"`` / ``"render"``: under ``render``, ``auto`` and
   ``all`` (as ``_use_pallas``) the forward kernel that
   ``parallel.render_kernel_variant`` selects: ``mlp``, the render-mode
-  forward fed the IPE computed in torch; ``ipe2``, the forward that
+  forward fed IPE rows; ``ipe2``, the forward that
   computes the direct-form IPE itself from raw means and covariances
   (:func:`~ddnerf_tpu_torch.kernels.fused_mlp.fused_enc_mlp_forward`,
   forward only, so training never takes it).  Else the plain module.
+
+Where a kernel is fed IPE rows (the training kernels, and ``mlp``), one
+launch of the encode kernel (``kernels/encode.py``) makes them and the
+view-direction rows from the fenceposts and the rays, in the compute
+dtype.  The plain module takes that kernel's plain version, the
+composition of ``core/math.py``'s functions; ``ipe2`` takes the means,
+covariances and dirs rows from ``core/math.py``.
 
 ``render_kernel_variant`` (``mlp | ipe2``) and ``ipe_variant`` (``stack |
 fused``, and ``fused`` not with ``ipe_transposed``) are checked at
@@ -79,6 +86,7 @@ import torch
 from ddnerf_tpu_torch.config import Config
 from ddnerf_tpu_torch.core import math as mmath
 from ddnerf_tpu_torch.core import dd, rendering, sampling
+from ddnerf_tpu_torch.kernels.encode import ipe_encode, ipe_encode_reference
 from ddnerf_tpu_torch.kernels.fused_mlp import (
     fused_enc_mlp_forward,
     fused_mlp_forward,
@@ -249,33 +257,38 @@ class NerfPipeline:
     def _run_network(self, net, rays: RayBatch, t_vals,
                      mode: str) -> torch.Tensor:
         """cast_rays → IPE → viewdir PE → MLP: ``[N, S, 4|6]``.  The span
-        ``ddnerf.pipeline.encode`` holds what comes before the network, up to
-        the kernel call (on a card the cast of the IPE rows to the compute
-        dtype included), ``ddnerf.pipeline.mlp`` the kernel or the plain
-        network."""
+        ``ddnerf.pipeline.encode`` holds what comes before the network: on
+        the kernel paths fed IPE rows, one launch of the encode kernel
+        (:func:`~ddnerf_tpu_torch.kernels.encode.ipe_encode`, rows in the
+        compute dtype); ``ipe2`` the means, covariances and dirs rows its
+        kernel reads; the plain network the kernel's plain version
+        (:func:`~ddnerf_tpu_torch.kernels.encode.ipe_encode_reference`, f32).
+        ``ddnerf.pipeline.mlp`` holds the kernel or the plain network."""
         kernel = self.use_train_kernel if mode == "train" else self.use_kernel
         # ipe2: the IPE is computed inside the kernel (JAX
         # models/nerf.py:677-703).
         in_kernel_ipe = (mode != "train" and self.use_kernel
                          and self.render_variant == "ipe2")
+        n, s = t_vals.shape[0], t_vals.shape[-1] - 1
+        encode_args = (t_vals, rays.origins, rays.directions, rays.radii,
+                       rays.viewdirs, self.cfg.nerf.ray_shape,
+                       self.cfg.parallel.ipe_double_angle)
         with span("ddnerf.pipeline.encode"):
-            means, covs = mmath.cast_rays(t_vals, rays.origins, rays.directions,
-                                          rays.radii, self.cfg.nerf.ray_shape)
-            dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
-            n, s = means.shape[0], means.shape[1]
-            if not in_kernel_ipe:
-                ipe = mmath.integrated_pos_enc(
-                    (means, covs), double_angle=self.cfg.parallel.ipe_double_angle)
-                if kernel:
-                    ipe = ipe.reshape(n * s, -1)
-                    if ipe.is_cuda:  # the kernels' operands
-                        ipe = ipe.to(net.compute_dtype)
+            if in_kernel_ipe:
+                means, covs = mmath.cast_rays(t_vals, rays.origins,
+                                              rays.directions, rays.radii,
+                                              self.cfg.nerf.ray_shape)
+                dirs = mmath.positional_encoding(rays.viewdirs, num_freqs=4)
+            elif kernel:
+                ipe, dirs = ipe_encode(*encode_args, net.compute_dtype)
+            else:
+                ipe, dirs = ipe_encode_reference(*encode_args)
         with span("ddnerf.pipeline.mlp"):
             if in_kernel_ipe:
                 flat = fused_enc_mlp_forward(net, means.reshape(n * s, 3),
                                              covs.reshape(n * s, 3), dirs, s)
             elif not kernel:
-                return net(ipe, dirs)
+                return net(ipe.reshape(n, s, -1), dirs)
             elif mode == "train":
                 flat = fused_mlp_train_apply(
                     net, ipe, dirs, s, self.cfg.parallel.kernel_per_ray_dirs)

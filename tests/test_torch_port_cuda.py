@@ -497,7 +497,8 @@ def test_mipnerf_step_sums_two_kernel_backwards_on_the_shared_net(
 
     pipe, state, metrics, launched = step(False)
     assert launched == {**dict.fromkeys(fk.LAUNCHES, 0),
-                        "fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2}
+                        "fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2,
+                        "ipe_encode": 2}
     assert packs == [pipe.coarse]  # one pack served both cycles and B2
     train_step(cfg, pipe, state, batch)
     assert packs == [pipe.coarse] * 2  # Adam changed the weights: repacked
@@ -529,10 +530,10 @@ def test_ndc_frame_through_kernel_matches_plain(device):
     pose = np.eye(4, dtype=np.float32)[:3]
     pose[:, 3] = [0.1, -0.05, 0.2]
     maps = {}
-    for name, policy, variant, kernel in (
-            ("mlp", "auto", "mlp", "fused_mlp_fwd"),
-            ("ipe2", "auto", "ipe2", "fused_enc_mlp_fwd"),
-            ("plain", "off", "mlp", None)):
+    for name, policy, variant, kernels in (
+            ("mlp", "auto", "mlp", {"fused_mlp_fwd": 2, "ipe_encode": 2}),
+            ("ipe2", "auto", "ipe2", {"fused_enc_mlp_fwd": 2}),
+            ("plain", "off", "mlp", {})):
         cfg = base.replace_at("parallel.pallas_mlp", policy).replace_at(
             "parallel.render_kernel_variant", variant)
         before = dict(fk.LAUNCHES)
@@ -541,7 +542,7 @@ def test_ndc_frame_through_kernel_matches_plain(device):
             pose, 48, 40, 50.0)
         launched = {k: fk.LAUNCHES[k] - before[k] for k in before
                     if fk.LAUNCHES[k] != before[k]}
-        assert launched == ({kernel: 2} if kernel else {})
+        assert launched == kernels
     for name in ("mlp", "ipe2"):
         for i in (0, 1):
             assert np.isfinite(maps[name][i]["rgb"]).all()
@@ -633,7 +634,7 @@ def test_captured_step_equals_eager_step_bitwise(device, nerf_type):
     assert launched["graph"] == launched["eager"] == {
         **dict.fromkeys(fk.LAUNCHES, 0),
         "fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
-        "fused_mlp_bwd": 2 * GRAPH_STEPS}
+        "fused_mlp_bwd": 2 * GRAPH_STEPS, "ipe_encode": 2 * GRAPH_STEPS}
     assert ("dp_loss" in names) == (nerf_type == "DDNerfModel")
     assert torch.isfinite(rows["eager"]).all()
     for j, name in enumerate(names):
@@ -874,7 +875,7 @@ def test_f32_pipeline_trains_through_the_f32_kernels(device):
     torch.cuda.synchronize()
     assert {k: fk.LAUNCHES[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0), "fused_mlp_fwd_stash_f32": 2,
-        "fused_mlp_bwd_f32": 2}
+        "fused_mlp_bwd_f32": 2, "ipe_encode_f32": 2}
     assert torch.isfinite(metrics["loss"])
     assert all(torch.isfinite(p.grad).all() for p in pipe.parameters())
 
