@@ -35,11 +35,15 @@ right as long as everything the graph reads or writes outside its pool
 stays where it was: the parameters, the inputs the caller made outside the
 capture, and the graph object itself, which owns the pool.  The weight pack
 is made inside the graph at every step (:func:`_packed`), since a replay
-runs no Python that could notice a changed parameter.
+runs no Python that could notice a changed parameter.  A renderer that
+replays one graph per chunk packs once a frame instead: its own small
+graph makes the pack, and the chunk graphs, captured under
+:func:`held_packs`, read that pack's buffers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, NamedTuple, Optional
 
@@ -332,9 +336,14 @@ def _packed(net) -> KernelWeights:
     the first call of a capture packs inside the graph, into the graph's
     own buffers, and the later calls of the same step share that pack.  A
     replay changes the parameters without moving their version counters:
-    whoever replays a graph calls :func:`forget_packed` afterwards."""
+    whoever replays a graph calls :func:`forget_packed` afterwards.  A
+    pack held for the network (:func:`held_packs`) is read instead while a
+    graph is captured."""
     capturing = (net.fc_feat.weight.is_cuda
                  and torch.cuda.is_current_stream_capturing())
+    held = getattr(net, "_fused_mlp_held", None)
+    if capturing and held is not None:
+        return held
     key = (capturing,
            tuple((p.data_ptr(), p._version) for _, p in _named_params(net)))
     cached = getattr(net, "_fused_mlp_pack", None)
@@ -349,6 +358,21 @@ def forget_packed(net) -> None:
     version counter sees it (a CUDA-graph replay), or the pack lives in a
     graph's pool and must not be read from outside."""
     net._fused_mlp_pack = None
+
+
+@contextlib.contextmanager
+def held_packs(packs: Dict[object, KernelWeights]):
+    """Within the scope, a CUDA-graph capture of a call on each network of
+    ``packs`` reads the pack given for it, which the caller keeps alive and
+    refreshes before every replay (a graph of its own that runs
+    :func:`pack_weights` into those buffers)."""
+    for net, kw in packs.items():
+        net._fused_mlp_held = kw
+    try:
+        yield
+    finally:
+        for net in packs:
+            net._fused_mlp_held = None
 
 
 def _check_net(net, device) -> None:

@@ -18,6 +18,12 @@ their ray counts (renderer.py:537-543); mip-NeRF has none of those and
 validates with the image maps alone.  The JAX renderer's packed fetch and its one-frame
 dispatch lookahead serve its host link and are not carried over.
 
+On one CUDA device, ``mode="render"`` replays each chunk as a captured CUDA
+graph, one per chunk shape (``render/graphs.py``), so that a frame is a few
+replays and copies a chunk rather than ≈ 185 eager launches; the maps are
+the eager chunks', bit for bit.  ``mode="validation"``, the CPU and a
+sharded render run the chunks eagerly.
+
 On a data-parallel group (``pipeline.mesh``, ``parallel/mesh.py``) each
 chunk's rays are split over the ranks, as the JAX renderer shards each
 chunk over its mesh (renderer.py:316-411, 486-505): rank r renders rows
@@ -46,6 +52,7 @@ from ddnerf_tpu_torch.core.rays import (
     ndc_mipnerf_rays_device,
 )
 from ddnerf_tpu_torch.models.nerf import NerfPipeline, RayBatch, ScheduleValues
+from ddnerf_tpu_torch.render.graphs import ChunkGraphs, chunk_plan, collect
 from ddnerf_tpu_torch.utils.profiling import FRAME_ROOT, span
 
 # The maps a render returns (the JAX renderer's DEFAULT_KEYS; a map the
@@ -87,6 +94,17 @@ class ImageRenderer:
         self.keys = (VALIDATION_KEYS if mode == "validation"
                      and cfg.is_ddnerf() else MAP_KEYS)
         self.chunk = cfg.nerf.validation.chunksize
+        mc = cfg.nerf.mode(mode)
+        self._graphs = (ChunkGraphs(pipeline, mode, bool(
+            mc.perturb or mc.radiance_field_noise_std > 0))
+            if mode == "render" else None)
+        self._generator: Optional[torch.Generator] = None
+
+    def drop_graphs(self) -> None:
+        """Forget the captured chunk graphs: the next frame captures them
+        anew, with the tracer as it is then."""
+        if self._graphs is not None:
+            self._graphs.drop()
 
     def render_flat(self, origins, directions, radii,
                     generator: Optional[torch.Generator] = None,
@@ -96,29 +114,55 @@ class ImageRenderer:
         """Render ``N`` rays (device tensors ``[N, 3]``, ``[N, 3]``,
         ``[N, 1]``) chunk by chunk -> per-cycle ``[N(, C)]`` device maps
         and 0-d scalars, of ``keys`` (default: the mode's maps)."""
-        if sched is None:
-            sched = ScheduleValues.for_eval(self.cfg)
-        keys = self.keys if keys is None else keys
         mesh = self.pipeline.mesh
         if mesh is not None and mesh.sharded:
+            sched, keys = self._defaults(sched, keys)
             return self._render_flat_sharded(origins, directions, radii,
                                              generator, sched, keys)
+        if self._graphs is None or not origins.is_cuda:
+            return self._render_flat_eager(origins, directions, radii,
+                                           generator, sched, keys)
+        sched, keys = self._defaults(sched, keys)
+        n = origins.shape[0]
+        parts = self._graphs.run(self._chunk, origins, directions, radii,
+                                 generator, sched, keys,
+                                 chunk_plan(n, self.chunk))
+        return self._assemble(parts, n)
+
+    def _defaults(self, sched: Optional[ScheduleValues],
+                  keys: Optional[Sequence[str]]):
+        return (ScheduleValues.for_eval(self.cfg) if sched is None else sched,
+                tuple(self.keys if keys is None else keys))
+
+    def _chunk(self, origins, directions, radii, generator,
+               sched: ScheduleValues, keys: Sequence[str]):
+        """One chunk's maps of ``keys`` (the span ``ddnerf.render.chunk``):
+        what the eager path runs and a chunk graph records."""
         ds = self.cfg.dataset
+        with span("ddnerf.render.chunk"):
+            rays = RayBatch.create(origins, directions, radii, ds.near, ds.far)
+            out = self.pipeline.render_rays(rays, sched, self.mode, generator)
+            return {i: {key: out[i][key] for key in keys
+                        if out[i].get(key) is not None} for i in (0, 1)}
+
+    def _render_flat_eager(self, origins, directions, radii,
+                           generator: Optional[torch.Generator] = None,
+                           sched: Optional[ScheduleValues] = None,
+                           keys: Optional[Sequence[str]] = None,
+                           ) -> Dict[int, Dict[str, torch.Tensor]]:
+        """:meth:`render_flat` on one device, its chunks run eagerly."""
+        sched, keys = self._defaults(sched, keys)
         n = origins.shape[0]
         parts: Dict[int, Dict[str, list]] = {0: {}, 1: {}}
-        for start in range(0, n, self.chunk):
-            sl = slice(start, min(start + self.chunk, n))
-            with span("ddnerf.render.chunk"):
-                rays = RayBatch.create(origins[sl], directions[sl], radii[sl],
-                                       ds.near, ds.far)
-                out = self.pipeline.render_rays(rays, sched, self.mode,
-                                                generator)
-                for i in (0, 1):
-                    for key in keys:
-                        v = out[i].get(key)
-                        if v is not None:
-                            parts[i].setdefault(key, []).append(
-                                v * (sl.stop - sl.start) if v.dim() == 0 else v)
+        for start, stop in chunk_plan(n, self.chunk):
+            collect(parts, self._chunk(origins[start:stop],
+                                       directions[start:stop],
+                                       radii[start:stop], generator, sched,
+                                       keys), stop - start)
+        return self._assemble(parts, n)
+
+    @staticmethod
+    def _assemble(parts, n: int) -> Dict[int, Dict[str, torch.Tensor]]:
         with span("ddnerf.render.assemble"):
             return {i: {k: (torch.stack(v).sum() / n if v[0].dim() == 0
                             else torch.cat(v))
@@ -197,11 +241,14 @@ class ImageRenderer:
     def _render_pose(self, pose, h, w, focal, generator, sched, keys=None):
         """Rays of the pose, generated (and, under ``dataset.ndc_rays``,
         NDC-projected: ``ddnerf_tpu/render/renderer.py:350-354``) on the
-        device, rendered flat.  Without a generator, one seeded with 0 is
-        used per image (the JAX renderer's ``PRNGKey(0)``)."""
+        device, rendered flat.  Without a generator, the renderer's own is
+        seeded with 0 for every image (the JAX renderer's ``PRNGKey(0)``):
+        one object, which the chunk graphs can hold registered."""
         dev = self.pipeline.device
         if generator is None:
-            generator = torch.Generator(device=dev).manual_seed(0)
+            if self._generator is None:
+                self._generator = torch.Generator(device=dev)
+            generator = self._generator.manual_seed(0)
         with span("ddnerf.render.rays"):
             ro, rd, radii = get_ray_bundle(h, w, float(focal), pose, device=dev)
             if self.cfg.dataset.ndc_rays:

@@ -56,11 +56,16 @@ def _profile_frames(renderer: ImageRenderer, poses, h: int, w: int, focal,
     ms from CUDA events, host ms), then as many under ``torch.profiler``,
     its Chrome trace (with the tracer's spans) under
     ``logdir/plugins/profile/`` and its digest printed.  Every rank renders;
-    rank 0 (``primary``) alone prints and traces."""
+    rank 0 (``primary``) alone prints and traces.  On a card the chunk
+    graphs are dropped when the tracer goes live, so that the first traced
+    frame captures them with their stage events (the capture and the
+    replays by stage in the table), and again after, so that the video's
+    frames replay graphs without them."""
     poses = [poses[i % len(poses)] for i in range(frames)]
     renderer.render_video_frame_from_pose(poses[0], h, w, focal, sched)
     profiling.enable()
     profiling.reset()
+    renderer.drop_graphs()
     try:
         for profiled in (False, True):
             with profiling.trace(logdir, enable=primary and profiled) as prof:
@@ -72,6 +77,7 @@ def _profile_frames(renderer: ImageRenderer, poses, h: int, w: int, focal,
                                             profiling.FRAME_ROOT), flush=True)
     finally:
         profiling.disable()
+        renderer.drop_graphs()
     if prof is not None:
         print(f"[profile] trace of {frames} frames: {prof.trace_path}")
         print(profiling.summarize(prof, frames, unit="frame"), flush=True)

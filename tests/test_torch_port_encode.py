@@ -267,9 +267,11 @@ def _launches(name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("model", ["DDNerfModel", "GeneralMipNerfModel"])
 def test_launch_count_rises_once_per_network_call(device, model):
-    """Eagerly: two network calls a render, two launches.  At capture: two
-    captured launches a step, which every replay adds to the launches, as
-    it adds the stash forward's."""
+    """A render: two network calls, two launches (on a card its one chunk
+    is rendered eagerly and then captured for the next frame's replay:
+    two captured launches too).  At capture: two captured launches a step,
+    which every replay adds to the launches, as it adds the stash
+    forward's."""
     from ddnerf_tpu_torch.render.renderer import ImageRenderer
     from ddnerf_tpu_torch.data.synthetic import pose_spherical
     from ddnerf_tpu_torch.train.state import TrainState
@@ -280,7 +282,7 @@ def test_launch_count_rises_once_per_network_call(device, model):
     ImageRenderer(cfg, pipe).render_image_from_pose(
         pose_spherical(30.0, -30.0, 4.0), 32, 24, 30.0)
     torch.cuda.synchronize()
-    assert _launches("ipe_encode") == (before[0] + 2, before[1])
+    assert _launches("ipe_encode") == (before[0] + 2, before[1] + 2)
 
     state = TrainState(cfg, pipe)
     store = torch.rand(2, 64, 10, device=device)
