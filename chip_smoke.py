@@ -178,7 +178,9 @@ product); the last line is
 ``{"ok": true, "device": {...}}``.  A kernel's ``launches`` there is the
 sum over the main paths of phases 5, 5c, 5d, 6, 6b, 9, 10, 11, 12, 13, 15,
 16, 17, 18, 19, 20 and 21's kernel runs (over every rank), each counted
-from 0.  The
+from 0; on every path ``chain_mask_bits`` (the B2 launches whose chain read
+B1s's relu-mask words) must equal ``fused_mlp_bwd`` (the bf16 fused plan's
+B2; the float32 and wide plans count neither).  The
 single-process CLI runs of phases 5-10, 15 and 17-19 are calls of each
 CLI's ``main`` in one worker
 process, one after another, every count set to 0 before each call; the
@@ -896,9 +898,11 @@ def _b2_launch(torch, net, ipe, dirs, g, k, stash, per_ray, lib=None):
                 else lib.ddnerf_fused_mlp_bwd_workspace(n, k, hid))
     ws = torch.zeros(ws_bytes, dtype=torch.uint8, device=dev)
     trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
+    # The bf16 fused plan's chain reads the relu masks' words.
+    bits = () if wide else (stash.bits.contiguous().data_ptr(),)
     args = (ipe_b.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
-            trunk.data_ptr(), h.data_ptr(), kw.w.data_ptr(), gw.data_ptr(),
-            gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
+            trunk.data_ptr(), h.data_ptr(), *bits, kw.w.data_ptr(),
+            gw.data_ptr(), gb.data_ptr(), ws.data_ptr(), ws_bytes, n, k, hid,
             int(net.depth_head), int(per_ray))
     tail = (*fk._offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
     err = (lib.ddnerf_wide_bwd(*args, 0, *tail) if wide
@@ -3984,6 +3988,15 @@ def main():
         idle = [k for k in expected if counts.get(k, 0) <= 0]
         if idle:
             fail(f"the {path} main path never launched {idle}")
+        # Every bf16 fused B2 reads its relu masks from B1s's bit words;
+        # no float32 or wide one does.
+        if counts.get("chain_mask_bits", 0) != counts.get("fused_mlp_bwd", 0):
+            fail(f"the {path} main path counted chain_mask_bits "
+                 f"{counts.get('chain_mask_bits', 0)} times, not as often "
+                 f"as fused_mlp_bwd ({counts.get('fused_mlp_bwd', 0)})")
+    print(f"[launches] chain_mask_bits {total.get('chain_mask_bits', 0)}, "
+          f"fused_mlp_bwd {total.get('fused_mlp_bwd', 0)}: every bf16 fused "
+          "B2 applied the bit-word masks", flush=True)
 
     ms, plain_ms = timing["DepthMipMLP"]
     coarse = train_timing["DepthMipMLP"]

@@ -173,12 +173,17 @@ def _load(flags: tuple) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build(flags).path))
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     offs = [ctypes.POINTER(i64), ctypes.POINTER(i64)]  # w_off, b_off (host)
-    lib.ddnerf_fused_mlp_fwd.argtypes = [
+    # The float32 kernels (fused_mlp_f32.cu): their bfloat16 counterparts'
+    # arguments without the mask bits.
+    lib.ddnerf_fused_mlp_fwd_f32.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, w, b, dproj, out
         ptr, ptr,  # stash, stash_h (null in render mode)
         i64, i32, i32, i32,  # n, samples, hidden, depth_head
         *offs, ptr,  # w_off, b_off, stream
     ]
+    fwd = lib.ddnerf_fused_mlp_fwd_f32.argtypes
+    lib.ddnerf_fused_mlp_fwd.argtypes = [
+        *fwd[:8], ptr, *fwd[8:]]  # bits after stash_h (null in render mode)
     lib.ddnerf_fused_mlp_fwd.restype = i32
     lib.ddnerf_fused_enc_mlp_fwd.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # means, covs, dirs, w, b, dproj, out
@@ -189,16 +194,20 @@ def _load(flags: tuple) -> ctypes.CDLL:
     # n, samples, hidden
     lib.ddnerf_fused_mlp_bwd_workspace.argtypes = [i64, i32, i32]
     lib.ddnerf_fused_mlp_bwd_workspace.restype = i64
-    lib.ddnerf_fused_mlp_bwd.argtypes = [
+    lib.ddnerf_fused_mlp_bwd_f32.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr,  # ipe, dirs, g, stash, stash_h, w
         ptr, ptr, ptr, i64,  # gw, gb, workspace, workspace bytes
         i64, i32, i32, i32, i32,  # n, samples, hidden, depth_head, per_ray
         *offs, ptr,  # w_off, b_off, stream
     ]
+    bwd = lib.ddnerf_fused_mlp_bwd_f32.argtypes
+    lib.ddnerf_fused_mlp_bwd.argtypes = [
+        *bwd[:5], ptr, *bwd[5:]]  # bits after stash_h
     lib.ddnerf_fused_mlp_bwd.restype = i32
-    # The float32 kernels (fused_mlp_f32.cu) take the same arguments.
-    for name in ("fused_mlp_fwd", "fused_enc_mlp_fwd", "fused_mlp_bwd",
-                 "fused_mlp_bwd_workspace"):
+    for name in ("fused_mlp_fwd", "fused_mlp_bwd"):
+        getattr(lib, f"ddnerf_{name}_f32").restype = i32
+    # The float32 kernels take the same arguments as these.
+    for name in ("fused_enc_mlp_fwd", "fused_mlp_bwd_workspace"):
         bf16, f32 = (getattr(lib, f"ddnerf_{name}{sfx}") for sfx in ("", "_f32"))
         f32.argtypes, f32.restype = bf16.argtypes, bf16.restype
     # w (the float32 pack's planes), hidden, w_off, stream

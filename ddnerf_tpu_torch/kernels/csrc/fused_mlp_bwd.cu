@@ -17,8 +17,10 @@
 //   for i = 7..0: g_i = mask(x_i > 0, gx), d_b_i = sum g_i (before rounding),
 //                 d_W_i = x_{i-1}^T bf16(g_i) (layer 0 reads ipe, layer 5
 //                 [ipe | x4]),  gx = bf16(g_i) W_i (x-columns of W5; not at 0)
-// Relu masks come from the bf16 stash; every product is bf16 x bf16 with f32
-// accumulation; no input gradients (ipe and dirs are detached upstream).
+// Relu masks are the stash forward's: the mask bits it writes beside the bf16
+// stash (mask_bits.cuh), set where the stashed value is > 0; every product
+// is bf16 x bf16 with f32 accumulation; no input gradients (ipe and dirs are
+// detached upstream).
 //
 // What bounds it on an H100: tensor-core throughput for the products (the
 // cotangent chain is 10 matmuls per row, the weight gradients another 10),
@@ -38,8 +40,13 @@
 //     as B.  The chain multiplies by the transpose of what the forward
 //     multiplies by: the packed torch [out, in] weights are [k, n] here, so B
 //     is MN-major, TMA boxes of 32 rows x 64 columns cut from the same packed
-//     weights, through an mbarrier ring.  The relu masks are the stash tiles,
-//     fetched by TMA into a second tile while the product they follow runs.
+//     weights, through an mbarrier ring.  The relu masks are the forward's
+//     bit words, laid out in this kernel's own fragment order: each
+//     consumer thread copies its words of a product (16 bytes at width 256:
+//     128 masks) into shared memory with cp.async before the product
+//     starts (h's a tile ahead, under the dir product: the heads' product
+//     is short), so they arrive under it, holding no registers, and no
+//     epilogue waits for them.
 //     An epilogue masks the accumulators, rounds them to bf16 back into the
 //     cotangent tile (the next A operand), stores the tile to its slab with a
 //     TMA store that runs under the next product, and reduces the f32 column
@@ -49,8 +56,8 @@
 //     fused_mlp_fwd.cu: 64-row tiles, both consumers on every row, consumer
 //     w producing columns H/2 w .. H/2 w + H/2 - 1 of each product (of g_h,
 //     64 w .. 64 w + 63), with a barrier of both consumers before and after
-//     each write-back; the tile, the relu-mask tile and a 2- or 4-stage ring
-//     then fit in shared memory.
+//     each write-back; the tile and a 2- or 4-stage ring then fit in shared
+//     memory.
 // (b) wgrad_kernel: act^T g over the row axis for every weight matrix, both
 //     operands MN-major straight from TMA boxes of 64 rows (no transposing
 //     copies), output tiles of 128 x {H, 128} (two consumer warpgroups, m64
@@ -71,6 +78,7 @@
 #include <type_traits>
 
 #include "hopper_common.cuh"
+#include "mask_bits.cuh"
 
 namespace {
 
@@ -97,8 +105,6 @@ constexpr int chain_rows(int hidden) {
 
 struct ChainMaps {
   CUtensorMap w[NLAYER];  // layer l's weights [n_out, k_in], box [KS, 64]
-  CUtensorMap stash;      // [9, n, H], box [1, BM, 64]
-  CUtensorMap stash_h;    // [n, 128], box [BM, 64]
   CUtensorMap gs;         // [n, 64], box [WG_ROWS, 64]
   CUtensorMap gd;         // [n, 128], box [WG_ROWS, 64]
   CUtensorMap gt;         // [9, n, H], box [1, WG_ROWS, 64]
@@ -106,6 +112,7 @@ struct ChainMaps {
 
 struct ChainParams {
   const float* g;   // [n, out_dim]
+  const uint32_t* bits;  // the relu masks' words (mask_bits.cuh)
   float* ghf;       // [n, 128] g_h, f32
   float* bpart;     // [2 tiles, nb] bias-gradient partial rows
   long long n;
@@ -134,11 +141,17 @@ struct Shape {
   static constexpr int RED_W = SPLIT ? NW : WIDE;
   static constexpr int RED_FLOATS = 4 * RED_W + 4 * 32;  // per warpgroup
   static constexpr uint32_t RED_BYTES = 2 * RED_FLOATS * sizeof(float);
+  // Each consumer's mask words of a trunk product and of h (mask_bits.cuh).
+  static constexpr int SLOT_WORDS = MASK_WORDS_MAX + DH / 64;
+  static constexpr uint32_t WORDS_BYTES = 2 * SLOT_WORDS * 512;
   static constexpr uint32_t BAR_BYTES = 128;
   // 1024 spare bytes to start the tiles on a 1024-byte boundary.
-  static constexpr size_t SMEM = 1024 + 2 * ACT_BYTES + GS_BYTES +
-                                 STAGES * STAGE_BYTES + RED_BYTES + BAR_BYTES;
+  static constexpr size_t SMEM = 1024 + ACT_BYTES + GS_BYTES +
+                                 STAGES * STAGE_BYTES + RED_BYTES +
+                                 WORDS_BYTES + BAR_BYTES;
   static_assert(SMEM <= MAX_SMEM, "the plan exceeds a block's shared memory");
+  static_assert(NW / 64 <= MASK_WORDS_MAX && NH / 64 <= MASK_WORDS_MAX,
+                "a consumer's mask words exceed its slots");
   // Product q multiplies the cotangent by layer(q)'s weights, columns col0
   // .. col0 + ncol, in nslices slices of KS rows.
   __host__ __device__ static constexpr int layer(int q) {
@@ -157,27 +170,21 @@ struct Shape {
 };
 
 struct Smem {
-  uint32_t act, mask, gs, ring;                 // tiles
-  uint32_t full, empty, mask_full, mask_empty;  // mbarriers
+  uint32_t act, gs, ring, words;  // tiles, mask words
+  uint32_t full, empty;           // mbarriers
 };
 
-// The producer: every TMA load of this CTA's tiles, in the order the
-// consumers use them: the weight slices as far ahead as the ring allows, and
-// product q's mask tile (h, then x7..x0; the dir product has none) as soon
-// as the epilogue before it has read the previous one, after as many of q's
-// slices as the ring holds, so that the wait never holds back a slice the
-// consumers need first.
+// The producer: every weight slice of this CTA's tiles, in the order the
+// consumers use them, as far ahead as the ring allows.
 template <int H>
 __device__ __forceinline__ void produce(const ChainMaps& maps, const Smem& s,
                                         long long tiles) {
   using S = Shape<H>;
-  uint32_t it = 0, m = 0;
+  uint32_t it = 0;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int row = (int)(tile * S::BM);
 #pragma unroll 1
     for (int q = 0; q < NQ; ++q) {
       const int ns = S::nslices(q), nblk = S::ncol(q) / 64;
-      const int mask_at = (ns < S::STAGES ? ns : S::STAGES) - 1;
       const CUtensorMap* wm = &maps.w[S::layer(q)];
 #pragma unroll 1
       for (int i = 0; i < ns; ++i, ++it) {
@@ -187,19 +194,6 @@ __device__ __forceinline__ void produce(const ChainMaps& maps, const Smem& s,
         for (int b = 0; b < nblk; ++b)
           tma_load_2d(s.ring + stage * S::STAGE_BYTES + b * WBLOCK_BYTES, wm,
                       S::col0(q) + b * 64, i * KS, s.full + 8 * stage);
-        if (i == mask_at && q != 1) {
-          mbar_wait(s.mask_empty, (m & 1) ^ 1);
-          mbar_arrive_expect_tx(s.mask_full, nblk * S::BLOCK_BYTES);
-          for (int b = 0; b < nblk; ++b) {
-            if (q == 0)
-              tma_load_2d(s.mask + b * S::BLOCK_BYTES, &maps.stash_h, b * 64,
-                          row, s.mask_full);
-            else
-              tma_load_3d(s.mask + b * S::BLOCK_BYTES, &maps.stash, b * 64,
-                          row, NQ - 1 - q, s.mask_full);
-          }
-          ++m;
-        }
       }
     }
   }
@@ -281,6 +275,7 @@ template <int H>
 __device__ __forceinline__ void consume(const ChainParams& p,
                                         const ChainMaps& maps, const Smem& s,
                                         unsigned char* smem, float* red,
+                                        const uint32_t* words_sm,
                                         long long tiles, int wg, int tid) {
   using S = Shape<H>;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q4 = lane & 3;
@@ -297,11 +292,21 @@ __device__ __forceinline__ void consume(const ChainParams& p,
   // The rows it multiplies (the A operands).
   const uint32_t act_wg = s.act + rows_at;
   const uint32_t gs_wg = s.gs + rows_at;
-  unsigned char* gs_p = smem + 2 * S::ACT_BYTES + rows_at;
+  unsigned char* gs_p = smem + S::ACT_BYTES + rows_at;
   float* red_small = red + 4 * S::RED_W;
   // The two rows of the warpgroup's 64 whose accumulator elements this
   // thread holds: lrow and lrow + 8 (both are g modulo 8).
   const int lrow = warp * 16 + g;
+  // Where cp_words puts this thread's mask words: of a trunk product word
+  // c at words_sm[128 c], of h at words_sm[128 (MASK_WORDS_MAX + c)].
+  const uint32_t slot = s.words + wg * S::SLOT_WORDS * 512 + 4 * tid;
+  const uint32_t h_slot = slot + MASK_WORDS_MAX * 512;
+  words_sm += wg * S::SLOT_WORDS * 128 + tid;
+  // This thread's words of h in the group of the warpgroup's rows from r.
+  auto h_words = [&](long long r) {
+    return p.bits + (r / MASK_ROWS) * mask_group_words(H) +
+           mask_offset(H, NTRUNK) + tid * (DH / 64) + blk_h;
+  };
 
   // Before a write to the tiles: the TMA stores started by thread 0 must
   // have read them; in the N-split plan the other consumer must also have
@@ -317,29 +322,30 @@ __device__ __forceinline__ void consume(const ChainParams& p,
   };
 
   // The epilogue of a product of width N whose columns start at block
-  // `blk` of the tiles: optional relu mask from the mask tile, the f32
-  // column sums, bf16 rounding back into the cotangent tile.  Returns with
-  // the warp's column sums in red[warp][column].
+  // `blk` of the tiles: optional relu mask from the thread's mask words
+  // (its N / 64 words of the product's mask, copied by cp_words and waited
+  // for), the f32 column sums, bf16 rounding back into the cotangent tile.
+  // Returns with the warp's column sums in red[warp][column].
   auto epilogue = [&](auto& acc, auto width, int blk, bool masked,
-                      float* ghf_rows, const bool (&valid)[2]) {
+                      int word0, float* ghf_rows, const bool (&valid)[2]) {
     constexpr int N = decltype(width)::value;
     unsigned char* act_p = smem + blk * S::BLOCK_BYTES + rows_at;
-    const unsigned char* mask_p = act_p + S::ACT_BYTES;
+    uint32_t m = 0;  // the mask word of the column group
 #pragma unroll
     for (int j = 0; j < N / 8; ++j) {
+      // Row lrow + 8 is 8 * 128 bytes on, in the same swizzle phase.
       const uint32_t off =
           (j / 8) * S::BLOCK_BYTES + swizzle128(lrow, j % 8) + q4 * 4;
+      if (j % 8 == 0 && masked) m = words_sm[128 * (word0 + j / 8)];
       float v[2][2];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         v[half][0] = acc[4 * j + 2 * half];
         v[half][1] = acc[4 * j + 2 * half + 1];
         if (masked) {
-          // Row lrow + 8 is 8 * 128 bytes on, in the same swizzle phase.
-          const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(
-              mask_p + off + half * 1024);
-          v[half][0] = __bfloat162float(m.x) > 0.f ? v[half][0] : 0.f;
-          v[half][1] = __bfloat162float(m.y) > 0.f ? v[half][1] : 0.f;
+          const int k = 2 * (j % 8) + half;
+          v[half][0] = has_bit<0>(m, k) ? v[half][0] : 0.f;
+          v[half][1] = has_bit<1>(m, k) ? v[half][1] : 0.f;
         }
         *reinterpret_cast<__nv_bfloat162*>(act_p + off + half * 1024) =
             __floats2bfloat162_rn(v[half][0], v[half][1]);
@@ -374,12 +380,22 @@ __device__ __forceinline__ void consume(const ChainParams& p,
                red[3 * S::RED_W + c];
   };
 
-  uint32_t it = 0, m = 0;
+  // The first tile's words of h.
+  const long long r_first =
+      (long long)blockIdx.x * S::BM + (S::SPLIT ? 0 : wg * WG_ROWS);
+  if (r_first < p.n) cp_words<S::NH / 64>(h_slot, h_words(r_first));
+  uint32_t it = 0;
   for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     // The warpgroup's first row.
     const long long r0 = tile * S::BM + (S::SPLIT ? 0 : wg * WG_ROWS);
     const bool valid[2] = {r0 + lrow < p.n, r0 + lrow + 8 < p.n};
     const bool store = tid == 0 && r0 < p.n;
+    // The mask words of the warpgroup's 64-row group (mask_bits.cuh); this
+    // thread's of x_m are its NW / 64 from column block blk_w on, of h its
+    // NH / 64 from block blk_h (copied a tile ahead).  A group wholly past n
+    // has none, and needs none: its cotangents are zero.
+    const bool have = r0 < p.n;
+    const uint32_t* group = p.bits + (r0 / MASK_ROWS) * mask_group_words(H);
     // Its partial row of the bias gradients (the N-split plan's consumers
     // share one per tile, each writing its own columns).
     float* bp = p.bpart + (S::SPLIT ? tile : tile * 2 + wg) * p.nb;
@@ -435,13 +451,10 @@ __device__ __forceinline__ void consume(const ChainParams& p,
     {
       float acc[S::NH / 2];
       products<H, S::NH>(acc, 0, 0, gs_wg, blk_h * WBLOCK_BYTES, it, s, lane);
-      mbar_wait(s.mask_full, m & 1);
-      ++m;
       stores_done();
-      epilogue(acc, std::integral_constant<int, S::NH>{}, blk_h, true,
-               p.ghf + (r0 + lrow) * DH + blk_h * 64, valid);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(s.mask_empty);
+      cp_words_wait();
+      epilogue(acc, std::integral_constant<int, S::NH>{}, blk_h, have,
+               MASK_WORDS_MAX, p.ghf + (r0 + lrow) * DH + blk_h * 64, valid);
       publish();
       if (store) {
 #pragma unroll
@@ -463,22 +476,24 @@ __device__ __forceinline__ void consume(const ChainParams& p,
 #pragma unroll 1
       for (int q = 1; q < NQ; ++q) {
         const bool dir = q == 1;
+        const int slab = dir ? NTRUNK : NQ - 1 - q;
+        // The mask of x_slab, copied under the product; under the dir
+        // product, the next tile's words of h.
+        const bool masked = !dir && have;
+        const long long r_next = r0 + (long long)gridDim.x * S::BM;
+        if (masked)
+          cp_words<S::NW / 64>(slot, group + mask_offset(H, slab) +
+                                         tid * (H / 64) + blk_w);
+        else if (dir && r_next < p.n)
+          cp_words<S::NH / 64>(h_slot, h_words(r_next));
         products<H, S::NW>(acc, dir ? DH / KS : H / KS, act_wg,
                            dir ? gs_wg + (GS_ALPHA / 16) * 32 : 0u,
                            blk_w * WBLOCK_BYTES, it, s, lane);
-        if (!dir) {
-          mbar_wait(s.mask_full, m & 1);
-          ++m;
-        }
         stores_done();
-        epilogue(acc, std::integral_constant<int, S::NW>{}, blk_w, !dir,
+        cp_words_wait();
+        epilogue(acc, std::integral_constant<int, S::NW>{}, blk_w, masked, 0,
                  nullptr, valid);
-        if (!dir) {
-          __syncwarp();
-          if (lane == 0) mbar_arrive(s.mask_empty);
-        }
         publish();
-        const int slab = dir ? NTRUNK : NQ - 1 - q;
         if (store) {
 #pragma unroll
           for (int blk = blk_w; blk < blk_w + S::NW / 64; ++blk)
@@ -505,23 +520,20 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   unsigned char* smem = smem_raw + (base - raw);
   Smem s;
   s.act = base;
-  s.mask = s.act + S::ACT_BYTES;
-  s.gs = s.mask + S::ACT_BYTES;
+  s.gs = s.act + S::ACT_BYTES;
   s.ring = s.gs + S::GS_BYTES;
   const uint32_t red_off =
-      2 * S::ACT_BYTES + S::GS_BYTES + S::STAGES * S::STAGE_BYTES;
-  s.full = base + red_off + S::RED_BYTES;
+      S::ACT_BYTES + S::GS_BYTES + S::STAGES * S::STAGE_BYTES;
+  const uint32_t words_off = red_off + S::RED_BYTES;
+  s.words = base + words_off;
+  s.full = s.words + S::WORDS_BYTES;
   s.empty = s.full + 8 * S::STAGES;
-  s.mask_full = s.empty + 8 * S::STAGES;
-  s.mask_empty = s.mask_full + 8;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S::STAGES; ++i) {
       mbar_init(s.full + 8 * i, 1);   // the producer's arrive.expect_tx
       mbar_init(s.empty + 8 * i, 8);  // lane 0 of each consumer warp
     }
-    mbar_init(s.mask_full, 1);
-    mbar_init(s.mask_empty, 8);
     fence_mbar_init();
   }
   __syncthreads();
@@ -533,7 +545,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   } else {
     float* red = reinterpret_cast<float*>(smem + red_off) +
                  (wg - 1) * S::RED_FLOATS;
-    consume<H>(p, maps, s, smem, red, tiles, wg - 1, threadIdx.x - wg * 128);
+    consume<H>(p, maps, s, smem, red,
+               reinterpret_cast<const uint32_t*>(smem + words_off), tiles,
+               wg - 1, threadIdx.x - wg * 128);
   }
 }
 
@@ -1011,19 +1025,20 @@ extern "C" long long ddnerf_fused_mlp_bwd_workspace(long long n, int samples,
 // Parameter gradients of the fused MLP on `stream`.  Device pointers: ipe
 // [n, 96] bf16, dirs [n / samples, 32] bf16 (27 features, zero padded), g
 // [n, 4|6] f32, the forward's stash [9, n, hidden] and stash_h [n, 128]
-// bf16, packed bf16 weights w; outputs gw (f32, laid out as w) and gb (f32,
+// bf16 and its relu masks' words bits (mask_bits.cuh),
+// packed bf16 weights w; outputs gw (f32, laid out as w) and gb (f32,
 // laid out as the packed biases); ws a workspace of
 // ddnerf_fused_mlp_bwd_workspace bytes.  per_ray: the dirs weight gradient
 // rounds the per-ray cotangent sum (1) or each sample's cotangent (0).
 // w_off (12 entries) and b_off (4) are host arrays.  Returns a cudaError_t.
 extern "C" int ddnerf_fused_mlp_bwd(
     const void* ipe, const void* dirs, const void* g, const void* stash,
-    const void* stash_h, const void* w, void* gw, void* gb, void* ws,
-    long long ws_bytes, long long n, int samples, int hidden, int depth_head,
-    int per_ray, const long long* w_off, const long long* b_off,
+    const void* stash_h, const void* bits, const void* w, void* gw, void* gb,
+    void* ws, long long ws_bytes, long long n, int samples, int hidden,
+    int depth_head, int per_ray, const long long* w_off, const long long* b_off,
     void* stream) {
   if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
-  if (!known_width(hidden)) return cudaErrorInvalidValue;
+  if (!known_width(hidden) || bits == nullptr) return cudaErrorInvalidValue;
   // TMA coordinates are 32-bit.
   if (n > 0x7fffffffLL - 2 * WG_ROWS) return cudaErrorInvalidValue;
   int sms = 0;
@@ -1046,6 +1061,7 @@ extern "C" int ddnerf_fused_mlp_bwd(
 
   ChainParams p = {};
   p.g = static_cast<const float*>(g);
+  p.bits = static_cast<const uint32_t*>(bits);
   p.ghf = reinterpret_cast<float*>(base + L.ghf);
   p.bpart = reinterpret_cast<float*>(base + L.bpart);
   p.n = n;
@@ -1053,7 +1069,6 @@ extern "C" int ddnerf_fused_mlp_bwd(
   p.nb = nb;
   for (int i = 0; i < NB_OFF; ++i) p.b_off[i] = b_off[i];
 
-  const int bm = chain_rows(hidden);
   ChainMaps cm = {};
   bool ok = true;
   for (int l = 1; l < NLAYER; ++l) {
@@ -1061,8 +1076,6 @@ extern "C" int ddnerf_fused_mlp_bwd(
     const long long kin = l == SKIP ? IPE + h : (l == L_HEAD ? DH : h);
     ok = ok && map2(&cm.w[l], wp + w_off[l], kin, nout, KS);
   }
-  ok = ok && map3(&cm.stash, stash, h, n, NSLAB, bm);
-  ok = ok && map2(&cm.stash_h, stash_h, DH, n, bm);
   ok = ok && map2(&cm.gs, gs, GS_W, n, WG_ROWS);
   ok = ok && map2(&cm.gd, gd, DH, n, WG_ROWS);
   ok = ok && map3(&cm.gt, gt, h, n, NSLAB, WG_ROWS);

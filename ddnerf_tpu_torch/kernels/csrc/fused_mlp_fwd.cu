@@ -30,7 +30,10 @@
 // port also stashes x7 and feat, as slabs 7 and 8 of the same [9, N, H]
 // buffer, so the backward reads them instead of recomputing them from x6
 // (the values are the same either way).  The stash changes no arithmetic:
-// the outputs are bit-identical to a render-mode launch.
+// the outputs are bit-identical to a render-mode launch.  It also writes
+// the relu masks of x0..x7 and h as bit words (mask_bits.cuh), 1/16 of the
+// bytes of the slabs they stand for, which the backward's cotangent chain
+// applies instead of reading the slabs.
 //
 // What bounds it on an H100: tensor-core throughput.  A row costs
 // 8 H^2 + 321 H + 640 multiply-adds (~0.6 M at width 256, ~2.3 M at 512)
@@ -41,9 +44,9 @@
 // pipes idle through both epilogues (~16%) and through the waits for the
 // weight stream (~8%; every 128-row tile reads all ~1.2 MB of a network's
 // weights from L2).  Stash mode adds 2 * (9 H + 128) bytes of writes per
-// row and is bound by device memory.  ENC mode reads 24 bytes per row
-// instead of the IPE's 192 and spends 48 expf and 96 sinf per row, on warps
-// that would otherwise idle.
+// row, and (8 H + 128) / 8 of mask bits, and is bound by device memory.  ENC
+// mode reads 24 bytes per row instead of the IPE's 192 and spends 48 expf and
+// 96 sinf per row, on warps that would otherwise idle.
 //
 // Design:
 // * Persistent CTAs (one per SM) walk the tiles with a static stride.  A
@@ -91,7 +94,14 @@
 //   runs under the previous tile's products.
 // * Stash mode stores each layer's tile with TMA stores (which undo the
 //   swizzle and drop rows past N); they run under the next layer's products
-//   and are awaited before the next write-back.
+//   and are awaited before the next write-back.  The relu masks' bit words
+//   come from the three idle warps of the producer warpgroup (the packers;
+//   ENC mode's encoders, and ENC never stashes): once a consumer has
+//   published x0..x7 or h (an arrival on act_full), they read the rounded
+//   values back from the activation tile, pack them in the fragment order
+//   of mask_bits.cuh and store the words, and release the tile (act_free),
+//   which the consumer awaits before its next write-back.  The packing runs
+//   under the next layer's products, off the consumers' path.
 // * fc_alpha rides the dir layer as its output column 128 (the merged
 //   [Wd_feat | Wa] matmul of the JAX module path); the per-ray dir
 //   projection comes from a small first kernel into an f32 [N/K, 128]
@@ -102,6 +112,7 @@
 // kernels/fused_mlp.py::pack_weights).
 
 #include "hopper_common.cuh"
+#include "mask_bits.cuh"
 
 namespace {
 
@@ -110,6 +121,7 @@ using namespace ddnerf;
 constexpr int WG_ROWS = 64;       // rows of one wgmma (m64)
 constexpr int NTHREADS = 384;     // producer warpgroup + 2 consumer warpgroups
 constexpr int NENCODERS = 96;     // ENC mode: warps 1..3 of the producer warpgroup
+constexpr int NPACKERS = 3;       // stash mode: the same warps, packing masks
 constexpr int KS = 64;            // k-slice of streamed weights (128 bytes)
 constexpr int MAX_STAGES = 4;
 constexpr int L_FEAT = W_FEAT, L_DIR = W_DIR, L_HEAD = W_HEAD, NLAYER = 11;
@@ -130,6 +142,7 @@ struct Params {
   const float* b;      // packed biases
   const float* dproj;  // [n / samples, 128]
   float* out;          // [n, out_dim]
+  uint32_t* bits;      // stash mode: the relu masks' words (mask_bits.cuh)
   long long n;
   int samples;
   int out_dim;
@@ -157,7 +170,7 @@ struct Shape {
   static constexpr uint32_t ACT_BYTES = ACT_BLOCKS * BLOCK_BYTES;
   static constexpr uint32_t IPE_BYTES = IPE_SLICES * BLOCK_BYTES;
   static constexpr uint32_t STAGE_BYTES = (MAX_NOUT * 128 + 1023) / 1024 * 1024;
-  static constexpr uint32_t BAR_BYTES = 128;  // 2 MAX_STAGES + 4 mbarriers
+  static constexpr uint32_t BAR_BYTES = 128;  // 2 MAX_STAGES + 8 mbarriers
   // 1024 spare bytes to start the tiles on a 1024-byte boundary.
   static constexpr size_t SMEM = 1024 + ACT_BYTES + IPE_BUFS * IPE_BYTES +
                                  STAGES * STAGE_BYTES + BAR_BYTES;
@@ -186,6 +199,7 @@ struct Shape {
 struct Smem {
   uint32_t act, ipe, ring;                    // tiles
   uint32_t full, empty, ipe_full, ipe_empty;  // mbarrier arrays
+  uint32_t act_full, act_free;                // stash mode: tiles to pack
 };
 
 // ENC mode: a tile's IPE computed into the swizzled IPE tile from the raw
@@ -319,6 +333,58 @@ __device__ __forceinline__ void encode_tiles(const Params& p, const Smem& s,
   }
 }
 
+// Stash mode, packer warp pw of NPACKERS: the relu masks of x0..x7 and h
+// of every tile, as bit words (mask_bits.cuh).  For each published tile of
+// a consumer (narrow plan; the N-split plan's one tile of both), it takes
+// the units pw, pw + NPACKERS, .. of the tile's 4 C (warp w, word c) units
+// (C words a thread: H / 64 for x_m, DH / 64 for h): lane l computes word c
+// of consumer thread 32 w + l from the 32 values of the activation tile
+// that thread wrote (conflict-free: the same addresses), zeroes the bits
+// of rows past n and stores it; then it releases the tile.
+template <int H>
+__device__ __forceinline__ void pack_masks(const Params& p, const Smem& s,
+                                           const unsigned char* smem,
+                                           long long tiles, int pw,
+                                           int lane) {
+  using S = Shape<H, false>;
+  constexpr int TILES = S::SPLIT ? 1 : 2;  // consumers' tiles, packed apart
+  const int g = lane >> 2, q = lane & 3;
+  uint32_t phase = 0;
+  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+#pragma unroll 1
+    for (int m = 0; m <= NTRUNK; ++m, ++phase) {  // x0..x7, then h
+      const int words = m < NTRUNK ? H / 64 : DH / 64;
+#pragma unroll 1
+      for (int c = 0; c < TILES; ++c) {
+        mbar_wait(s.act_full + 8 * c, phase & 1);
+        const long long r0 = tile * S::BM + c * WG_ROWS;
+        uint32_t* group = p.bits + (r0 / MASK_ROWS) * mask_group_words(H) +
+                          mask_offset(H, m);
+#pragma unroll 1
+        for (int u = pw; u < 4 * words && r0 < p.n; u += NPACKERS) {
+          const int w = u / words, cw = u % words, lrow = 16 * w + g;
+          const unsigned char* at = smem + cw * S::BLOCK_BYTES +
+                                    c * WG_BYTES + q * 4;
+          uint32_t word = 0;
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int half = 0; half < 2; ++half)
+              word |= pair_bits(*reinterpret_cast<const __nv_bfloat162*>(
+                                    at + swizzle128(lrow, i) + half * 1024),
+                                2 * i + half);
+          // Rows past n get 0 bits.
+          word &= (r0 + lrow < p.n ? MASK_ROW_LO : 0u) |
+                  (r0 + lrow + 8 < p.n ? MASK_ROW_HI : 0u);
+          group[(32 * w + lane) * words + cw] = word;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(s.act_free + 8 * c);
+      }
+    }
+  }
+}
+
 // acc = bias + A @ W_l^T for this warpgroup's 64 rows over all of layer l's
 // k-slices, as the ring delivers them.  acc starts as the layer's bias (N
 // floats) and every product accumulates: that spares the epilogue an add,
@@ -398,19 +464,36 @@ __device__ __forceinline__ void consume(const Params& p,
   // thread holds: lrow and lrow + 8 (both are g modulo 8).
   const int lrow = warp * 16 + g;
 
+  // Stash mode: the packers' barriers of this warpgroup's tile (the
+  // N-split plan's consumers share one tile), the phases thread 0 has
+  // awaited, and whether the packers may still be reading the tile.
+  const uint32_t act_full = s.act_full + 8 * (S::SPLIT ? 0 : wg);
+  const uint32_t act_free = s.act_free + 8 * (S::SPLIT ? 0 : wg);
+  uint32_t freed = 0;
+  bool packing = false;
+
   // Before a write-back: the previous layer's stores (started by thread 0)
-  // must have read the activation tile; in the N-split plan the other
-  // consumer must also have read this layer's input.
+  // and the packers must have read the activation tile; in the N-split
+  // plan the other consumer must also have read this layer's input.
   auto stores_done = [&]() {
     if (S::SPLIT || p.stash) {
-      if (p.stash && tid == 0) bulk_wait_read();
+      if (p.stash && tid == 0) {
+        bulk_wait_read();
+        if (packing) mbar_wait(act_free, freed++ & 1);
+        packing = false;
+      }
       named_bar_sync(bar_id, bar_threads);
     }
   };
-  // After a write-back: publish it to the consumers' wgmma (and TMA).
-  auto publish = [&]() {
+  // After a write-back: publish it to the consumers' wgmma (and TMA) and,
+  // for a layer with a relu mask in stash mode, to the packers.
+  auto publish = [&](bool masked) {
     fence_proxy_async();
     named_bar_sync(bar_id, bar_threads);
+    if (masked && p.stash && tid == 0) {
+      if (lead) mbar_arrive(act_full);
+      packing = true;
+    }
   };
 
   const __nv_bfloat162 zero2 = __floats2bfloat162_rn(0.f, 0.f);
@@ -452,7 +535,7 @@ __device__ __forceinline__ void consume(const Params& p,
                                               acc[4 * j + 2 * half + 1]),
                         floor2);
         }
-        publish();
+        publish(l < NTRUNK);
         if (p.stash && tid == 0 && r0 < p.n) {
 #pragma unroll
           for (int blk = blk0; blk < blk0 + S::NW / KS; ++blk)
@@ -502,7 +585,7 @@ __device__ __forceinline__ void consume(const Params& p,
           if (q == 0 && valid[half])
             p.out[grow[half] * p.out_dim + 3] = acc[4 * (DH / 8) + 2 * half];
       }
-      publish();
+      publish(true);
       if (p.stash && lead && tid == 0 && r0 < p.n) {
 #pragma unroll
         for (int blk = 0; blk < DH / KS; ++blk)
@@ -557,6 +640,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   s.empty = s.full + 8 * MAX_STAGES;
   s.ipe_full = s.empty + 8 * MAX_STAGES;
   s.ipe_empty = s.ipe_full + 8 * 2;
+  s.act_full = s.ipe_empty + 8 * 2;
+  s.act_free = s.act_full + 8 * 2;
 
   if (threadIdx.x == 0) {
     for (int i = 0; i < S::STAGES; ++i) {
@@ -567,6 +652,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       // The producer's arrive.expect_tx, or every encoder.
       mbar_init(s.ipe_full + 8 * i, ENC ? NENCODERS : 1);
       mbar_init(s.ipe_empty + 8 * i, 8);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(s.act_full + 8 * i, 1);         // a consumer's thread 0
+      mbar_init(s.act_free + 8 * i, NPACKERS);  // lane 0 of each packer
     }
     fence_mbar_init();
   }
@@ -580,6 +669,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       if (threadIdx.x >= 128 - NENCODERS)
         encode_tiles<H>(p, s, smem + S::ACT_BYTES, tiles,
                         threadIdx.x - (128 - NENCODERS));
+    } else {
+      if (p.stash && threadIdx.x >= 128 - 32 * NPACKERS)
+        pack_masks<H>(p, s, smem, tiles, threadIdx.x / 32 - 1,
+                      threadIdx.x % 32);
     }
   } else {
     consume<H, ENC>(p, maps, s, smem, tiles, wg - 1, threadIdx.x - wg * 128);
@@ -691,19 +784,23 @@ cudaError_t run(Params& p, const void* ipe, const void* dirs, const void* w,
 // Launches the dir projection and the fused network on `stream`.  Device
 // pointers: ipe [n, 96] bf16, dirs [n / samples, 27] bf16, packed weights
 // and biases, dproj [n / samples, 128] f32 scratch, out [n, 4|6] f32, and
-// in stash mode stash [9, n, hidden] and stash_h [n, 128] bf16 (both null
-// in render mode).  w_off (12 entries) and b_off (4) are host arrays.
-// Returns a cudaError_t.
+// in stash mode stash [9, n, hidden] and stash_h [n, 128] bf16 and bits, the
+// relu masks' words ((n + 63) / 64 groups of mask_group_words(hidden)
+// 32-bit words; mask_bits.cuh) (all three null in render mode).  w_off
+// (12 entries) and b_off (4) are host arrays.  Returns a cudaError_t.
 extern "C" int ddnerf_fused_mlp_fwd(const void* ipe, const void* dirs,
                                     const void* w, const void* b, void* dproj,
                                     void* out, void* stash, void* stash_h,
-                                    long long n, int samples,
+                                    void* bits, long long n, int samples,
                                     int hidden, int depth_head,
                                     const long long* w_off,
                                     const long long* b_off, void* stream) {
   if (n <= 0 || samples <= 0 || n % samples) return cudaErrorInvalidValue;
-  if ((stash == nullptr) != (stash_h == nullptr)) return cudaErrorInvalidValue;
+  if ((stash == nullptr) != (stash_h == nullptr) ||
+      (stash == nullptr) != (bits == nullptr))
+    return cudaErrorInvalidValue;
   Params p = {};
+  p.bits = static_cast<uint32_t*>(bits);
   p.b = static_cast<const float*>(b);
   p.dproj = static_cast<const float*>(dproj);
   p.out = static_cast<float*>(out);

@@ -56,6 +56,7 @@ from ddnerf_tpu_torch.kernels.reference import (
     fused_mlp_backward_reference,
     fused_mlp_reference,
     fused_mlp_stash_reference,
+    mask_bits_shape,
     tf32_split_pack_reference,
 )
 from ddnerf_tpu_torch.models.mlp import DIR_DIM, IPE_DIM
@@ -70,7 +71,10 @@ LAUNCHES = counters("kernels.launches", (
     "fused_mlp_bwd_f32", "fused_enc_mlp_fwd_f32",
     "wide_mlp_fwd", "wide_mlp_fwd_stash", "wide_mlp_bwd", "wide_enc_mlp_fwd",
     "wide_mlp_fwd_f32", "wide_mlp_fwd_stash_f32", "wide_mlp_bwd_f32",
-    "wide_enc_mlp_fwd_f32"))
+    "wide_enc_mlp_fwd_f32", "chain_mask_bits"))
+# ``chain_mask_bits`` counts the B2 launches whose cotangent chain reads its
+# relu masks from the bit words B1s writes (``Stash.bits``): every bfloat16
+# ``fused_mlp_bwd``, none of the float32 or wide plans'.
 # Under CUDA-graph capture a wrapper launches nothing: it records its kernel
 # into the graph and counts here (``kernels.captured``).  The graph's owner
 # reads what a capture added and adds that to LAUNCHES at every replay,
@@ -86,6 +90,11 @@ def _count(name: str, net) -> None:
         name = "wide_" + name[len("fused_"):]
     if net.compute_dtype == torch.float32:
         name += "_f32"
+    _tally(name)
+
+
+def _tally(name: str) -> None:
+    """One launch of ``name``, or one recorded under capture."""
     counts = CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES
     counts[name] += 1
 
@@ -426,6 +435,13 @@ def _wide_workspace(nbytes: int, dev) -> torch.Tensor:
     return torch.empty(nbytes, dtype=torch.uint8, device=dev)
 
 
+def _mask_bits(net) -> bool:
+    """Whether ``net``'s kernels pass the relu masks as bit words
+    (``csrc/mask_bits.cuh``): the bfloat16 fused plans."""
+    return (net.compute_dtype == torch.bfloat16
+            and not is_wide(net.hidden_size))
+
+
 def _offsets(kw: KernelWeights):
     i64 = ctypes.c_longlong
     return (i64 * len(kw.w_off))(*kw.w_off), (i64 * len(kw.b_off))(*kw.b_off)
@@ -441,7 +457,8 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     (rgb, alpha[, raw_mu, raw_sigma]); with ``stash`` (the training
     forward) ``(out, Stash)``, the activations the backward reads, with
     trunk slabs :func:`stash_width` wide (on a card the columns past the
-    network's width are zero).
+    network's width are zero) and, from the bfloat16 fused kernel, the relu
+    masks' words (``Stash.bits``).
     """
     k = int(samples_per_ray)
     n = _check_rows(ipe, dirs, k)
@@ -459,7 +476,9 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     if stash:
         acts = Stash(
             torch.empty((NUM_STASH, n, hid), dtype=cdt, device=dev),
-            torch.empty((n, DIR_HIDDEN), dtype=cdt, device=dev))
+            torch.empty((n, DIR_HIDDEN), dtype=cdt, device=dev),
+            torch.empty(mask_bits_shape(n, hid), dtype=torch.int32,
+                        device=dev) if _mask_bits(net) else None)
     if n == 0:
         return (out, acts) if stash else out
     lib = build.load_library()
@@ -480,12 +499,14 @@ def fused_mlp_forward(net, ipe: torch.Tensor, dirs: torch.Tensor,
             ws.data_ptr(), ws.numel(), n, k, hid, int(net.depth_head), f32,
             *_offsets(kw), stream)
     else:
-        entry = (lib.ddnerf_fused_mlp_fwd_f32 if cdt == torch.float32
-                 else lib.ddnerf_fused_mlp_fwd)
-        err = entry(
-            ipe_c.data_ptr(), dirs_c.data_ptr(), _weights_ptr(kw, cdt),
-            kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(), *stash_ptrs,
-            n, k, hid, int(net.depth_head), *_offsets(kw), stream)
+        args = (ipe_c.data_ptr(), dirs_c.data_ptr(), _weights_ptr(kw, cdt),
+                kw.b.data_ptr(), dproj.data_ptr(), out.data_ptr(), *stash_ptrs)
+        tail = (n, k, hid, int(net.depth_head), *_offsets(kw), stream)
+        if cdt == torch.float32:
+            err = lib.ddnerf_fused_mlp_fwd_f32(*args, *tail)
+        else:
+            err = lib.ddnerf_fused_mlp_fwd(
+                *args, acts.bits.data_ptr() if stash else None, *tail)
     name = "fused_mlp_fwd_stash" if stash else "fused_mlp_fwd"
     build.check(lib, err, name)
     _count(name, net)
@@ -589,6 +610,17 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     if stash.trunk.dtype != cdt or stash.h.dtype != cdt:
         raise ValueError(f"the stash must be {cdt} (the kernel forward's at "
                          "the network's compute dtype)")
+    reads_bits = _mask_bits(net)
+    if reads_bits and (stash.bits is None or stash.bits.dtype != torch.int32
+                 or tuple(stash.bits.shape) != mask_bits_shape(n, hid)
+                 or stash.bits.device != ipe.device):
+        got = (None if stash.bits is None else
+               f"{stash.bits.dtype} {tuple(stash.bits.shape)} on "
+               f"{stash.bits.device}")
+        raise ValueError(
+            f"the stash's mask bits are {got}, not torch.int32 "
+            f"{mask_bits_shape(n, hid)} on {ipe.device}: pass the stash of "
+            "the same kernel forward")
     from ddnerf_tpu_torch.kernels import build
 
     dev, f32 = ipe.device, cdt == torch.float32
@@ -607,8 +639,10 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
     g32 = g.float().contiguous()
     trunk, h = stash.trunk.contiguous(), stash.h.contiguous()
     args = (ipe_c.data_ptr(), dirs_p.data_ptr(), g32.data_ptr(),
-            trunk.data_ptr(), h.data_ptr(), _weights_ptr(kw, cdt),
-            gw.data_ptr(), gb.data_ptr())
+            trunk.data_ptr(), h.data_ptr())
+    if reads_bits:  # the bfloat16 fused kernel reads the masks' words
+        args += (stash.bits.contiguous().data_ptr(),)
+    args += (_weights_ptr(kw, cdt), gw.data_ptr(), gb.data_ptr())
     tail = (*_offsets(kw), torch.cuda.current_stream(dev).cuda_stream)
     if is_wide(hid):
         ws = _wide_workspace(lib.ddnerf_wide_bwd_workspace(n, k, hid, int(f32)),
@@ -626,6 +660,8 @@ def fused_mlp_backward(net, ipe: torch.Tensor, dirs: torch.Tensor,
                     int(net.depth_head), int(per_ray_dirs), *tail)
     build.check(lib, err, "fused_mlp_bwd")
     _count("fused_mlp_bwd", net)
+    if reads_bits:
+        _tally("chain_mask_bits")
     return unpack_grads(net, kw, gw, gb)
 
 
@@ -642,14 +678,14 @@ class _FusedMLPTrain(torch.autograd.Function):
                                        stash=True)
         ctx.net, ctx.samples_per_ray = net, samples_per_ray
         ctx.per_ray_dirs = per_ray_dirs
-        ctx.save_for_backward(ipe, dirs, stash.trunk, stash.h)
+        ctx.save_for_backward(ipe, dirs, *stash)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        ipe, dirs, trunk, h = ctx.saved_tensors
+        ipe, dirs, *stash = ctx.saved_tensors
         grads = fused_mlp_backward(ctx.net, ipe, dirs, g, ctx.samples_per_ray,
-                                   Stash(trunk, h), ctx.per_ray_dirs)
+                                   Stash(*stash), ctx.per_ray_dirs)
         return (None, None, None, None, None, *grads.values())
 
 

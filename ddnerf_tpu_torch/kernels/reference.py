@@ -13,7 +13,10 @@ interface: flat ray-major rows and per-ray view directions.
   the kernel's rounding points;
 * :func:`tf32_split_pack_reference` — the TF32 planes of a float32 weight
   pack (``csrc/fused_mlp_f32.cu::tf32_split_kernel``), from
-  :func:`tf32_round` and :func:`tf32_split` on the float32 bits.
+  :func:`tf32_round` and :func:`tf32_split` on the float32 bits;
+* :func:`pack_mask_bits` / :func:`unpack_mask_bits` — the layout of the
+  relu-mask words that B1s writes and B2's cotangent chain reads
+  (``csrc/mask_bits.cuh``), both ways.
 
 The forward arithmetic is the module's own (:mod:`ddnerf_tpu_torch.models.
 mlp`: operands rounded to the compute dtype, float32 products and
@@ -26,13 +29,15 @@ On a GPU the caller keeps TF32 off.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from ddnerf_tpu_torch.core.math import integrated_pos_enc
 
 NUM_STASH = 9  # x0..x7, feat: the first 7 slabs are the TPU split layout
+NUM_RELU = 8  # x0..x7: the stash slabs with a relu mask
+MASK_ROWS = 64  # rows of a group of mask words (a wgmma's m64)
 TF32_DROP = 13  # float32 mantissa bits below TF32's ten
 
 
@@ -63,11 +68,87 @@ class Stash(NamedTuple):
 
     ``trunk [9, N, H]``: x0..x6 (``trunk[:7]`` is the TPU kernel's
     ``split_h_stash`` trunk layout), then x7 and feat, which this port
-    stashes instead of recomputing from x6; ``h [N, 128]``.
+    stashes instead of recomputing from x6; ``h [N, 128]``.  ``bits``: the
+    relu masks of x0..x7 and h as int32 words (:func:`pack_mask_bits`'s
+    layout), which the bfloat16 fused kernels write and read; None where
+    no kernel reads them (the plain versions, the float32 and wide plans).
     """
 
     trunk: torch.Tensor
     h: torch.Tensor
+    bits: Optional[torch.Tensor] = None
+
+
+def mask_bits_shape(n: int, width: int, dir_width: int = 128) -> tuple:
+    """Shape of the mask words of ``n`` rows at kernel width ``width``:
+    a row of ``16 width + 2 dir_width`` int32 words per group of
+    :data:`MASK_ROWS` rows, ``(8 width + dir_width) / 8`` bytes a row."""
+    return (-(-n // MASK_ROWS), 2 * (NUM_RELU * width + dir_width))
+
+
+def _to_words(mask: torch.Tensor) -> torch.Tensor:
+    """``[groups * 64, C * 64]`` 0/1 (int64) -> ``[groups, 128 C]`` words
+    (int64): row ``16 w + 8 half + g``, column ``64 c + 8 i + 2 q + e`` of a
+    group is bit ``16 e + 15 - (2 i + half)`` of word ``c`` of thread
+    ``32 w + 4 g + q``, whose ``C`` words are consecutive (the wgmma
+    accumulator fragment: ``csrc/hopper_common.cuh``, ``wgmma_k16``)."""
+    groups, cols = mask.shape[0] // MASK_ROWS, mask.shape[1] // 64
+    # [g, w, half, g8, c, i, q, e] -> [g, w, g8, q, c, e, i, half]
+    bits = mask.reshape(groups, 4, 2, 8, cols, 8, 4, 2).permute(
+        0, 1, 3, 6, 4, 7, 5, 2)
+    bits = bits.reshape(groups, 128, cols, 2, 16).flip(-1)
+    shifts = torch.arange(32, device=mask.device)
+    return (bits.reshape(groups, 128, cols, 32) << shifts).sum(-1).reshape(
+        groups, -1)
+
+
+def _from_words(words: torch.Tensor, cols: int) -> torch.Tensor:
+    """:func:`_to_words` undone for ``cols`` columns: ``[groups, 128 cols /
+    64]`` words (int64) -> ``[groups * 64, cols]`` 0/1."""
+    groups, cols = words.shape[0], cols // 64
+    bits = (words.unsqueeze(-1)
+            >> torch.arange(32, device=words.device)) & 1
+    bits = bits.reshape(groups, 128 * cols, 2, 16).flip(-1)
+    # [g, w, g8, q, c, e, i, half] -> [g, w, half, g8, c, i, q, e]
+    bits = bits.reshape(groups, 4, 8, 4, cols, 2, 8, 2).permute(
+        0, 1, 7, 2, 4, 6, 3, 5)
+    return bits.reshape(groups * MASK_ROWS, cols * 64)
+
+
+def pack_mask_bits(trunk_mask: torch.Tensor, h_mask: torch.Tensor,
+                   width: int) -> torch.Tensor:
+    """The mask words of ``csrc/mask_bits.cuh``: ``trunk_mask [8, N, w]``
+    (x0..x7 > 0, ``w <= width``) and ``h_mask [N, D]`` (h > 0) ->
+    ``int32`` :func:`mask_bits_shape` ``(N, width, D)``.  Columns from
+    ``w`` to ``width`` and rows past ``N`` read 0.  In a group of
+    :data:`MASK_ROWS` rows, mask ``m`` (x0..x7, then h) takes the words
+    from ``128 (width / 64) m``, ``width / 64`` (``D / 64`` for h) a
+    thread, in :func:`_to_words`'s order."""
+    n = trunk_mask.shape[1]
+    rows = mask_bits_shape(n, width, h_mask.shape[1])[0] * MASK_ROWS
+    regions = []
+    for mask, cols in [(m, width) for m in trunk_mask] + [
+            (h_mask, h_mask.shape[1])]:
+        full = torch.zeros(rows, cols, dtype=torch.int64,
+                           device=mask.device)
+        full[:n, :mask.shape[1]] = mask.to(torch.int64)
+        regions.append(_to_words(full))
+    words = torch.cat(regions, 1)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_mask_bits(words: torch.Tensor, n: int, width: int,
+                     dir_width: int = 128) -> tuple:
+    """:func:`pack_mask_bits` undone: ``words`` -> ``(trunk_mask [8, n,
+    width], h_mask [n, dir_width])``, bool."""
+    words = words.to(torch.int64) & 0xFFFFFFFF
+    out, at = [], 0
+    for cols in [width] * NUM_RELU + [dir_width]:
+        size = 2 * cols
+        out.append(_from_words(words[:, at:at + size], cols)[:n].bool())
+        at += size
+    return torch.stack(out[:NUM_RELU]), out[NUM_RELU]
 
 
 def fused_mlp_reference(net, ipe: torch.Tensor, dirs: torch.Tensor,

@@ -5,7 +5,8 @@ NVIDIA GPU, inside one process, in turns.
 
 ``DIR`` holds another version of ``fused_mlp_fwd.cu`` and the headers it
 includes (for a parent commit: ``git show REV:ddnerf_tpu_torch/kernels/csrc/F
-> DIR/F`` for each file), with the same C entry points.  It is compiled with
+> DIR/F`` for each file), with the same C entry points or those of a version
+that writes no relu-mask words (no ``bits`` argument).  It is compiled with
 nvcc for sm_90a into ``DIR/other.so``; the repository's own library is built
 as usual.  Then B1 (render mode), B1s (stash mode) and B3 (in-kernel IPE)
 are timed with CUDA events, medians of ``--reps``, for DepthMipMLP and
@@ -19,10 +20,12 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import os
 import statistics
 import subprocess
 import sys
+import types
 
 import torch
 
@@ -35,6 +38,7 @@ from ddnerf_tpu_torch.models.mlp import DepthMipMLP, MipMLP  # noqa: E402
 
 ENTRIES = ("ddnerf_fused_mlp_fwd", "ddnerf_fused_enc_mlp_fwd",
            "ddnerf_cuda_error_string")
+BITS_ARG = 8  # ddnerf_fused_mlp_fwd's mask words, after stash_h
 
 
 def event_ms(fn, reps):
@@ -61,10 +65,23 @@ def build_other(directory, this_lib):
     if proc.returncode != 0:
         raise SystemExit(f"nvcc failed on {directory}:\n{proc.stderr}")
     lib = ctypes.CDLL(so)
+    with open(os.path.join(directory, "fused_mlp_fwd.cu")) as f:
+        has_bits = "void* bits" in f.read()
+    fns = {}
     for name in ENTRIES:
-        getattr(lib, name).argtypes = getattr(this_lib, name).argtypes
-        getattr(lib, name).restype = getattr(this_lib, name).restype
-    return lib
+        fn = getattr(lib, name)
+        argtypes = list(getattr(this_lib, name).argtypes)
+        drop = name == "ddnerf_fused_mlp_fwd" and not has_bits
+        if drop:
+            del argtypes[BITS_ARG]
+        fn.argtypes = argtypes
+        fn.restype = getattr(this_lib, name).restype
+        fns[name] = functools.partial(_drop_bits, fn) if drop else fn
+    return types.SimpleNamespace(**fns)
+
+
+def _drop_bits(fn, *args):
+    return fn(*args[:BITS_ARG], *args[BITS_ARG + 1:])
 
 
 def main():

@@ -498,7 +498,7 @@ def test_mipnerf_step_sums_two_kernel_backwards_on_the_shared_net(
     pipe, state, metrics, launched = step(False)
     assert launched == {**dict.fromkeys(fk.LAUNCHES, 0),
                         "fused_mlp_fwd_stash": 2, "fused_mlp_bwd": 2,
-                        "ipe_encode": 2}
+                        "chain_mask_bits": 2, "ipe_encode": 2}
     assert packs == [pipe.coarse]  # one pack served both cycles and B2
     train_step(cfg, pipe, state, batch)
     assert packs == [pipe.coarse] * 2  # Adam changed the weights: repacked
@@ -634,7 +634,8 @@ def test_captured_step_equals_eager_step_bitwise(device, nerf_type):
     assert launched["graph"] == launched["eager"] == {
         **dict.fromkeys(fk.LAUNCHES, 0),
         "fused_mlp_fwd_stash": 2 * GRAPH_STEPS,
-        "fused_mlp_bwd": 2 * GRAPH_STEPS, "ipe_encode": 2 * GRAPH_STEPS}
+        "fused_mlp_bwd": 2 * GRAPH_STEPS, "chain_mask_bits": 2 * GRAPH_STEPS,
+        "ipe_encode": 2 * GRAPH_STEPS}
     assert ("dp_loss" in names) == (nerf_type == "DDNerfModel")
     assert torch.isfinite(rows["eager"]).all()
     for j, name in enumerate(names):

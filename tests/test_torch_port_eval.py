@@ -69,7 +69,7 @@ def test_cli_writes_results_and_counts_no_launch_on_cpu(logdir, capsys):
         **{f"{plan}_{kernel}{sfx}": 0 for plan in ("fused", "wide")
            for kernel in ("mlp_fwd", "mlp_fwd_stash", "mlp_bwd", "enc_mlp_fwd")
            for sfx in ("", "_f32")},
-        "ipe_encode": 0, "ipe_encode_f32": 0}
+        "ipe_encode": 0, "ipe_encode_f32": 0, "chain_mask_bits": 0}
     text = open(os.path.join(logdir, "validation", "results.txt")).read()
     assert "psnr_fine" in text and "ssim_v2_coarse" in text
 

@@ -210,7 +210,7 @@ def test_cli_writes_video_frames_and_launch_counts(logdir, capsys):
         **{f"{plan}_{kernel}{sfx}": 0 for plan in ("fused", "wide")
            for kernel in ("mlp_fwd", "mlp_fwd_stash", "mlp_bwd", "enc_mlp_fwd")
            for sfx in ("", "_f32")},
-        "ipe_encode": 0, "ipe_encode_f32": 0}
+        "ipe_encode": 0, "ipe_encode_f32": 0, "chain_mask_bits": 0}
     savedir = os.path.join(logdir, "video")
     frames, fps = read_avi(os.path.join(savedir, "video.avi"))
     assert frames.shape == (3, 64, 128, 3) and fps == 24
